@@ -15,16 +15,48 @@ Phases (any failure raises and exits non-zero):
      log_space off and on, and near the speed clamp;
   4. the main path: the `dust` stack from PENDULUM_DEMO_CONFIG with the
      fused rollout (K1) and FusedPendulumMPF (K2), 200 MPC steps of
-     PendulumSimulation; every kernel must launch once per step and every
-     cost, action and particle must be finite;
+     PendulumSimulation; every kernel must launch once per step, every
+     cost, action and particle must be finite, and the pendulum must swing
+     up (on every path: the lowest cost in steps 100-199 below 1; for the
+     sweep, its median over episodes, and at most 1 in 64 episodes above);
   5. kernel path against plain path (rollout loop + autograd MPF) for
      10 steps from the same state and generator seed, re-synced per step;
   6. kernel and plain-version times at the main-path shapes, beside the
      bound: device time per call (20 calls in one CUDA graph, median of 7
      replays) and time per call as the main path pays it (CUDA events
-     around one call, median of 100); plain, kernel, kernel, plain.
+     around one call, median of 100); plain, kernel, kernel, plain;
+  7. K3 (the whole SVMPC solve) against its plain version at the demo
+     shapes and at an odd shape near the speed clamp;
+  8. path 2: the `dust` stack with `fused_solve: true` (K3) and
+     FusedPendulumMPF (K2), 200 MPC steps of PendulumSimulation; K3 and K2
+     must launch once per step and K1 never;
+  9. the K3 path against the plain path (rollout loop + autograd MPF) for
+     10 steps from the same state and generator seed, re-synced per step;
+ 10. K4 (the whole episode) against its plain version in host-noise mode
+     (1 and 3 steps) and in device-RNG mode (2 steps), and against the
+     composition of the K3 and K2 kernels with the same noise;
+ 11. path 3: one 200-step episode of the demo stack in one K4 launch
+     (`megakernel_pendulum_episode_fn`): ms per episode, swing-up, the
+     same seed gives the same bits, another seed other results;
+ 12. K5 (the scenario sweep) against independent K4 launches, 16
+     scenarios x 2 chains, bit for bit; a NaN in one scenario's true
+     length or MPF particles leaves every other scenario's bits alone;
+ 13. path 4: bench.py's sweep shape, 256 episodes = 8 groups x 16
+     scenarios x 2 chains x 200 steps, in one K5 launch through
+     MegakernelGroupSweep: solves/s and the median over episodes of the
+     lowest cost in steps 100-199. Before it, K5 at this layout against
+     its plain version after 1 and 2 steps and against one launch per
+     group (bit for bit); after it, the plain sweep on the same
+     draws over 200 steps: where the episodes drift apart and how many
+     fail to swing up on either side;
+ 14. K3, K4 and K5 times beside their bounds: K3 as in phase 6; K4 and K5
+     (one launch each, 30-70 ms) between CUDA events around single calls,
+     their plain versions likewise (one call each: bound by the host
+     launching their operations).
 
-The line before the last is the kernels' JSON summary; the last line is
+Every path is driven with all launch counts set to 0 just before it and
+read just after. The line before the last is the kernels' JSON summary;
+the last line is
 {"ok": true, "device": {...}}. A full report goes to
 chiprun_out/chip_smoke_report.json. Without a CUDA device the script
 prints no result and exits 2.
@@ -54,6 +86,22 @@ COMPARE_STEPS = 10
 SEED = 0
 K1_TOL = dict(rtol=1e-5, atol=1e-4)
 K2_TOL = dict(rtol=1e-4, atol=1e-5)
+# K3 against its plain version: the same arithmetic, sums over samples
+# and particles in another order; costs and weights at K1's tolerance,
+# particles and plans (softmax-weighted sums) at K2's
+K3_TOL = dict(rtol=1e-4, atol=1e-4)
+# K4 against its plain version (tests/test_pallas_episode.py:137-157):
+# after 3 steps the chaotic rollout amplifies ulp drift of the particles
+K4_TOLS = dict(th=1e-5, om=1e-4, action=1e-4, cost=1e-3, bw_sv=1e-6,
+               bw_mpf=1e-6, theta=1e-3, a_mat=5e-3, mpf_x=1e-5)
+K4_FIELDS = ("th", "om", "action", "cost", "bw_sv", "bw_mpf")
+SWEEP_GROUPS, SWEEP_SC, SWEEP_CHAINS = 8, 16, 2
+# swing-up reached: the lowest cost in steps 100-199 stays below
+# bench.py's sanity level (the cost is 0 upright at rest, 200 hanging)
+SWINGUP_MAX_COST = 1.0
+# the sweep: a fault in a minority of blocks must not hide behind the
+# median, so at most 1 in 64 episodes may miss that level
+SWEEP_MAX_FAIL_SHARE = 1 / 64
 # the closed loop's tolerances (tests/test_equivalence_dual.py)
 EARLY_TOL = dict(rtol=1e-3, atol=5e-4)
 RUN_TOL = dict(rtol=5e-3, atol=1e-2)
@@ -265,17 +313,18 @@ def phase_k2(dev):
     return max(errs.values())
 
 
-def _kernel_harness(config, arrays, dev, fused, steps):
-    """A stack and harness on the kernel path (fused=True: K1 hook +
-    FusedPendulumMPF) or the plain path (rollout loop + autograd MPF),
-    wired around the same initial arrays, as bench.py wires the JAX
-    stack."""
+def _kernel_harness(config, arrays, dev, fused, steps, fused_solve=False):
+    """A stack and harness on the kernel path (fused=True: K1 hook, or K3
+    with fused_solve=True, + FusedPendulumMPF) or the plain path (rollout
+    loop + autograd MPF), wired around the same initial arrays, as
+    bench.py wires the JAX stack."""
     from dust_tpu_torch.experiments import assemble_stack
     from dust_tpu_torch.inference import FusedPendulumMPF
     from dust_tpu_torch.simulation import PendulumSimulation
 
     cfg = copy.deepcopy(config)
     cfg["exp_params"]["fused_rollout"] = fused
+    cfg["exp_params"]["fused_solve"] = fused and fused_solve
     stack = assemble_stack(cfg, arrays, case="dust", device=dev)
     if fused:
         stack.mpf = FusedPendulumMPF.from_mpf(stack.mpf)
@@ -287,16 +336,52 @@ def _kernel_harness(config, arrays, dev, fused, steps):
     return stack, harness
 
 
-def phase_main_path(dev, config):
+def _wrappers():
+    """name -> the wrapper whose `launches` counts its kernel's launches."""
+    from dust_tpu_torch.ops import episode, mpf, rollout, solve, sweep_episode
+
+    return {
+        "pendulum_rollout_costs": rollout.fused_pendulum_rollout_costs,
+        "pendulum_mpf_optimize": mpf.fused_pendulum_mpf_optimize,
+        "pendulum_solve": solve.fused_pendulum_solve,
+        "pendulum_episode": episode.fused_pendulum_episode,
+        "pendulum_sweep_episode": sweep_episode.fused_pendulum_sweep_episode,
+    }
+
+
+def _reset_counts():
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _counts():
+    return {name: fn.launches for name, fn in _wrappers().items()}
+
+
+def _check_counts(path, counts, want):
+    """Every kernel named in `want` launched exactly that often; any other
+    kernel not at all."""
+    for name, n in counts.items():
+        if n != want.get(name, 0):
+            raise AssertionError(
+                f"{path}: {name} launched {n} times, expected "
+                f"{want.get(name, 0)}")
+
+
+def phase_main_path(dev, config, fused_solve=False):
+    """Path 1 (fused_solve=False): K1 hook + FusedPendulumMPF. Path 2
+    (fused_solve=True): FusedPendulumSVMPC (K3) + FusedPendulumMPF; the
+    K1 hook stays wired and must not launch."""
     import torch
 
     from dust_tpu_torch.experiments import build_pendulum_stack
     from dust_tpu_torch.inference import FusedPendulumMPF
-    from dust_tpu_torch.ops import mpf, rollout
     from dust_tpu_torch.simulation import PendulumSimulation
 
+    label = "path 2 (K3 + K2)" if fused_solve else "main path"
     cfg = copy.deepcopy(config)
     cfg["exp_params"]["fused_rollout"] = True
+    cfg["exp_params"]["fused_solve"] = fused_solve
     gen = torch.Generator(device=dev).manual_seed(SEED)
     stack = build_pendulum_stack(cfg, gen, case="dust", device=dev)
     # bench.py's kernel path: the single-kernel MPF
@@ -315,28 +400,24 @@ def phase_main_path(dev, config):
 
     run(5)  # warm-up: library handles, allocator, first-call set-up
 
-    rollout.fused_pendulum_rollout_costs.launches = 0
-    mpf.fused_pendulum_mpf_optimize.launches = 0
+    _reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cols = run(MAIN_STEPS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
-    launches = {
-        "pendulum_rollout_costs": rollout.fused_pendulum_rollout_costs.launches,
-        "pendulum_mpf_optimize": mpf.fused_pendulum_mpf_optimize.launches,
-    }
-    print(f"main path: {MAIN_STEPS} MPC steps "
+    launches = _counts()
+    print(f"{label}: {MAIN_STEPS} MPC steps "
           f"(8 draws x 128 samples x 3 policies, H 30; 50 MPF particles x "
           f"20 steps) in {elapsed:.3f} s; launches {launches}")
-    for name, n in launches.items():
-        if n != MAIN_STEPS:
-            raise AssertionError(
-                f"{name} launched {n} times in {MAIN_STEPS} steps")
+    solve_kernel = "pendulum_solve" if fused_solve else \
+        "pendulum_rollout_costs"
+    _check_counts(label, launches, {solve_kernel: MAIN_STEPS,
+                                    "pendulum_mpf_optimize": MAIN_STEPS})
     for name in ("Cost", "Actions", "DynParticles", "PolParticles",
                  "Position", "Speed"):
         if not np.isfinite(cols[name]).all():
-            raise AssertionError(f"non-finite values in {name}")
+            raise AssertionError(f"{label}: non-finite values in {name}")
     second_half_min = float(cols["Cost"][MAIN_STEPS // 2:].min())
     result = {
         "steps": MAIN_STEPS,
@@ -347,10 +428,17 @@ def phase_main_path(dev, config):
         "final_cost": float(cols["Cost"][-1]),
         "launches": launches,
     }
-    print(f"main path: {result['solves_per_s']:.1f} solves/s, "
+    print(f"{label}: {result['solves_per_s']:.1f} solves/s, "
           f"{result['ms_per_step']:.3f} ms per MPC step, lowest cost in "
           f"steps {MAIN_STEPS // 2}-{MAIN_STEPS - 1}: {second_half_min:.4f}")
+    _check_swingup(label, second_half_min)
     return result
+
+
+def _check_swingup(label, low):
+    if not low < SWINGUP_MAX_COST:
+        raise AssertionError(f"{label}: no swing-up (lowest cost in the "
+                             f"second half {low:.4f})")
 
 
 def phase_kernel_vs_plain(dev, config):
@@ -445,6 +533,714 @@ def phase_timing(dev):
     return out
 
 
+# -- slice 2: the whole solve (K3), the whole episode (K4), sweeps (K5) ------
+
+def _solve_ops(n_params, m, n_act, hz, episode=False):
+    """Float32 operations of one solve as K3's code does them: per
+    trajectory and rollout step 34 (cost 6, dynamics 7, angle 1, the
+    rotation polynomials 13, the rotation 6) plus 10 per trajectory
+    (terminal cost 6, coefficients 4); per (particle, sample, step) the
+    action clamp (2; 4 with the episode's theta + sigma eps) and the
+    delta / likelihood sums (5; 4 in the episode's eps form); per
+    (particle, sample) the param average and the softmaxes (n_params + 14);
+    the Stein step and forward: 6 per particle pair and step for each of
+    the three squared distances, 8 per pair and step for the score and
+    kernel sums, 8 per particle and step."""
+    ops = n_params * m * n_act * (34 * hz + 10)
+    ops += m * n_act * hz * ((4 + 4) if episode else (2 + 5))
+    ops += m * n_act * (n_params + 14)
+    ops += 3 * m * m * hz * 6 + m * m * hz * 8 + m * hz * 8
+    return ops
+
+
+def _k3_bound(n_params, m, n_act, hz):
+    """Inputs read once (scalars 8, theta/locs/a_mat, log_mix, a_seq, the
+    actions, lengths/masses), outputs written once (theta_opt/theta_fwd/
+    a_mat, a_mix, a_seq_sel, weights, costs); operations `_solve_ops`."""
+    nbytes = 4 * (8 + 3 * m * hz + m + hz + n_act * m * hz + 2 * n_params
+                  + 3 * m * hz + 2 * m + hz + n_act * m)
+    return _bound(nbytes, _solve_ops(n_params, m, n_act, hz))
+
+
+def _episode_ops(steps, n_params, m, n_act, hz, m_mpf, mpf_steps):
+    """Float32 and integer operations of one device-RNG episode as K4's
+    code does them, per step: the solve (`_solve_ops`, episode form); the
+    noise, 48 per normal (two uniforms of two 8-op hashes and 4 more each,
+    Box-Muller 8) for hz*m*n_act + 2*n_params normals and 20 per uniform
+    for n_params; the two Silverman bandwidths, 2 compares per value pair
+    (rank counts) and 4 per value; the MPF loop as `_k2_bound` counts it;
+    the draws (8 per draw) and the simulator (20)."""
+    n_sv, n_mpf = m * hz, 2 * m_mpf
+    per_step = (_solve_ops(n_params, m, n_act, hz, episode=True)
+                + 48 * (hz * m * n_act + 2 * n_params) + 20 * n_params
+                + 2 * (n_sv * n_sv + n_mpf * n_mpf) + 4 * (n_sv + n_mpf)
+                + mpf_steps * (28 * m_mpf * m_mpf + 57 * m_mpf)
+                + 8 * n_params + 20)
+    return steps * per_step
+
+
+def _episodes_bound(episodes, steps, n_params, m, n_act, hz, m_mpf,
+                    mpf_steps):
+    """K4 (episodes = 1) and K5 in device-RNG mode: per episode the inputs
+    read once (shared scalars 12, true parameters 2, seeds 3,
+    theta0/locs0/a_mat0, the MPF particles) and the outputs written once
+    (6 log values per step, theta/locs/a_mat, the MPF particles);
+    operations `_episode_ops`. The per-step noise scratch is neither an
+    input nor an output."""
+    nbytes = 4 * episodes * (17 + 3 * m * hz + 2 * m_mpf
+                             + 6 * steps + 3 * m * hz + 2 * m_mpf)
+    ops = episodes * _episode_ops(steps, n_params, m, n_act, hz, m_mpf,
+                                  mpf_steps)
+    return _bound(nbytes, ops)
+
+
+def _k3_inputs(hz, m, n_params, n_act, state0, gen, dev):
+    import torch
+
+    theta = 0.5 * torch.randn((m, hz), generator=gen, device=dev)
+    return (
+        torch.tensor(state0, device=dev), theta,
+        theta + 0.1 * torch.randn((m, hz), generator=gen, device=dev),
+        torch.full((m,), -float(np.log(m)), device=dev),
+        torch.randn((m, hz), generator=gen, device=dev),
+        0.1 * torch.randn((hz,), generator=gen, device=dev),
+        # 2.5-sigma torques around the particles: many beyond the clamp
+        theta[None] + 2.5 * torch.randn((n_act, m, hz), generator=gen,
+                                        device=dev),
+        0.6 + 0.7 * torch.rand((n_params,), generator=gen, device=dev),
+        0.6 + 0.7 * torch.rand((n_params,), generator=gen, device=dev),
+        # bw, lr, alpha, temp, ctrl_sigma, prior_sigma as device tensors
+        # (a CUDA graph capture takes no host-to-device copy)
+        *(torch.tensor(v, device=dev) for v in (0.3, 2.0, 1.0, 1.0, 2.0,
+                                                2.0)),
+    )
+
+
+def _k3_plain(args, **statics):
+    from dust_tpu_torch.ops import solve
+
+    (state0, theta, locs, log_mix, a_mat, a_seq, actions, lengths, masses,
+     bw, lr, alpha, temp, ctrl_sigma, prior_sigma) = args
+    scal = solve._solve_scal(state0, bw, lr, alpha, temp, ctrl_sigma,
+                             prior_sigma, theta.device)
+    return solve.pendulum_solve_plain(
+        scal, theta, locs, log_mix, a_mat, a_seq, actions, lengths, masses,
+        dt=statics.get("dt", 0.05), g=statics.get("g", 9.8),
+        exp_util=statics["exp_util"])
+
+
+_K3_OUTS = ("theta_opt", "theta_fwd", "a_mat", "a_mix", "a_seq_sel",
+            "weights", "costs")
+
+
+def phase_k3(dev):
+    import torch
+
+    from dust_tpu_torch.ops import solve
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 6)
+    worst = 0.0
+    for label, (hz, m, n_params, n_act), state0, exp_util in (
+            ("main 8x3x128 H30", (30, 3, 8, 128), (3.0, 0.0), True),
+            ("main 8x3x128 H30 ExpectedCost", (30, 3, 8, 128), (3.0, 0.0),
+             False),
+            ("odd 3x2x7 H11 near speed clamp", (11, 2, 3, 7), (0.2, 7.9),
+             True)):
+        args = _k3_inputs(hz, m, n_params, n_act, state0, gen, dev)
+        statics = dict(hz=hz, m=m, n_params=n_params, n_act=n_act,
+                       exp_util=exp_util)
+        got = solve.fused_pendulum_solve(*args, **statics)
+        torch.cuda.synchronize()
+        want = _k3_plain(args, **statics)
+        for name, g, w in zip(_K3_OUTS, got, want):
+            worst = max(worst, _check_close(f"K3 {label} {name}", g, w,
+                                            **K3_TOL))
+    return worst
+
+
+def phase_k3_vs_plain(dev, config):
+    """The K3 path (FusedPendulumSVMPC + FusedPendulumMPF) against the
+    plain path (SVMPC rollout loop + autograd MPF) for COMPARE_STEPS steps
+    from the same arrays and generator seed; the plain side starts every
+    step from the K3 side's state."""
+    import torch
+
+    from dust_tpu_torch.experiments import draw_stack_arrays
+    from dust_tpu_torch.inference import SVMPCState
+    from dust_tpu_torch.ops.bandwidth import silvermans_rule
+
+    arrays = draw_stack_arrays(
+        config, torch.Generator(device=dev).manual_seed(SEED + 7), "dust",
+        dev)
+    k_stack, k_harness = _kernel_harness(config, arrays, dev, True,
+                                         COMPARE_STEPS, fused_solve=True)
+    p_stack, p_harness = _kernel_harness(config, arrays, dev, False,
+                                         COMPARE_STEPS)
+    k_step = k_harness.step_fn(k_stack.dynamics_prior)
+    p_step = p_harness.step_fn(p_stack.dynamics_prior)
+    true = {"length": torch.tensor(1.0, device=dev),
+            "mass": torch.tensor(1.0, device=dev)}
+    obs = arrays["init_state"].reshape(1, -1)
+    k_carry = (torch.Generator(device=dev).manual_seed(SEED + 8), obs,
+               k_stack.controller.init_state(arrays["init_policies"]),
+               k_stack.svmpc.init_state(arrays["init_policies"],
+                                        k_stack.policies_prior),
+               k_stack.mpf.init_state(arrays["mpf_init"], obs[0], 1,
+                                      bw=silvermans_rule(arrays["mpf_init"])))
+    p_gen = torch.Generator(device=dev).manual_seed(SEED + 8)
+    actions, particles = [], []
+    for t in range(COMPARE_STEPS):
+        sv = k_carry[3]
+        p_carry = (p_gen, k_carry[1], k_carry[2],
+                   SVMPCState(theta=sv.theta, prior=sv.prior,
+                              prior_updated=t > 0), k_carry[4])
+        k_carry, k_log = k_step(k_carry, t, true)
+        p_carry, p_log = p_step(p_carry, t, true)
+        actions.append((k_log[1], p_log[1]))
+        particles.append((k_log[5], p_log[5]))
+    worst = 0.0
+    for name, pairs in (("action", actions), ("MPF particles", particles)):
+        got = torch.stack([p[0] for p in pairs])
+        want = torch.stack([p[1] for p in pairs])
+        worst = max(worst, _check_close(
+            f"K3 path vs plain path, {name}, steps 0-4", got[:5], want[:5],
+            **EARLY_TOL))
+        worst = max(worst, _check_close(
+            f"K3 path vs plain path, {name}, {COMPARE_STEPS} steps", got,
+            want, **RUN_TOL))
+    return worst
+
+
+# the demo configuration's episode shapes and scalars
+_EP = dict(hz=30, m=3, n_params=8, n_act=128, m_mpf=50, mpf_steps=20)
+# ctrl_sigma, lr, alpha, temp, prior_sigma, mpf_lr, mpf_sigma
+_EP_SCALARS = (2.0, 2.0, 1.0, 1.0, 2.0, 1e-3, 0.1)
+_PRIOR_BW0 = 0.05
+
+
+def _episode_setup(steps, seed, dev, n_sc=None, chains=None):
+    """Demo-width episode inputs from a numpy seed: theta0 [3, 30], MPF
+    particles [50, 2], and host noise in the JAX layouts (single episode,
+    or a sweep's [chains, steps, hz, smp, 128] / [chains, steps, n_sc, 8,
+    128])."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    hz, m = _EP["hz"], _EP["m"]
+    theta0 = t(0.3 * rng.normal(size=(m, hz)))
+    mpfx0 = t(np.stack([1.0 + 0.1 * rng.normal(size=50),
+                        1.0 + 0.1 * rng.normal(size=50)], 1))
+    if n_sc is None:
+        noise = (t(rng.normal(size=(steps, hz, 8, 128))),
+                 t(rng.normal(size=(steps, 8, 128))),
+                 t(rng.uniform(size=(steps, 8, 128))))
+    else:
+        smp = -(-n_sc * m // 8) * 8
+        noise = (t(rng.normal(size=(chains, steps, hz, smp, 128))),
+                 t(rng.normal(size=(chains, steps, n_sc, 8, 128))),
+                 t(rng.uniform(size=(chains, steps, n_sc, 8, 128))))
+    return theta0, mpfx0, noise
+
+
+def _episode_args(theta0, mpfx0, dev, length=1.0, mass=1.0):
+    import torch
+
+    z = lambda *shape: torch.zeros(shape, device=dev)
+    return (torch.tensor([np.pi, 0.0], device=dev), theta0, theta0,
+            z(_EP["m"], _EP["hz"]), z(_EP["hz"]), mpfx0, _PRIOR_BW0, length,
+            mass, *_EP_SCALARS)
+
+
+def _stack_episode_args(stack):
+    """The arguments the megakernel adapters pass for a built stack
+    (`simulation.megakernel_pendulum_episode_fn`), true parameters 1.0."""
+    mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 1)
+    dstate = stack.controller.init_state(stack.init_policies)
+    return (stack.init_state, stack.init_policies[..., 0],
+            stack.policies_prior.locs[..., 0], dstate.a_mat[..., 0],
+            dstate.a_seq[..., 0], stack.mpf_init, mstate.prior_bw, 1.0, 1.0,
+            *_EP_SCALARS)
+
+
+def _check_episode(label, got, want, fields=None):
+    worst = 0.0
+    for k in fields or (K4_FIELDS + ("theta", "a_mat", "mpf_x")):
+        tol = K4_TOLS.get(k, K4_TOLS["theta"])
+        worst = max(worst, _check_close(f"{label} {k}", got[k], want[k],
+                                        rtol=0.0, atol=tol))
+    return worst
+
+
+def _composition(theta0, mpfx0, noise, steps, dev):
+    """The episode as a host loop over the K3 and K2 kernels with the same
+    noise (`tests/test_pallas_episode.py:_reference_composition`)."""
+    import torch
+
+    from dust_tpu_torch.ops.bandwidth import silvermans_rule
+    from dust_tpu_torch.ops.mpf import fused_pendulum_mpf_optimize
+    from dust_tpu_torch.ops.solve import fused_pendulum_solve
+
+    eps, pdz, pdu = noise
+    hz, m, n_params, n_act, m_mpf = (_EP[k] for k in (
+        "hz", "m", "n_params", "n_act", "m_mpf"))
+    theta = locs = theta0
+    amat = torch.zeros((m, hz), device=dev)
+    aseq = torch.zeros(hz, device=dev)
+    x, pbw = mpfx0, torch.tensor(_PRIOR_BW0, device=dev)
+    obs = torch.tensor([np.pi, 0.0], device=dev)
+    log_mix = torch.full((m,), -float(np.log(m)), device=dev)
+    logs = {k: [] for k in K4_FIELDS}
+    for t in range(steps):
+        bw_sv = silvermans_rule(theta)
+        actions = theta[None] + 2.0 * eps[t, :, :m, :n_act].permute(2, 1, 0)
+        idx = torch.clamp(torch.floor(pdu[t, :n_params, 0] * m_mpf),
+                          max=m_mpf - 1).long()
+        draws = x[idx] + pbw * pdz[t, :n_params, 0:2]
+        _, theta_fwd, amat, _, a_sel, _, _ = fused_pendulum_solve(
+            obs, theta, locs, log_mix, amat, aseq, actions, draws[:, 0],
+            draws[:, 1], bw_sv, 2.0, 1.0, 1.0, 2.0, 2.0, hz=hz, m=m,
+            n_params=n_params, n_act=n_act)
+        # warm_up 0: every step commits the forward pass
+        theta, locs, action = theta_fwd, theta_fwd, a_sel[0]
+        a_cl = torch.clamp(action, -2.0, 2.0)
+        om2 = torch.clamp(obs[1] + (-15.0 * torch.sin(obs[0] + np.pi)
+                                    + 3.0 * a_cl) * 0.05, -8.0, 8.0)
+        th2 = obs[0] + om2 * 0.05
+        new_obs = torch.stack([th2, om2])
+        bw_mpf = silvermans_rule(x)
+        x = fused_pendulum_mpf_optimize(x, x, obs, new_obs, action[None],
+                                        bw_mpf, pbw, 1e-3, 0.1, n_steps=20)
+        pbw, obs = bw_mpf, new_obs
+        for k, v in zip(K4_FIELDS, (th2, om2, action,
+                                    50.0 * (torch.cos(th2) - 1.0) ** 2
+                                    + om2 * om2, bw_sv, bw_mpf)):
+            logs[k].append(v)
+    out = {k: torch.stack(v) for k, v in logs.items()}
+    out.update(theta=theta, a_mat=amat, mpf_x=x)
+    return out
+
+
+def phase_k4(dev):
+    import torch
+
+    from dust_tpu_torch.ops import episode
+
+    worst = 0.0
+    for steps in (1, 3):
+        theta0, mpfx0, noise = _episode_setup(steps, SEED + 9 + steps, dev)
+        args = _episode_args(theta0, mpfx0, dev)
+        nz = dict(host_eps=noise[0], host_pdz=noise[1], host_pdu=noise[2])
+        got = episode.fused_pendulum_episode([0, 0], *args, steps=steps,
+                                             **nz, **_EP)
+        torch.cuda.synchronize()
+        want = episode.plain_pendulum_episode([0, 0], *args, steps=steps,
+                                              **nz, **_EP)
+        worst = max(worst, _check_episode(
+            f"K4 host noise {steps} steps", got, want))
+        if steps == 3:
+            _check_episode("K4 vs K3+K2 kernel composition", got,
+                           _composition(theta0, mpfx0, noise, steps, dev))
+            # the warm-up gate: 2 steps without a forward
+            got = episode.fused_pendulum_episode(
+                [0, 0], *args, steps=steps, warm_up=2, **nz, **_EP)
+            want = episode.plain_pendulum_episode(
+                [0, 0], *args, steps=steps, warm_up=2, **nz, **_EP)
+            worst = max(worst, _check_episode(
+                "K4 host noise 3 steps warm_up 2", got, want))
+    theta0, mpfx0, _ = _episode_setup(2, SEED + 12, dev)
+    args = _episode_args(theta0, mpfx0, dev)
+    got = episode.fused_pendulum_episode([3, 7], *args, steps=2, **_EP)
+    torch.cuda.synchronize()
+    want = episode.plain_pendulum_episode([3, 7], *args, steps=2, **_EP)
+    worst = max(worst, _check_episode("K4 device RNG 2 steps", got, want))
+    return worst
+
+
+def phase_episode_path(dev, config):
+    """Path 3: one MAIN_STEPS-step episode of the demo stack in one K4
+    launch, through `megakernel_pendulum_episode_fn`."""
+    import torch
+
+    from dust_tpu_torch.experiments import build_pendulum_stack
+    from dust_tpu_torch.simulation import megakernel_pendulum_episode_fn
+
+    cfg = copy.deepcopy(config)
+    stack = build_pendulum_stack(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), case="dust",
+        device=dev)
+    episode = megakernel_pendulum_episode_fn(stack, cfg["exp_params"],
+                                             steps=MAIN_STEPS)
+    episode([SEED, 99])  # warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = episode([SEED, 1])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _counts()
+    _check_counts("path 3 (K4 episode)", launches, {"pendulum_episode": 1})
+    for k, v in out.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"path 3: non-finite values in {k}")
+    again = episode([SEED, 1])
+    other = episode([SEED, 2])
+    same = all(torch.equal(out[k], again[k]) for k in out)
+    differs = not torch.equal(out["cost"], other["cost"])
+    if not same or not differs:
+        raise AssertionError(f"path 3: same seed gives the same bits: {same}"
+                             f", another seed other results: {differs}")
+    low = float(out["cost"][MAIN_STEPS // 2:].min())
+    result = {"steps": MAIN_STEPS, "seconds": elapsed,
+              "ms_per_episode": 1e3 * elapsed,
+              "solves_per_s": MAIN_STEPS / elapsed,
+              "min_cost_second_half": low, "launches": launches,
+              "same_seed_same_bits": same, "other_seed_differs": differs}
+    print(f"path 3 (K4 episode): {MAIN_STEPS} steps in one launch, "
+          f"{result['ms_per_episode']:.3f} ms per episode "
+          f"({result['solves_per_s']:.1f} solves/s), lowest cost in steps "
+          f"{MAIN_STEPS // 2}-{MAIN_STEPS - 1}: {low:.4f}; launches "
+          f"{launches}")
+    _check_swingup("path 3 (K4 episode)", low)
+    return result
+
+
+def _sweep_call(fn, seed, theta0, mpfx0, lens, mass, dev, steps, n_sc,
+                chains, noise=None, per_scenario_mpf=False):
+    nz = {} if noise is None else dict(host_eps=noise[0], host_pdz=noise[1],
+                                       host_pdu=noise[2])
+    args = _episode_args(theta0, mpfx0, dev, lens, mass)
+    args = args[:4] + args[5:]   # the sweep takes no a_seq
+    return fn(seed, *args, n_sc=n_sc, steps=steps, n_chains=chains, **nz,
+              **_EP)
+
+
+def phase_k5(dev):
+    """K5 against independent K4 launches (bit for bit), against its plain
+    version in device-RNG mode, and scenario isolation under NaN."""
+    import torch
+
+    from dust_tpu_torch.ops import episode, sweep_episode
+
+    n_sc, chains, steps = SWEEP_SC, SWEEP_CHAINS, 2
+    theta0, mpfx0, noise = _episode_setup(steps, SEED + 13, dev, n_sc,
+                                          chains)
+    lens = torch.linspace(0.8, 1.2, n_sc, device=dev)
+    mass = torch.linspace(0.9, 1.1, n_sc, device=dev)
+    sweep = lambda **kw: _sweep_call(
+        sweep_episode.fused_pendulum_sweep_episode, [1, 2], theta0,
+        kw.get("mpfx0", mpfx0), kw.get("lens", lens), mass, dev, steps,
+        n_sc, chains, noise)
+    out = sweep()
+    torch.cuda.synchronize()
+    mismatches = 0
+    for c in range(chains):
+        for s in range(n_sc):
+            eps_s = torch.zeros((steps, _EP["hz"], 8, 128), device=dev)
+            eps_s[:, :, :_EP["m"]] = noise[0][c, :, :, 3 * s:3 * s + 3]
+            ref = episode.fused_pendulum_episode(
+                [0, 0], *_episode_args(theta0, mpfx0, dev, lens[s], mass[s]),
+                steps=steps, host_eps=eps_s, host_pdz=noise[1][c, :, s],
+                host_pdu=noise[2][c, :, s], **_EP)
+            mismatches += sum(not torch.equal(out[k][c][:, s], ref[k])
+                              for k in K4_FIELDS)
+            mismatches += sum(not torch.equal(out[k][c][s], ref[k])
+                              for k in ("theta", "locs", "a_mat", "mpf_x"))
+    print(f"K5 vs {chains * n_sc} independent K4 launches ({n_sc} "
+          f"scenarios x {chains} chains, {steps} steps): {mismatches} "
+          f"fields differ in any bit")
+    if mismatches:
+        raise AssertionError("K5 differs from independent K4 launches")
+
+    # NaN in one scenario's true length, then in its MPF particles
+    others = [s for s in range(n_sc) if s != 1]
+    lens_nan = lens.clone()
+    lens_nan[1] = float("nan")
+    per = mpfx0.expand(n_sc, -1, -1).clone()
+    base_per = sweep(mpfx0=per)
+    per_nan = per.clone()
+    per_nan[1] = float("nan")
+    for label, base, poisoned, field in (
+            ("true length", out, sweep(lens=lens_nan), "th"),
+            ("MPF particles", base_per, sweep(mpfx0=per_nan), "mpf_x")):
+        leak = sum(
+            not torch.equal(base[k][:, :, others] if k in K4_FIELDS
+                            else base[k][:, others],
+                            poisoned[k][:, :, others] if k in K4_FIELDS
+                            else poisoned[k][:, others])
+            for k in base)
+        own = poisoned[field][:, :, 1] if field in K4_FIELDS \
+            else poisoned[field][:, 1]
+        print(f"K5 NaN in scenario 1's {label}: {leak} fields of the other "
+              f"scenarios changed; scenario 1 finite: "
+              f"{bool(torch.isfinite(own).all())}")
+        if leak or torch.isfinite(own).all():
+            raise AssertionError(f"K5 scenario isolation ({label})")
+
+    # device-RNG mode against the plain version
+    seeds = torch.tensor([[3, 7]], device=dev)
+    got = _sweep_call(sweep_episode.fused_pendulum_sweep_groups, seeds,
+                      theta0, mpfx0, lens, mass, dev, steps, n_sc, chains)
+    torch.cuda.synchronize()
+    want = _sweep_call(sweep_episode.plain_pendulum_sweep_groups, seeds,
+                       theta0, mpfx0, lens, mass, dev, steps, n_sc, chains)
+    return _check_episode(f"K5 device RNG {n_sc}x{chains} {steps} steps",
+                          got, want)
+
+
+def _bench_sweep(dev, config, steps=MAIN_STEPS):
+    """bench.py's sweep on the demo stack: the MegakernelGroupSweep over
+    `steps`-step episodes, the seeds of run i, the per-group true
+    parameters, and plain(seeds): the sweep's plain version on the same
+    inputs."""
+    import torch
+
+    from dust_tpu_torch.experiments import build_pendulum_stack
+    from dust_tpu_torch.ops.sweep_episode import plain_pendulum_sweep_groups
+    from dust_tpu_torch.parallel import MegakernelGroupSweep
+    from dust_tpu_torch.simulation import megakernel_pendulum_sweep_fn
+
+    cfg = copy.deepcopy(config)
+    stack = build_pendulum_stack(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), case="dust",
+        device=dev)
+    sweep = megakernel_pendulum_sweep_fn(
+        stack, cfg["exp_params"], steps=steps, n_sc=SWEEP_SC,
+        n_chains=SWEEP_CHAINS)
+    lens = torch.linspace(0.8, 1.2, SWEEP_SC, device=dev).expand(
+        SWEEP_GROUPS, SWEEP_SC)
+    mass = torch.linspace(0.9, 1.1, SWEEP_SC, device=dev).expand(
+        SWEEP_GROUPS, SWEEP_SC)
+
+    def seeds(i):   # bench.py:179-183
+        return torch.stack([
+            torch.full((SWEEP_GROUPS,), i, dtype=torch.int64, device=dev),
+            torch.arange(SWEEP_GROUPS, device=dev) * 1000], dim=1)
+
+    # the sweep adapter's arguments: no a_seq, per-group true parameters
+    ep_args = _stack_episode_args(stack)
+    sw_args = ep_args[:4] + ep_args[5:7] + (lens, mass) + ep_args[9:]
+
+    def plain(seed_rows):
+        return plain_pendulum_sweep_groups(
+            seed_rows, *sw_args, n_sc=SWEEP_SC, steps=steps,
+            n_chains=SWEEP_CHAINS, **_EP)
+
+    return MegakernelGroupSweep(sweep), seeds, lens, mass, plain
+
+
+def _sweep_layout_check(dev, config):
+    """K5 at path 4's layout (G = 8 groups, per-group true parameters,
+    chains derived from the seeds) against its plain version after 1 and
+    2 steps, every field at K4's tolerances; and the 2-step launch against
+    one G = 1 launch per group, bit for bit."""
+    import torch
+
+    label = f"K5 path-4 layout {SWEEP_GROUPS}x{SWEEP_SC}x{SWEEP_CHAINS}"
+    worst = 0.0
+    for steps in (1, 2):
+        groups, seeds, lens, mass, plain = _bench_sweep(dev, config, steps)
+        got = groups.run(seeds(1), lens, mass)
+        torch.cuda.synchronize()
+        worst = max(worst, _check_episode(
+            f"{label} device RNG {steps} steps", got, plain(seeds(1))))
+    mismatches = 0
+    for g in range(SWEEP_GROUPS):
+        one = groups.sweep_fn(seeds(1)[g], lens[g], mass[g])
+        mismatches += sum(not torch.equal(got[k][g], one[k]) for k in got)
+    print(f"{label} vs {SWEEP_GROUPS} launches of one group each (2 steps): "
+          f"{mismatches} fields differ in any bit")
+    if mismatches:
+        raise AssertionError("K5 at G > 1 differs from per-group launches")
+    return worst
+
+
+def _sweep_vs_plain(low, out, want):
+    """Path 4's episodes against the plain sweep on the same device-RNG
+    draws over all MAIN_STEPS steps: where each pair drifts apart (the
+    loop is chaotic, so ulp differences grow), how many episodes fail to
+    swing up on either side, and the worst kernel episode's fate in the
+    plain version."""
+    import torch
+
+    apart = (out["th"] - want["th"]).abs() > 1e-3      # [G, C, steps, n_sc]
+    first = torch.where(apart.any(2), apart.int().argmax(2),
+                        MAIN_STEPS).reshape(-1)
+    low_plain = want["cost"][:, :, MAIN_STEPS // 2:].amin(dim=2).reshape(-1)
+    w = int(low.argmax())
+    g, c, s = np.unravel_index(w, (SWEEP_GROUPS, SWEEP_CHAINS, SWEEP_SC))
+    return {
+        "kernel_fail_swingup": int((low >= SWINGUP_MAX_COST).sum()),
+        "plain_fail_swingup": int((low_plain >= SWINGUP_MAX_COST).sum()),
+        "plain_median_min_cost_second_half": float(low_plain.median()),
+        "first_step_apart_min": int(first.min()),
+        "first_step_apart_median": float(first.float().median()),
+        "episodes_apart_by_end": int((first < MAIN_STEPS).sum()),
+        "worst": {"first_step_apart": int(first[w]),
+                  "plain_min_cost_second_half": float(low_plain[w]),
+                  "plain_final_cost": float(want["cost"][g, c, -1, s]),
+                  "kernel_cost": out["cost"][g, c, :, s].tolist(),
+                  "plain_cost": want["cost"][g, c, :, s].tolist()},
+    }
+
+
+def phase_sweep_path(dev, config):
+    """Path 4: bench.py's sweep, 8 groups x 16 scenarios x 2 chains of
+    MAIN_STEPS steps, in one K5 launch through MegakernelGroupSweep; then
+    the same episodes in the plain version."""
+    import torch
+
+    layout_err = _sweep_layout_check(dev, config)
+    groups, seeds, lens, mass, plain = _bench_sweep(dev, config)
+    groups.run(seeds(0), lens, mass)  # warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = groups.run(seeds(1), lens, mass)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _counts()
+    _check_counts("path 4 (K5 sweep)", launches,
+                  {"pendulum_sweep_episode": 1})
+    episodes = SWEEP_GROUPS * SWEEP_SC * SWEEP_CHAINS
+    cost = out["cost"]                       # [G, chains, steps, n_sc]
+    if tuple(cost.shape) != (SWEEP_GROUPS, SWEEP_CHAINS, MAIN_STEPS,
+                             SWEEP_SC):
+        raise AssertionError(f"path 4: cost shape {tuple(cost.shape)}")
+    for k, v in out.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"path 4: non-finite values in {k}")
+    low = cost[:, :, MAIN_STEPS // 2:].amin(dim=2).reshape(-1)
+    # the episode that stays furthest from upright: (group, chain,
+    # scenario) and its cost at the last step
+    g, c, s = np.unravel_index(int(low.argmax()),
+                               (SWEEP_GROUPS, SWEEP_CHAINS, SWEEP_SC))
+    result = {"episodes": episodes, "steps": MAIN_STEPS, "seconds": elapsed,
+              "solves_per_s": episodes * MAIN_STEPS / elapsed,
+              "median_min_cost_second_half": float(low.median()),
+              "max_min_cost_second_half": float(low.max()),
+              "worst_episode": {"group": int(g), "chain": int(c),
+                                "scenario": int(s),
+                                "true_length": float(lens[g, s]),
+                                "true_mass": float(mass[g, s]),
+                                "final_cost": float(cost[g, c, -1, s])},
+              "launches": launches, "layout_max_abs_err": layout_err}
+    print(f"path 4 (K5 sweep): {episodes} episodes = {SWEEP_GROUPS} groups "
+          f"x {SWEEP_SC} scenarios x {SWEEP_CHAINS} chains x {MAIN_STEPS} "
+          f"steps in one launch, {elapsed:.4f} s, "
+          f"{result['solves_per_s']:.1f} solves/s; median over episodes of "
+          f"the lowest cost in steps {MAIN_STEPS // 2}-{MAIN_STEPS - 1}: "
+          f"{result['median_min_cost_second_half']:.4f} (worst "
+          f"{result['max_min_cost_second_half']:.4f}: {result['worst_episode']}"
+          f"); launches {launches}")
+    _check_swingup("path 4 (K5 sweep), median over episodes",
+                   result["median_min_cost_second_half"])
+    vs = _sweep_vs_plain(low, out, plain(seeds(1)))
+    result["vs_plain"] = vs
+    print(f"path 4 against the plain sweep on the same draws: episodes "
+          f"failing swing-up (lowest cost in steps {MAIN_STEPS // 2}-"
+          f"{MAIN_STEPS - 1} >= {SWINGUP_MAX_COST}) kernel "
+          f"{vs['kernel_fail_swingup']}, plain {vs['plain_fail_swingup']} "
+          f"of {episodes} (plain median "
+          f"{vs['plain_median_min_cost_second_half']:.4f}); th drifts apart "
+          f"by > 1e-3 first at step {vs['first_step_apart_min']} (median "
+          f"{vs['first_step_apart_median']}, {vs['episodes_apart_by_end']} "
+          f"episodes apart by the end); worst kernel episode: apart at step "
+          f"{vs['worst']['first_step_apart']}, plain lowest cost "
+          f"{vs['worst']['plain_min_cost_second_half']:.4f}, plain final "
+          f"cost {vs['worst']['plain_final_cost']:.4f}")
+    if vs["kernel_fail_swingup"] > episodes * SWEEP_MAX_FAIL_SHARE:
+        raise AssertionError(
+            f"path 4: {vs['kernel_fail_swingup']} of {episodes} episodes "
+            f"fail to swing up (at most {SWEEP_MAX_FAIL_SHARE} of them may)")
+    return result
+
+
+def _event_ms(fn, reps):
+    """Times of single calls between CUDA events (after one warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return times
+
+
+def phase_timing_slice2(dev, config):
+    """K3 as phase 6 times K1/K2; K4 and K5 (one launch per episode or
+    sweep, tens of ms) as single calls between CUDA events, median of 3;
+    their plain versions one call each (the device waits on the host
+    issuing them). Plain, kernel, kernel, plain."""
+    import torch
+
+    from dust_tpu_torch.ops import episode, solve
+    from dust_tpu_torch.simulation import megakernel_pendulum_episode_fn
+
+    out = {}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 14)
+    args = _k3_inputs(30, 3, 8, 128, (3.0, 0.0), gen, dev)
+    st = dict(hz=30, m=3, n_params=8, n_act=128, exp_util=True)
+    k3 = lambda: solve.fused_pendulum_solve(*args, **st)
+    k3_plain = lambda: _k3_plain(args, **st)
+    runs = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        fn = k3 if which == "kernel" else k3_plain
+        runs[which].append({"device_ms": _device_ms(fn),
+                            "call_ms": _call_ms(fn)})
+    bound = _k3_bound(8, 3, 128, 30)
+    out["pendulum_solve"] = {
+        "ms": min(r["device_ms"] for r in runs["kernel"]),
+        "plain_ms": min(r["device_ms"] for r in runs["plain"]),
+        "runs": runs, "bound_ms": bound[0], "bound_by": bound[1],
+        "bound_bytes": bound[2], "bound_ops": bound[3],
+        "timed_as": "device time per call, 20 calls in one CUDA graph"}
+
+    from dust_tpu_torch.experiments import build_pendulum_stack
+
+    cfg = copy.deepcopy(config)
+    stack = build_pendulum_stack(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), case="dust",
+        device=dev)
+    exp = cfg["exp_params"]
+    ep_kernel = megakernel_pendulum_episode_fn(stack, exp, steps=MAIN_STEPS)
+    ep_args = _stack_episode_args(stack)
+    ep_plain = lambda: episode.plain_pendulum_episode(
+        [SEED, 1], *ep_args, steps=MAIN_STEPS, **_EP)
+    groups, seeds, lens, mass, sw_plain = _bench_sweep(dev, config)
+    for name, kern, plain, bound in (
+            ("pendulum_episode", lambda: ep_kernel([SEED, 1]), ep_plain,
+             _episodes_bound(1, MAIN_STEPS, 8, 3, 128, 30, 50, 20)),
+            ("pendulum_sweep_episode",
+             lambda: groups.run(seeds(1), lens, mass),
+             lambda: sw_plain(seeds(1)),
+             _episodes_bound(SWEEP_GROUPS * SWEEP_SC * SWEEP_CHAINS,
+                             MAIN_STEPS, 8, 3, 128, 30, 50, 20))):
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            if which == "kernel":
+                runs[which].append(statistics.median(_event_ms(kern, 3)))
+            else:
+                runs[which].append(_event_ms(plain, 1)[0])
+        out[name] = {"ms": min(runs["kernel"]),
+                     "plain_ms": min(runs["plain"]), "runs": runs,
+                     "bound_ms": bound[0], "bound_by": bound[1],
+                     "bound_bytes": bound[2], "bound_ops": bound[3],
+                     "timed_as": "one call between CUDA events"}
+    for name, t in out.items():
+        print(f"time {name}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms ({t['timed_as']}); bound "
+              f"{t['bound_ms']:.2e} ms ({t['bound_by']})")
+    return out
+
+
 def main():
     import torch
 
@@ -468,18 +1264,36 @@ def main():
     main_path = phase_main_path(dev, PENDULUM_DEMO_CONFIG)
     loop_err = phase_kernel_vs_plain(dev, PENDULUM_DEMO_CONFIG)
     times = phase_timing(dev)
+    k3_err = phase_k3(dev)
+    path2 = phase_main_path(dev, PENDULUM_DEMO_CONFIG, fused_solve=True)
+    print(f"ms per MPC step: path 1 (K1 + K2) {main_path['ms_per_step']:.3f}"
+          f", path 2 (K3 + K2) {path2['ms_per_step']:.3f}")
+    k3_loop_err = phase_k3_vs_plain(dev, PENDULUM_DEMO_CONFIG)
+    k4_err = phase_k4(dev)
+    path3 = phase_episode_path(dev, PENDULUM_DEMO_CONFIG)
+    k5_err = phase_k5(dev)
+    path4 = phase_sweep_path(dev, PENDULUM_DEMO_CONFIG)
+    k5_err = max(k5_err, path4["layout_max_abs_err"])
+    times.update(phase_timing_slice2(dev, PENDULUM_DEMO_CONFIG))
 
     kernels = []
-    for name, source, replaces, err in (
+    for name, source, replaces, err, path in (
             ("pendulum_rollout_costs", "dust_tpu_torch/csrc/pendulum_rollout.cu",
-             "dust_tpu/ops/pallas_rollout.py:92", k1_err),
+             "dust_tpu/ops/pallas_rollout.py:92", k1_err, main_path),
             ("pendulum_mpf_optimize", "dust_tpu_torch/csrc/pendulum_mpf.cu",
-             "dust_tpu/ops/pallas_mpf.py:169", k2_err)):
+             "dust_tpu/ops/pallas_mpf.py:169", k2_err, main_path),
+            ("pendulum_solve", "dust_tpu_torch/csrc/pendulum_solve.cu",
+             "dust_tpu/ops/pallas_solve.py:397", k3_err, path2),
+            ("pendulum_episode", "dust_tpu_torch/csrc/pendulum_episode.cu",
+             "dust_tpu/ops/pallas_episode.py:795", k4_err, path3),
+            ("pendulum_sweep_episode",
+             "dust_tpu_torch/csrc/pendulum_episode.cu",
+             "dust_tpu/ops/pallas_sweep_episode.py:1319", k5_err, path4)):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces,
-            "launches": main_path["launches"][name],
+            "launches": path["launches"][name],
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
             "library_ms": None,
@@ -490,6 +1304,8 @@ def main():
         "cuda": torch.version.cuda, "build_seconds": build["seconds"],
         "build_log": build["log"], "main_path": main_path,
         "kernel_vs_plain_path_max_abs_err": loop_err, "timing": times,
+        "path2_k3": path2, "k3_path_vs_plain_path_max_abs_err": k3_loop_err,
+        "path3_k4_episode": path3, "path4_k5_sweep": path4,
         "kernels": kernels,
     }
     out_dir = ROOT / "chiprun_out"

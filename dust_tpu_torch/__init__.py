@@ -4,13 +4,17 @@ kernels for an NVIDIA Hopper card.
 A port of `dust_tpu` (JAX/Pallas) that keeps its layout and names, so each
 module's counterpart is found under the same path:
 
-    simulation.py          closed-loop pendulum episode harness
+    simulation.py          closed-loop pendulum episode harness (+ the
+                           whole-episode and sweep kernel adapters)
     experiments.py         config -> stack builders
-      inference/           likelihoods, SVMPC, MPF (+ FusedPendulumMPF)
+    parallel/              MegakernelGroupSweep (sweep groups, one launch)
+      inference/           likelihoods, SVMPC (+ FusedPendulumSVMPC), MPF
+                           (+ FusedPendulumMPF)
         controllers/       MultiDisco rollout and update engine
           models/          batched pendulum dynamics
       ops/                 distances, bandwidth rules, RBF kernels, the
-                           rollout-cost and MPF-loop kernels (csrc/*.cu)
+                           rollout-cost, MPF-loop, whole-solve, episode and
+                           sweep kernels (csrc/*.cu)
       distributions.py     MVN / Normal / Uniform / GMM on tensors
     convert.py             state carried across from numpy arrays
 
@@ -35,11 +39,19 @@ from .inference import (
     ExpectedCost,
     ExponentiatedUtility,
     FusedPendulumMPF,
+    FusedPendulumSVMPC,
+    FusedSVMPCState,
     GaussianLikelihood,
     LikelihoodState,
 )
 from .experiments import PENDULUM_DEMO_CONFIG, build_pendulum_stack
-from .simulation import PendulumSimulation, to_dataframe
+from .simulation import (
+    PendulumSimulation,
+    megakernel_pendulum_episode_fn,
+    megakernel_pendulum_sweep_fn,
+    to_dataframe,
+)
+from .parallel import MegakernelGroupSweep
 
 __all__ = [
     "Box", "GMM", "MVN", "Normal", "Uniform",
@@ -47,7 +59,9 @@ __all__ = [
     "DiscoState", "MultiDisco",
     "MPF", "MPFState", "SVMPC", "SVMPCState",
     "CostLikelihood", "ExpectedCost", "ExponentiatedUtility",
-    "FusedPendulumMPF", "GaussianLikelihood", "LikelihoodState",
+    "FusedPendulumMPF", "FusedPendulumSVMPC", "FusedSVMPCState",
+    "GaussianLikelihood", "LikelihoodState",
     "PENDULUM_DEMO_CONFIG", "build_pendulum_stack",
-    "PendulumSimulation", "to_dataframe",
+    "PendulumSimulation", "megakernel_pendulum_episode_fn",
+    "megakernel_pendulum_sweep_fn", "to_dataframe", "MegakernelGroupSweep",
 ]

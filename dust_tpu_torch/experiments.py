@@ -18,6 +18,7 @@ from .distributions import GMM, Uniform
 from .inference import (
     ExpectedCost,
     ExponentiatedUtility,
+    FusedPendulumSVMPC,
     GaussianLikelihood,
     MPF,
     SVMPC,
@@ -99,10 +100,6 @@ def _check_case(config_data, case):
         )
     if case not in CASES:
         raise ValueError(f"unknown case {case!r}; expected one of {CASES}")
-    if config_data["exp_params"].get("fused_solve", False):
-        raise NotImplementedError(
-            "fused_solve needs the whole-solve kernel (K3), not ported yet"
-        )
 
 
 def draw_stack_arrays(config_data, generator, case="dust", device="cuda"):
@@ -189,7 +186,7 @@ def assemble_stack(config_data, arrays, case="dust", reference_compat=False,
         lik_cls = _LIKELIHOODS[exp.get("likelihood", "ExponentiatedUtility")]
         likelihood = lik_cls(alpha=alpha, n_samples=exp["action_samples"],
                              controller=controller, model=model)
-        svmpc = SVMPC(
+        svmpc_kwargs = dict(
             likelihood=likelihood,
             kernel=("message_passing" if exp["kernel"] == "message_passing"
                     else "rbf"),
@@ -201,6 +198,12 @@ def assemble_stack(config_data, arrays, case="dust", reference_compat=False,
             weighted_prior=exp.get("weighted_prior", False),
             reference_compat=reference_compat,
         )
+        # fused_solve: the whole solve as one launch (K3, ops/solve.py);
+        # demo-config semantics asserted by the class. Its rollouts are
+        # K3's own, so the rollout-cost hook (K1) is not launched.
+        svmpc_cls = FusedPendulumSVMPC if exp.get("fused_solve", False) \
+            else SVMPC
+        svmpc = svmpc_cls(**svmpc_kwargs)
 
     mpf = None
     if case == "dust":
@@ -246,8 +249,9 @@ def build_pendulum_stack(config_data, generator, case="dust",
     * "svmpc" — MultiDisco(mean params) + SVMPC, no MPF
     * "mppi"  — MultiDisco(n_pol=1, exact model), no SVMPC
 
-    "disco_utf" and `fused_solve: true` raise until their parts are
-    ported. `fused_rollout: true` selects the rollout-cost kernel.
+    "disco_utf" raises until the UTF mode is ported. `fused_rollout:
+    true` selects the rollout-cost kernel (K1), `fused_solve: true` the
+    whole-solve kernel (K3, `FusedPendulumSVMPC`).
     `generator` (a `torch.Generator` on `device`) draws the initial
     particles and priors; the stack keeps it as `stack.generator`."""
     _check_case(config_data, case)

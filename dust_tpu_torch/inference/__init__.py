@@ -5,7 +5,12 @@ from .likelihoods import (
     GaussianLikelihood,
     LikelihoodState,
 )
-from .svmpc import SVMPC, SVMPCState
+from .svmpc import (
+    SVMPC,
+    FusedPendulumSVMPC,
+    FusedSVMPCState,
+    SVMPCState,
+)
 from .mpf import MPF, FusedPendulumMPF, MPFState
 
 __all__ = [
@@ -16,6 +21,8 @@ __all__ = [
     "LikelihoodState",
     "SVMPC",
     "SVMPCState",
+    "FusedPendulumSVMPC",
+    "FusedSVMPCState",
     "MPF",
     "FusedPendulumMPF",
     "MPFState",

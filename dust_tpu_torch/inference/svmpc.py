@@ -200,3 +200,167 @@ class SVMPC:
         svstate = self.roll(svstate, generator=generator, steps=steps)
         svstate = self.update_prior(svstate, weights)
         return svstate, a_seq, weights
+
+
+@dataclass(frozen=True)
+class FusedSVMPCState:
+    """`SVMPCState` plus the forward-pass outputs the fused solve kernel
+    computes up front (K3 runs optimize AND forward in one launch;
+    `forward` then commits the cached results)."""
+
+    theta: torch.Tensor        # [m, H, A]
+    prior: GMM
+    fwd_theta: torch.Tensor    # [m, H, A] (rolled)
+    fwd_a_seq: torch.Tensor    # [H, A]
+    fwd_weights: torch.Tensor  # [m]
+
+
+class _FusedSolveSVMPC(SVMPC):
+    """Base for SVMPC variants whose whole solve (sample -> rollout ->
+    cost -> DISCO update -> Stein step -> selection -> roll) runs as one
+    kernel launch.
+
+    Supported semantics (asserted): kernel="rbf", reference_compat=False,
+    n_steps=1, roll_strategy="repeat", SGD, isotropic action covariance
+    and policy prior, controller a_reg == 0 (the demo temperature and
+    ctrl_penalty make the control penalty vanish), params mode
+    none|sampled, ExpectedCost|ExponentiatedUtility. `optimize` draws from
+    the generator in the plain path's order and shapes (action noise, then
+    the dynamics-parameter draws), so fused and plain agree on one seed."""
+
+    def __init__(self, likelihood, **kwargs):
+        kwargs.setdefault("kernel", "rbf")
+        super().__init__(likelihood, **kwargs)
+        from .likelihoods import ExpectedCost, ExponentiatedUtility
+
+        ctrl = self.controller
+        if self.kernel != "rbf" or self.reference_compat:
+            raise ValueError("fused solve: kernel='rbf', no compat mode")
+        if self.n_steps != 1:
+            raise ValueError("fused solve supports n_steps=1")
+        if self.roll_strategy != "repeat":
+            raise ValueError("fused solve: roll_strategy='repeat'")
+        if abs(ctrl.a_reg) > 1e-12:
+            raise ValueError(
+                "fused solve requires a_reg == 0 (temperature *"
+                " (1 - ctrl_penalty)); use the plain SVMPC otherwise"
+            )
+        if ctrl._params_mode not in ("none", "sampled"):
+            raise ValueError("fused solve: params mode none|sampled")
+        if not isinstance(likelihood, (ExpectedCost, ExponentiatedUtility)):
+            raise ValueError("fused solve: ExpectedCost|ExponentiatedUtility")
+        sig = self.sigma.detach().cpu()
+        if not torch.allclose(sig, sig[0].expand_as(sig)):
+            raise ValueError("fused solve: isotropic action covariance")
+        self._exp_util = isinstance(likelihood, ExponentiatedUtility)
+        self._model = likelihood.model
+        self._check_model(self._model)
+
+    def _check_model(self, model):
+        raise NotImplementedError
+
+    def _run_kernel(self, state, theta, locs, log_mix, a_mat, a_seq,
+                    actions, cols, bw, prior_scale, hz, m):
+        raise NotImplementedError
+
+    def init_state(self, init_particles, prior: GMM) -> FusedSVMPCState:
+        theta = torch.as_tensor(init_particles, dtype=torch.float32)
+        ps = prior.scale_tril.detach().cpu()
+        a = self.ctrl_dim
+        if tuple(ps.shape) != (a, a) or not torch.allclose(
+                ps, ps[0, 0] * torch.eye(a)):
+            raise ValueError("fused solve: isotropic policy prior")
+        return FusedSVMPCState(
+            theta=theta, prior=prior, fwd_theta=theta, fwd_a_seq=theta[0],
+            fwd_weights=torch.full((theta.shape[0],), float("nan"),
+                                   device=theta.device),
+        )
+
+    def optimize(self, svstate, dstate, state, params_dist, generator,
+                 bw=None, n_steps=None):
+        if n_steps not in (None, 1):
+            raise ValueError("fused solve supports n_steps=1")
+        theta = svstate.theta                       # [m, H, A]
+        m, hz, a = theta.shape
+        ctrl = self.controller
+        if bw is None:
+            bw = silvermans_rule(theta)
+        # the plain path's draws, in its order: CostLikelihood.sample's
+        # action noise, then MultiDisco._sample_params' parameter draws
+        noise = torch.randn((self.likelihood.n_samples, m, hz, a),
+                            generator=generator, device=theta.device)
+        actions = theta + noise @ ctrl.a_scale_tril.T
+        cols = {}
+        if ctrl._params_mode == "sampled":
+            draws = params_dist.sample(generator, (ctrl.n_params,))
+            if ctrl._params_log_space:
+                draws = torch.exp(draws)
+            draws = draws.reshape(ctrl.n_params, -1)
+            cols = {k: draws[:, i]
+                    for i, k in enumerate(self._model.uncertain_params)}
+
+        log_mix = torch.log_softmax(svstate.prior.logits, dim=0)
+        (theta_opt, theta_fwd, a_mat, a_mix, a_seq_sel, weights,
+         costs) = self._run_kernel(
+            state, theta, svstate.prior.locs, log_mix, dstate.a_mat,
+            dstate.a_seq, actions, cols, bw, svstate.prior.scale_tril[0, 0],
+            hz, m,
+        )
+        svstate = replace(svstate, theta=theta_opt, fwd_theta=theta_fwd,
+                          fwd_a_seq=a_seq_sel, fwd_weights=weights)
+        dstate = replace(dstate, a_mat=a_mat, a_mix=a_mix)
+        return svstate, dstate, costs
+
+    def forward(self, svstate, costs, generator=None, steps=-1):
+        """Commit the kernel's selection and roll and refresh the prior.
+        `costs`/`generator` are accepted for interface parity; the roll is
+        always the "repeat" strategy at steps=-1."""
+        if steps != -1:
+            raise ValueError("fused solve supports steps=-1")
+        theta = svstate.fwd_theta
+        # uniform mixture: the fused solve takes no weighted prior
+        prior = GMM(locs=theta, scale_tril=svstate.prior.scale_tril,
+                    logits=torch.zeros(theta.shape[0], device=theta.device))
+        svstate = replace(svstate, theta=theta, prior=prior)
+        return svstate, svstate.fwd_a_seq, svstate.fwd_weights
+
+
+class FusedPendulumSVMPC(_FusedSolveSVMPC):
+    """Whole-solve-fused SVMPC for the pendulum task (ctrl_dim 1,
+    unweighted prior, length/mass parameter columns): K3,
+    `ops/solve.py:fused_pendulum_solve`."""
+
+    def _check_model(self, model):
+        from ..models.pendulum import PendulumModel
+
+        if self.ctrl_dim != 1:
+            raise ValueError("pendulum fused solve supports ctrl_dim=1")
+        if self.weighted_prior:
+            raise ValueError("pendulum fused solve: unweighted prior")
+        if not isinstance(model, PendulumModel):
+            raise ValueError("fused solve is model-specific (pendulum)")
+        if not set(model.uncertain_params or ()) <= {"length", "mass"}:
+            raise ValueError("fused solve: length/mass parameters only")
+
+    def _run_kernel(self, state, theta, locs, log_mix, a_mat, a_seq,
+                    actions, cols, bw, prior_scale, hz, m):
+        from ..ops.solve import fused_pendulum_solve
+
+        ctrl = self.controller
+        defaults = self._model.params_dict
+        dev = theta.device
+        default = lambda k: torch.full((ctrl.n_params,), float(defaults[k]),
+                                       device=dev)
+        lengths = cols.get("length", default("length"))
+        masses = cols.get("mass", default("mass"))
+        (theta_opt, theta_fwd, amat, a_mix, a_seq_sel, weights,
+         costs) = fused_pendulum_solve(
+            state.reshape(-1)[:2], theta[..., 0], locs[..., 0], log_mix,
+            a_mat[..., 0], a_seq[..., 0], actions[..., 0], lengths, masses,
+            bw, self.lr, self.likelihood.alpha, ctrl.temp, self.sigma[0],
+            prior_scale, hz=hz, m=m, n_params=ctrl.n_params,
+            n_act=self.likelihood.n_samples, dt=float(self._model.dt),
+            g=float(defaults["g"]), exp_util=self._exp_util,
+        )
+        return (theta_opt[..., None], theta_fwd[..., None],
+                amat[..., None], a_mix, a_seq_sel[:, None], weights, costs)

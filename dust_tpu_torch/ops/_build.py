@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-`load_library()` compiles `dust_tpu_torch/csrc/*.cu` for Hopper
-(`sm_90a`) with `nvcc` at first use — one `nvcc -c` per source, all
-started together, then one link — into
-`dust_tpu_torch/_build/libdust_tpu_torch.so`, and loads it with `ctypes`.
-The library is rebuilt when a source is newer than it. Each C entry point
-launches on the stream it is given and returns `cudaGetLastError()`.
+`load_library()` compiles `dust_tpu_torch/csrc/*.cu` (which include the
+shared device code in `csrc/*.cuh`) for Hopper (`sm_90a`) with `nvcc` at
+first use — one `nvcc -c` per source, all started together, then one
+link — into `dust_tpu_torch/_build/libdust_tpu_torch.so`, and loads it
+with `ctypes`. The library is rebuilt when a source or header is newer
+than it. Each C entry point launches on the stream it is given and
+returns `cudaGetLastError()`.
 
 Importing this module builds nothing; only the wrappers' CUDA branches
 call `load_library()`.
@@ -41,6 +42,17 @@ _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
 _FLOAT = ctypes.c_float
 
+# K4 and K5 share one entry (csrc/pendulum_episode.cu)
+_EPISODE_ARGS = (
+    [_VOID_P] * 16                # scal ep_f ep_i theta0 locs0 amat0 aseq mpfx0
+                                  # eps pdz pdu log theta locs amat mpfx
+    + [_INT] * 9                  # B steps warm_up hz m n_params n_act m_mpf mpf_steps
+    + [_FLOAT] * 7                # dt xmax cg ca half3g gs log_n_act
+    + [_INT] * 3                  # exp_util log_space fixed_bw
+    + [_FLOAT] * 2                # mpf_fixed_bw mpf_bw_scale
+    + [_INT, _VOID_P]             # host_noise stream
+)
+
 # C signatures: name -> argtypes (every pointer and the stream as void*)
 _SIGNATURES = {
     "dust_pendulum_rollout_costs": [
@@ -55,6 +67,14 @@ _SIGNATURES = {
         _FLOAT, _FLOAT, _INT,                          # dt half3g log_space
         _VOID_P,                                       # stream
     ],
+    "dust_pendulum_solve": (
+        [_VOID_P] * 9                                  # scal theta locs log_mix amat aseq actions lengths masses
+        + [_VOID_P] * 7                                # theta_opt theta_fwd amat_out a_mix aseq_sel weights costs
+        + [_INT] * 4                                   # hz m n_params n_act
+        + [_FLOAT] * 5                                 # dt xmax cg ca log_n_act
+        + [_INT, _VOID_P]                              # exp_util stream
+    ),
+    "dust_pendulum_episodes": _EPISODE_ARGS,
     "dust_cuda_error_string": [_INT],
 }
 
@@ -80,7 +100,8 @@ def is_stale() -> bool:
     if not LIB_PATH.exists():
         return True
     built = LIB_PATH.stat().st_mtime
-    return any(src.stat().st_mtime > built for src in _sources())
+    deps = _sources() + sorted(SRC_DIR.glob("*.cuh"))
+    return any(src.stat().st_mtime > built for src in deps)
 
 
 def build() -> dict:

@@ -44,20 +44,22 @@ def _scalars(x, past_obs, loc, action, bw, prior_bw, lr, obs_sigma):
 
 def pendulum_mpf_optimize_plain(x, prior_locs, scal, n_steps=20, dt=0.05,
                                 g=9.8, log_space=False):
-    """Plain PyTorch version of the kernel: x, prior_locs [m, 2]; scal as
-    built by `_scalars`. Returns the particles after n_steps updates."""
-    bw, pbw, lr, sigma, theta0, theta_d0, action, loc0, loc1 = scal.unbind()
-    m = x.shape[0]
+    """Plain PyTorch version of the kernel: x, prior_locs [..., m, 2];
+    scal [..., 9] as built by `_scalars` (leading dims batch independent
+    particle sets). Returns the particles after n_steps updates."""
+    bw, pbw, lr, sigma, theta0, theta_d0, action, loc0, loc1 = (
+        v[..., None, None] for v in scal.unbind(-1))
+    m = x.shape[-2]
     inv_pbw2 = 1.0 / (pbw * pbw)
     inv_bw2 = 1.0 / (bw * bw)
     inv_s2 = 1.0 / (sigma * sigma)
     acts = torch.clamp(action, -_MAX_TORQUE, _MAX_TORQUE)
     sin_t = torch.sin(theta0 + math.pi)
     half3g = 3.0 * g * 0.5
-    c0t = prior_locs[:, 0].reshape(1, m)          # center columns as rows
-    c1t = prior_locs[:, 1].reshape(1, m)
-    x0 = x[:, 0:1]
-    x1 = x[:, 1:2]
+    c0t = prior_locs[..., :, 0].unsqueeze(-2)     # center columns as rows
+    c1t = prior_locs[..., :, 1].unsqueeze(-2)
+    x0 = x[..., :, 0:1]
+    x1 = x[..., :, 1:2]
     for _ in range(n_steps):
         length, mass = x0, x1
         if log_space:
@@ -82,23 +84,24 @@ def pendulum_mpf_optimize_plain(x, prior_locs, scal, n_steps=20, dt=0.05,
             gl_l = gl_l * length
             gl_m = gl_m * mass
         # ---- GMM prior score over the fixed centers ----
-        d2c = (x0 - c0t) ** 2 + (x1 - c1t) ** 2    # [m, m]
+        d2c = (x0 - c0t) ** 2 + (x1 - c1t) ** 2    # [..., m, m]
         logits = -0.5 * d2c * inv_pbw2
-        p = torch.exp(logits - logits.max(dim=1, keepdim=True).values)
-        psum = p.sum(dim=1, keepdim=True)
-        gp0 = ((p * c0t).sum(dim=1, keepdim=True) / psum - x0) * inv_pbw2
-        gp1 = ((p * c1t).sum(dim=1, keepdim=True) / psum - x1) * inv_pbw2
+        p = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
+        psum = p.sum(dim=-1, keepdim=True)
+        gp0 = ((p * c0t).sum(dim=-1, keepdim=True) / psum - x0) * inv_pbw2
+        gp1 = ((p * c1t).sum(dim=-1, keepdim=True) / psum - x1) * inv_pbw2
         # ---- RBF Stein direction, repulsion folded into the drive ----
-        t0t = ((gl_l + gp0) - x0 * inv_bw2).reshape(1, m)
-        t1t = ((gl_m + gp1) - x1 * inv_bw2).reshape(1, m)
-        d2 = (x0 - x0.reshape(1, m)) ** 2 + (x1 - x1.reshape(1, m)) ** 2
+        t0t = ((gl_l + gp0) - x0 * inv_bw2).transpose(-1, -2)
+        t1t = ((gl_m + gp1) - x1 * inv_bw2).transpose(-1, -2)
+        d2 = ((x0 - x0.transpose(-1, -2)) ** 2
+              + (x1 - x1.transpose(-1, -2)) ** 2)
         k = torch.exp(-0.5 * d2 * inv_bw2)
-        rows = k.sum(dim=1, keepdim=True)
-        phi0 = ((k * t0t).sum(dim=1, keepdim=True) + rows * x0 * inv_bw2) / m
-        phi1 = ((k * t1t).sum(dim=1, keepdim=True) + rows * x1 * inv_bw2) / m
+        rows = k.sum(dim=-1, keepdim=True)
+        phi0 = ((k * t0t).sum(dim=-1, keepdim=True) + rows * x0 * inv_bw2) / m
+        phi1 = ((k * t1t).sum(dim=-1, keepdim=True) + rows * x1 * inv_bw2) / m
         x0 = x0 + lr * phi0
         x1 = x1 + lr * phi1
-    return torch.cat([x0, x1], dim=1)
+    return torch.cat([x0, x1], dim=-1)
 
 
 def fused_pendulum_mpf_optimize(x, prior_locs, past_obs, loc, action, bw,

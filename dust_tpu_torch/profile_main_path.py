@@ -1,10 +1,11 @@
 """Where the time of one MPC step of the main path goes, on the card.
 
-    python -m dust_tpu_torch.profile_main_path [--out DIR]
+    python -m dust_tpu_torch.profile_main_path [--fused-solve] [--out DIR]
 
 Builds the pendulum `dust` stack of `PENDULUM_DEMO_CONFIG` on the kernel
-path (rollout-cost kernel + FusedPendulumMPF), warms it up for 5 steps,
-then runs 20 MPC steps under `torch.profiler` with one labelled
+path (rollout-cost kernel + FusedPendulumMPF; with --fused-solve the
+whole-solve kernel, FusedPendulumSVMPC, + FusedPendulumMPF), warms it up
+for 5 steps, then runs 20 MPC steps under `torch.profiler` with one labelled
 range per phase of the step (SVMPC optimize, SVMPC forward, simulator,
 MPF optimize), composed as `PendulumSimulation.step_fn` composes them.
 Reports, per step: the wall time of free-running steps; each phase's
@@ -12,8 +13,9 @@ host-clock time with the device drained after it; and from the profiled
 pass the device's busy time (its idle share is taken against the
 free-running wall time), the number of device operations and each
 phase's span on the device. Writes the per-kernel table and the
-summary to DIR/profile_main_path.txt (default chiprun_out/). Needs a CUDA
-device.
+summary to DIR/profile_main_path.txt (profile_main_path_fused_solve.txt
+with --fused-solve; by default DIR is the gitignored output directory).
+Needs a CUDA device.
 """
 
 from __future__ import annotations
@@ -49,6 +51,8 @@ def main(argv=None):
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="chiprun_out")
+    parser.add_argument("--fused-solve", action="store_true",
+                        help="the whole-solve kernel path (K3 + K2)")
     args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("profile_main_path needs a CUDA device")
@@ -56,6 +60,7 @@ def main(argv=None):
 
     cfg = copy.deepcopy(PENDULUM_DEMO_CONFIG)
     cfg["exp_params"]["fused_rollout"] = True
+    cfg["exp_params"]["fused_solve"] = args.fused_solve
     gen = torch.Generator(device=dev).manual_seed(0)
     stack = build_pendulum_stack(cfg, gen, case="dust", device=dev)
     mpf = FusedPendulumMPF.from_mpf(stack.mpf)
@@ -141,6 +146,7 @@ def main(argv=None):
     kernels_us = sum(_device_us(e, True) for e in kernels)
     summary = {
         "steps": STEPS,
+        "path": "K3 + K2" if args.fused_solve else "K1 + K2",
         "card": torch.cuda.get_device_name(0),
         "wall_ms_per_step": 1e3 * free_s / STEPS,
         "device_idle_share": 1.0 - kernels_us / 1e6 / free_s,
@@ -159,7 +165,9 @@ def main(argv=None):
     table = averages.table(sort_by="self_cuda_time_total", row_limit=30)
     out = Path(args.out)
     out.mkdir(parents=True, exist_ok=True)
-    (out / "profile_main_path.txt").write_text(
+    name = "profile_main_path" + ("_fused_solve" if args.fused_solve
+                                  else "")
+    (out / f"{name}.txt").write_text(
         table + "\n" + json.dumps(summary, indent=1) + "\n")
     print(table)
     print(json.dumps(summary))

@@ -212,3 +212,136 @@ def to_dataframe(columns):
         else:
             data[name] = col
     return pd.DataFrame(index=list(columns["Timestep"][:n]), data=data)
+
+
+def _exp_util(exp):
+    return exp.get("likelihood", "ExponentiatedUtility") \
+        == "ExponentiatedUtility"
+
+
+def megakernel_pendulum_episode_fn(stack, exp_params, steps, warm_up=0,
+                                   unroll=True):
+    """Whole-episode kernel adapter (K4, `ops/episode.py`): the whole
+    closed loop — every SVMPC solve, simulator step and MPF update — runs
+    as one launch with the kernel's own counter-based noise. Returns
+    episode(seed [2] int, true_length=1.0, true_mass=1.0) -> logs dict.
+    The noise stream differs from the plain and fused paths' generator
+    (equal in distribution); use it for throughput, not for step-by-step
+    equivalence. `unroll` changes no value."""
+    from .ops.episode import fused_pendulum_episode
+
+    exp = exp_params
+    mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 1)
+    dstate = stack.controller.init_state(stack.init_policies)
+    theta0 = stack.init_policies[..., 0]
+    locs0 = stack.policies_prior.locs[..., 0]
+    amat0 = dstate.a_mat[..., 0]
+    aseq0 = dstate.a_seq[..., 0]
+    g_model = float(stack.model.params_dict["g"])
+
+    def episode(seed, true_length=1.0, true_mass=1.0):
+        return fused_pendulum_episode(
+            seed, stack.init_state, theta0, locs0, amat0, aseq0,
+            stack.mpf_init, mstate.prior_bw, true_length, true_mass,
+            exp["ctrl_sigma"], exp["learning_rate"], exp["alpha"],
+            1.0 / exp["alpha"], exp["prior_sigma"],
+            exp["mpf_learning_rate"], exp["mpf_obs_std"],
+            steps=steps, warm_up=warm_up, hz=exp["horizon"],
+            m=exp["n_particles"], n_params=exp["params_samples"],
+            n_act=exp["action_samples"], m_mpf=exp["mpf_n_particles"],
+            mpf_steps=exp["mpf_steps"], g_model=g_model, g_sim=10.0,
+            exp_util=_exp_util(exp), mpf_log_space=exp["mpf_log_space"],
+            mpf_fixed_bw=exp.get("mpf_bandwidth"),
+            mpf_bw_scale=exp["mpf_bandwidth_scaling"], unroll=unroll,
+        )
+
+    return episode
+
+
+def megakernel_pendulum_sweep_fn(stack, exp_params, steps, n_sc,
+                                 warm_up=0, unroll=True, svmpc_only=False,
+                                 n_chains=1):
+    """Scenario-sweep kernel adapter (K5, `ops/sweep_episode.py`): n_sc
+    <= 16 independent pendulum DuSt episodes (per-scenario true
+    parameters, bandwidths and MPF posteriors) times `n_chains` chains in
+    one launch. Returns sweep(seed [2] int, true_lengths [n_sc],
+    true_masses [n_sc], host_eps=None, host_pdz=None, host_pdu=None) ->
+    per-scenario logs; `sweep.groups(seeds [G, 2], true_lengths,
+    true_masses, ...)` runs G groups in one launch (the
+    `parallel.MegakernelGroupSweep` path).
+
+    Rejected, as the kernel does not model them: a nonzero controller
+    a_seq (the kernel drops the a_seq term), `weighted_prior`, and
+    non-uniform initial prior mixture weights.
+
+    svmpc_only=True degenerates the dual loop into the SV-MPC case (model
+    default parameters, no dynamics inference) with no kernel change: one
+    MPF particle at the default (length, mass), zero prior bandwidth and
+    zero MPF steps make every dynamics draw exactly the default
+    parameters and freeze the posterior."""
+    from .ops.sweep_episode import fused_pendulum_sweep_groups
+
+    exp = exp_params
+    dstate = stack.controller.init_state(stack.init_policies)
+    if bool(torch.any(dstate.a_seq != 0)):
+        raise ValueError("sweep megakernel requires a zero controller "
+                         "a_seq (SVMPC demo semantics)")
+    if exp.get("weighted_prior", False):
+        raise ValueError("sweep megakernel supports the unweighted "
+                         "policy prior only (pendulum demo semantics)")
+    lg = stack.policies_prior.logits.detach().cpu().to(torch.float64)
+    if (torch.log_softmax(lg, dim=0) + np.log(exp["n_particles"])).abs() \
+            .max() > 1e-5:
+        raise ValueError("sweep megakernel requires uniform initial "
+                         "prior mixture weights")
+    theta0 = stack.init_policies[..., 0]
+    locs0 = stack.policies_prior.locs[..., 0]
+    amat0 = dstate.a_mat[..., 0]
+    g_model = float(stack.model.params_dict["g"])
+    dev = theta0.device
+    if svmpc_only:
+        mpf_init = torch.tensor([[
+            float(stack.model.params_dict["length"]),
+            float(stack.model.params_dict["mass"]),
+        ]], device=dev)
+        # a fixed zero MPF bandwidth keeps the prior bandwidth exactly
+        # zero every step (the Silverman floor would re-inject noise)
+        mpf_cfg = dict(m_mpf=1, mpf_steps=0, mpf_log_space=False,
+                       mpf_fixed_bw=0.0)
+        prior_bw0 = 0.0
+        n_params = 1
+    else:
+        mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 1)
+        mpf_init = stack.mpf_init
+        mpf_cfg = dict(m_mpf=exp["mpf_n_particles"],
+                       mpf_steps=exp["mpf_steps"],
+                       mpf_log_space=exp["mpf_log_space"],
+                       mpf_fixed_bw=exp.get("mpf_bandwidth"))
+        prior_bw0 = mstate.prior_bw
+        n_params = exp["params_samples"]
+
+    def groups(seeds, true_lengths, true_masses, host_eps=None,
+               host_pdz=None, host_pdu=None):
+        return fused_pendulum_sweep_groups(
+            seeds, stack.init_state, theta0, locs0, amat0, mpf_init,
+            prior_bw0, true_lengths, true_masses, exp["ctrl_sigma"],
+            exp["learning_rate"], exp["alpha"], 1.0 / exp["alpha"],
+            exp["prior_sigma"], exp["mpf_learning_rate"],
+            exp["mpf_obs_std"], n_sc=n_sc, steps=steps, warm_up=warm_up,
+            hz=exp["horizon"], m=exp["n_particles"], n_params=n_params,
+            n_act=exp["action_samples"], g_model=g_model, g_sim=10.0,
+            exp_util=_exp_util(exp),
+            mpf_bw_scale=exp["mpf_bandwidth_scaling"], unroll=unroll,
+            n_chains=n_chains, host_eps=host_eps, host_pdz=host_pdz,
+            host_pdu=host_pdu, **mpf_cfg,
+        )
+
+    def sweep(seed, true_lengths, true_masses, host_eps=None,
+              host_pdz=None, host_pdu=None):
+        lead = lambda v: None if v is None else torch.as_tensor(v)[None]
+        out = groups(lead(seed), lead(true_lengths), lead(true_masses),
+                     lead(host_eps), lead(host_pdz), lead(host_pdu))
+        return {k: v[0] for k, v in out.items()}
+
+    sweep.groups = groups
+    return sweep

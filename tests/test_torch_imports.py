@@ -41,7 +41,9 @@ def test_package_imports_without_jax_or_dust_tpu():
     assert "LOADED 0" in res.stdout, res.stdout
     # every module of the slice was imported
     for name in ("ops.rollout", "ops.mpf", "ops._build", "convert",
-                 "simulation", "experiments", "inference.mpf"):
+                 "simulation", "experiments", "inference.mpf",
+                 "inference.svmpc", "ops.solve", "ops.episode",
+                 "ops.sweep_episode", "parallel", "parallel.sweep"):
         assert f"dust_tpu_torch.{name}" in _modules()
 
 
