@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port (`dust_tpu_torch`) on one NVIDIA
 GPU: builds the hand-written kernels, holds each against its plain
-PyTorch version, drives the pendulum DuSt closed loop through them at the
-demo configuration's full width, and times the kernels.
+PyTorch version, drives the pendulum and particle-navigation DuSt closed
+loops through them at the demo configurations' full width, and times the
+kernels.
 
     python3 chip_smoke.py
 
@@ -53,6 +54,32 @@ Phases (any failure raises and exits non-zero):
      (one launch each, 30-70 ms) between CUDA events around single calls,
      their plain versions likewise (one call each: bound by the host
      launching their operations).
+ 15. K6 (particle rollout costs) against its plain version at the demo
+     shapes (4 x 64 x 6, H 40) from a free start, inside an obstacle and
+     inside a wall, and the kernels' occupancy test against occupancy_hit
+     and the raster on every map cell (centers, edges, a hair either side)
+     and beyond the map, exactly;
+ 16. K7 (the particle-mass MPF loop) against its plain version, m = 50,
+     20 steps, log and linear space, both clip gates, a crashed start;
+ 17. path 5: `run_particle_episode` on the particle demo stack with the
+     fused rollout (K6) and FusedParticleMPF (K7), 200 steps; K6 launches
+     200 times, K7 once per step before termination; the outcome (crash,
+     success, steps, minimum distance to the target, MPF mass estimate
+     before and after the load at step 50), gated on finiteness and on
+     getting 2 m nearer the target;
+ 18. the K6 path against the plain path for 10 re-synced steps;
+ 19. K8 (the whole particle solve) against its plain version at the demo
+     shapes, both likelihoods, free and crashed starts;
+ 20. path 6: `fused_solve: true` (K8) + K7, 200 steps; K6 stays wired and
+     must not launch; then the K8 path against the plain path;
+ 21. K9 (the whole particle episode) against its plain version in
+     host-noise mode (1 and 3 steps, warm_up 0 and 2; the Silverman MPF
+     bandwidth, the unweighted prior and ExpectedCost over 2 steps) and
+     device-RNG mode, and against the K8 + K7 kernel composition;
+ 22. path 7: one 200-step K9 episode (`megakernel_particle_episode_fn`,
+     device RNG): ms per episode, the outcome, the same seed gives the
+     same bits, another seed other results;
+ 23. K6-K9 times beside their bounds, as phases 6 and 14.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. The line before the last is the kernels' JSON summary;
@@ -338,7 +365,16 @@ def _kernel_harness(config, arrays, dev, fused, steps, fused_solve=False):
 
 def _wrappers():
     """name -> the wrapper whose `launches` counts its kernel's launches."""
-    from dust_tpu_torch.ops import episode, mpf, rollout, solve, sweep_episode
+    from dust_tpu_torch.ops import (
+        episode,
+        mpf,
+        particle_episode,
+        particle_mpf,
+        particle_rollout,
+        rollout,
+        solve,
+        sweep_episode,
+    )
 
     return {
         "pendulum_rollout_costs": rollout.fused_pendulum_rollout_costs,
@@ -346,6 +382,11 @@ def _wrappers():
         "pendulum_solve": solve.fused_pendulum_solve,
         "pendulum_episode": episode.fused_pendulum_episode,
         "pendulum_sweep_episode": sweep_episode.fused_pendulum_sweep_episode,
+        "particle_rollout_costs":
+            particle_rollout.fused_particle_rollout_costs,
+        "particle_mpf_optimize": particle_mpf.fused_particle_mpf_optimize,
+        "particle_solve": solve.fused_particle_solve,
+        "particle_episode": particle_episode.fused_particle_episode,
     }
 
 
@@ -1241,6 +1282,767 @@ def phase_timing_slice2(dev, config):
     return out
 
 
+# -- slice 3: the particle-navigation task (K6, K7, K8, K9) -----------------
+
+# the CPU tests' tolerances (tests/test_torch_particle_*.py): costs and
+# weights at K1's, the MPF loop at K2's, the solve's particles and plans
+# at K3's, the episode per field as tests/test_pallas_particle_episode.py
+K6_TOL = K1_TOL
+K7_TOL = K2_TOL
+K8_COST_TOL = dict(rtol=1e-5, atol=1e-4)
+K8_TOL = K3_TOL
+K9_TOLS = {"state": dict(rtol=0.0, atol=1e-5),
+           "action": dict(rtol=0.0, atol=1e-5),
+           "cost": dict(rtol=1e-5, atol=0.0),
+           "cum": dict(rtol=1e-5, atol=0.0),
+           "bw_sv": dict(rtol=0.0, atol=1e-6),
+           "bw_mpf": dict(rtol=0.0, atol=1e-6),
+           "theta": dict(rtol=0.0, atol=1e-4),
+           "a_mat": dict(rtol=0.0, atol=1e-3),
+           "mpf_x": dict(rtol=0.0, atol=1e-5)}
+# the demo's start (-9, -9) and target (9, 9): the start's distance
+START_DIST = float(np.hypot(18.0, 18.0))
+# a stalled solve fails: the particle must get this much nearer the
+# target before any termination
+MIN_ADVANCE_M = 2.0
+
+
+def _particle_stack(dev, **exp_over):
+    import torch
+
+    from dust_tpu_torch.experiments import (
+        PARTICLE_DEMO_CONFIG,
+        build_particle_stack,
+    )
+
+    cfg = copy.deepcopy(PARTICLE_DEMO_CONFIG)
+    cfg["exp_params"].update(exp_over)
+    stack = build_particle_stack(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    return cfg, stack
+
+
+def _pkw(model):
+    """A Particle model's kernel configuration: dt, limits, statics."""
+    from dust_tpu_torch.ops.particle_rollout import particle_kernel_statics
+
+    return dict(dt=float(model.dt), max_acc=model.max_acc,
+                max_speed=model.max_speed,
+                **particle_kernel_statics(model))
+
+
+def _particle_step_ops():
+    """Float32 and integer operations of one trajectory step as
+    particle.cuh does it: occupancy 20 (two scaled floors, four clamp
+    compares, two NaN tests, the cell index, the bit lookup); the state
+    cost 17, the control cost 6, the accelerations 6, the freeze factor 2,
+    the position 4, the velocity 8. The terminal cost: occupancy and 17."""
+    return 63, 37
+
+
+def _k6_bound(n_params, n_act, n_pol, hz, n_model):
+    """Inputs read once (the model array of n_model floats, state0, the
+    actions, masses), costs written once; operations `_particle_step_ops`
+    per trajectory step and the terminal cost, 1/mass per draw."""
+    n = n_params * n_act * n_pol
+    step, term = _particle_step_ops()
+    nbytes = 4 * (n_model + 4 + n_act * n_pol * hz * 2 + n_params + n)
+    return _bound(nbytes, n * (hz * step + term) + n_params)
+
+
+def _k7_ops(m, n_steps):
+    """Per iteration: per particle the likelihood gradient (~36 with the
+    log-space exp and factor) and the update (~8); per particle pair the
+    prior score 14 (distance and scale twice, max, shift, exp, two sums)
+    and the RBF drive 8."""
+    return n_steps * (22 * m * m + 44 * m)
+
+
+def _k7_bound(m, n_steps):
+    """x and centers [m] and 11 scalars read once, x [m] written once."""
+    return _bound(4 * (3 * m + 11), _k7_ops(m, n_steps))
+
+
+def _particle_solve_ops(n_params, m, n_act, hz, episode=False):
+    """One particle solve as K8's code does it: every rollout
+    (`_particle_step_ops`), the param average and the softmaxes
+    (n_params + 14 per pair), the delta and likelihood sums (5 per
+    (particle, sample, value); 7 in the episode, which forms each action
+    from theta + sigma eps), the Stein step and forward as `_solve_ops`
+    counts them on rows of hz * 2 values."""
+    ev = 2 * hz
+    step, term = _particle_step_ops()
+    ops = n_params * m * n_act * (hz * step + term)
+    ops += m * n_act * (n_params + 14)
+    ops += m * n_act * ev * (7 if episode else 5)
+    ops += 3 * m * m * ev * 6 + m * m * ev * 8 + m * ev * 8
+    return ops
+
+
+def _k8_bound(n_params, m, n_act, hz, n_model):
+    """Inputs read once (model, 10 scalars, theta/locs/a_mat, log_mix,
+    a_seq, the actions, masses), outputs written once (theta_opt,
+    theta_fwd, a_mat, a_mix, a_seq_sel, weights, costs)."""
+    ev = 2 * hz
+    nbytes = 4 * (n_model + 10 + 3 * m * ev + m + ev + n_act * m * ev
+                  + n_params + 3 * m * ev + 2 * m + ev + n_act * m)
+    return _bound(nbytes, _particle_solve_ops(n_params, m, n_act, hz))
+
+
+def _k9_bound(steps, mpf_updates, n_params, m, n_act, hz, m_mpf, mpf_steps,
+              n_model):
+    """One device-RNG episode: per step the solve (episode form), the
+    noise (48 per normal for 2 hz m n_act + n_params normals, 20 per
+    uniform), the Silverman rank count over the m hz 2 policy values (2
+    compares per value pair, 4 per value), the draws (8 each), the
+    simulator, cost and termination (~80); the MPF loop on the steps that
+    ran it (`_k7_ops`). Bytes: the inputs read once (model, 15 scalars,
+    base mass, seeds, log-weights, theta/locs/a_mat, a_seq, the MPF
+    particles) and the outputs written once (12 log values per step,
+    theta/locs/a_mat, the MPF particles)."""
+    ev = 2 * hz
+    n_sv = m * ev
+    n_normals = 2 * hz * m * n_act + n_params
+    per_step = (_particle_solve_ops(n_params, m, n_act, hz, episode=True)
+                + 48 * n_normals + 20 * n_params
+                + 2 * n_sv * n_sv + 4 * n_sv + 8 * n_params + 80)
+    ops = steps * per_step + mpf_updates * _k7_ops(m_mpf, mpf_steps)
+    nbytes = 4 * (n_model + 15 + 1 + 3 + m + 3 * m * ev + ev + m_mpf
+                  + 12 * steps + 3 * m * ev + m_mpf)
+    return _bound(nbytes, ops)
+
+
+def phase_k6(dev):
+    """K6 against its plain version at the demo shapes from a free start,
+    a start inside an obstacle and one inside a wall; and the kernels'
+    occupancy test against `occupancy_hit` on every cell of the clamped
+    domain (cell centers, cell edges, a hair either side), and against the
+    raster, exactly."""
+    import torch
+
+    from dust_tpu_torch.ops import particle_rollout as pr
+
+    _, stack = _particle_stack(dev)
+    model = stack.model
+    kw = _pkw(model)
+    om = model.obst_map
+    nx, ny = om.map.shape
+    xi, yi = torch.meshgrid(torch.arange(nx, dtype=torch.float32, device=dev),
+                            torch.arange(ny, dtype=torch.float32, device=dev),
+                            indexing="ij")
+    cells = torch.stack([xi, yi], -1).reshape(-1, 2)
+    off = torch.tensor(om.c_offset, device=dev)
+    edges = (cells - off) * om.cell_size
+    gen = torch.Generator(device=dev).manual_seed(SEED + 20)
+    outside = 15.0 * (2.0 * torch.rand((4096, 2), generator=gen,
+                                       device=dev) - 1.0)
+    centers = (cells + 0.5 - off) * om.cell_size
+    pts = torch.cat([centers, edges, edges + 1e-6, edges - 1e-6, outside])
+    got = pr.particle_occupancy_probe(pts, rects=kw["rects"], grid=kw["grid"])
+    torch.cuda.synchronize()
+    want = pr.occupancy(pts[:, 0], pts[:, 1], kw["rects"], kw["grid"])
+    mismatches = int((got != want).sum())
+    raster = torch.tensor(om.map, device=dev).reshape(-1)
+    raster_mismatches = int((got[:nx * ny] != raster).sum())
+    print(f"K6 occupancy: {pts.shape[0]} points ({nx}x{ny} cells: centers, "
+          f"edges, +-1e-6; 4096 beyond the map), {len(kw['rects'])} "
+          f"rectangles: {mismatches} differ from occupancy_hit, "
+          f"{raster_mismatches} cell centers differ from the raster; "
+          f"{int(got.sum())} occupied")
+    if mismatches or raster_mismatches:
+        raise AssertionError("K6's occupancy test is not exact")
+    errs = {}
+    for label, start in (("free start", (-9.0, -9.0)),
+                         ("start inside an obstacle", (2.0, 2.0)),
+                         ("start inside a wall", (10.95, 0.3))):
+        s0 = torch.tensor([*start, 0.8, 1.2], device=dev)
+        actions = 12.0 * torch.randn((64, 6, 40, 2), generator=gen,
+                                     device=dev)
+        masses = 1.5 + 1.5 * torch.rand((4,), generator=gen, device=dev)
+        got = pr.fused_particle_rollout_costs(s0, actions, masses, **kw)
+        torch.cuda.synchronize()
+        want = pr.particle_rollout_costs_plain(s0, actions, masses, **kw)
+        errs[label] = _check_close(f"K6 4x64x6 H40 {label}", got, want,
+                                   **K6_TOL)
+    return max(errs.values()), {"points": int(pts.shape[0]),
+                                "mismatches": mismatches,
+                                "raster_mismatches": raster_mismatches}
+
+
+def _k7_inputs(gen, dev, log_space, v0, action, scale):
+    import torch
+
+    x = 1.6 + 0.8 * torch.rand((50, 1), generator=gen, device=dev)
+    if log_space:
+        x = torch.log(x)
+    past = torch.tensor([-9.0, -9.0, *v0], device=dev)
+    t = lambda v: torch.tensor(v, device=dev)
+    return dict(
+        x=x, prior_locs=x + 0.02 * torch.randn((50, 1), generator=gen,
+                                               device=dev),
+        past_obs=past, loc=past + t([0.01, -0.01, 0.1, -0.15]),
+        action=t(action), scale=t(scale), bw=t(0.5), prior_bw=t(0.5),
+        lr=t(1e-2), obs_sigma=t(0.1))
+
+
+def _k7_plain(inp, log_space):
+    from dust_tpu_torch.ops import particle_mpf as pm
+
+    scal = pm.mpf_scalars(inp["x"], inp["past_obs"], inp["loc"],
+                          inp["action"], inp["scale"], inp["bw"],
+                          inp["prior_bw"], inp["lr"], inp["obs_sigma"])
+    return pm.particle_mpf_optimize_plain(inp["x"], inp["prior_locs"], scal,
+                                          n_steps=20, log_space=log_space)
+
+
+def phase_k7(dev):
+    import torch
+
+    from dust_tpu_torch.ops import particle_mpf as pm
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 21)
+    errs = {}
+    for label, log_space, v0, action, scale in (
+            ("log space", True, (0.4, -0.2), (3.0, -5.0), 0.015),
+            ("linear", False, (0.4, -0.2), (3.0, -5.0), 0.015),
+            ("acceleration clip", True, (0.4, -0.2), (25.0, -2.0), 0.015),
+            ("speed clip", True, (4.96, -4.96), (9.0, -9.0), 0.015),
+            ("crashed start", True, (0.4, -0.2), (3.0, -5.0), 0.0)):
+        inp = _k7_inputs(gen, dev, log_space, v0, action, scale)
+        got = pm.fused_particle_mpf_optimize(**inp, n_steps=20,
+                                             log_space=log_space)
+        torch.cuda.synchronize()
+        want = _k7_plain(inp, log_space)
+        if (want - inp["x"]).abs().max().item() < 1e-4:
+            raise AssertionError(f"K7 {label}: the particles did not move")
+        errs[label] = _check_close(f"K7 m50 20 steps {label}", got, want,
+                                   **K7_TOL)
+    return max(errs.values())
+
+
+def _k8_inputs(gen, dev, start, hz=40, m=6, n_params=4, n_act=64):
+    import torch
+
+    r = lambda *shape: torch.randn(shape, generator=gen, device=dev)
+    theta = 3.0 * r(m, hz, 2)
+    logits = r(m)
+    return (
+        torch.tensor([*start, 0.3, -0.2], device=dev), theta,
+        theta + 0.5 * r(m, hz, 2), torch.log_softmax(logits, 0),
+        r(m, hz, 2), 0.1 * r(hz, 2), theta[None] + 5.0 * r(n_act, m, hz, 2),
+        1.7 + 0.7 * torch.rand((n_params,), generator=gen, device=dev),
+        # bw, lr, alpha, temp, ctrl_sigma, prior_sigma as device tensors
+        # (a CUDA graph capture takes no host-to-device copy)
+        *(torch.tensor(v, device=dev) for v in (1.3, 100.0, 1.0, 1.0, 5.0,
+                                                5.0)),
+    )
+
+
+_K8_STATICS = dict(hz=40, m=6, n_params=4, n_act=64)
+
+
+def phase_k8(dev):
+    import torch
+
+    from dust_tpu_torch.ops import solve
+
+    _, stack = _particle_stack(dev)
+    kw = _pkw(stack.model)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 22)
+    worst = 0.0
+    for label, start, exp_util in (
+            ("free start", (-9.0, -9.0), True),
+            ("free start ExpectedCost", (-9.0, -9.0), False),
+            ("start inside an obstacle", (2.0, 2.0), True)):
+        args = _k8_inputs(gen, dev, start)
+        st = dict(_K8_STATICS, exp_util=exp_util, **kw)
+        got = solve.fused_particle_solve(*args, **st)
+        torch.cuda.synchronize()
+        want = solve.plain_particle_solve(*args, **st)
+        for name, g, w in zip(_K3_OUTS, got, want):
+            tol = K8_COST_TOL if name in ("costs", "weights") else K8_TOL
+            worst = max(worst, _check_close(
+                f"K8 4x6x64 H40 {label} {name}", g, w, **tol))
+    return worst
+
+
+def _particle_noise(steps, seed, dev):
+    """Host noise in the JAX layouts: eps [steps, 2, hz, 8, 128], pdz and
+    pdu [steps, 8, 128], from a numpy seed."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    return (t(rng.normal(size=(steps, 2, 40, 8, 128))),
+            t(rng.normal(size=(steps, 8, 128))),
+            t(rng.uniform(size=(steps, 8, 128))))
+
+
+def _particle_episode(fn, cfg, stack, steps, seed=(0, 0), noise=None,
+                      warm_up=0, change_at=100, success_dist=1.0, **over):
+    """`fn` (the K9 wrapper or its plain version) with the arguments the
+    megakernel adapter passes for `stack`; `over` replaces its settings."""
+    import torch
+
+    exp = cfg["exp_params"]
+    model = stack.model
+    mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 2,
+                                  bw=stack.mpf_init_bw)
+    dstate = stack.controller.init_state()
+    nz = {} if noise is None else dict(host_eps=noise[0], host_pdz=noise[1],
+                                       host_pdu=noise[2])
+    settings = dict(
+        success_dist=success_dist, exp_util=True,
+        weighted_prior=exp["weighted_prior"],
+        mpf_log_space=exp["mpf_log_space"], use_fixed_mpf_bw=True,
+        mpf_bw_scale=exp["mpf_bandwidth_scaling"])
+    settings.update(over)
+    return fn(
+        list(seed), stack.init_state, stack.init_policies,
+        stack.policies_prior.locs,
+        torch.log_softmax(stack.policies_prior.logits, 0), dstate.a_mat,
+        dstate.a_seq, stack.mpf_init, mstate.prior_bw,
+        model.params_dict["mass"], stack.load, exp["ctrl_sigma"],
+        exp["learning_rate"], exp["alpha"], 1.0 / exp["alpha"],
+        exp["prior_sigma"], exp["mpf_learning_rate"], exp["mpf_obs_std"],
+        stack.mpf_bw, steps=steps, warm_up=warm_up, hz=exp["horizon"],
+        m=exp["n_particles"], n_params=exp["params_samples"],
+        n_act=exp["action_samples"], m_mpf=exp["mpf_n_particles"],
+        mpf_steps=exp["mpf_steps"], change_at=change_at, **settings, **nz,
+        **_pkw(model))
+
+
+def _check_particle_episode(label, got, want):
+    worst = 0.0
+    for k, tol in K9_TOLS.items():
+        worst = max(worst, _check_close(f"{label} {k}", got[k], want[k],
+                                        **tol))
+    for k in ("done", "crashed"):
+        if not bool((got[k] == want[k]).all()):
+            raise AssertionError(f"{label} {k}: {got[k].tolist()} != "
+                                 f"{want[k].tolist()}")
+    return worst
+
+
+def _particle_composition(cfg, stack, steps, noise, warm_up=0,
+                          change_at=100):
+    """The episode as a host loop over the K8 and K7 kernels with the
+    same noise, the simulator, the termination masks and the
+    weighted-prior refresh between them
+    (`tests/test_pallas_particle_episode.py:_reference_composition`)."""
+    import torch
+
+    from dust_tpu_torch.ops.bandwidth import silvermans_rule
+    from dust_tpu_torch.ops.particle_mpf import fused_particle_mpf_optimize
+    from dust_tpu_torch.ops.solve import fused_particle_solve
+
+    exp = cfg["exp_params"]
+    eps, pdz, pdu = noise
+    m, hz = exp["n_particles"], exp["horizon"]
+    n_act, n_par, mm = (exp["action_samples"], exp["params_samples"],
+                        exp["mpf_n_particles"])
+    sig = float(exp["ctrl_sigma"])
+    model = stack.model
+    kw = _pkw(model)
+    dev = stack.init_state.device
+    mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 2,
+                                  bw=stack.mpf_init_bw)
+    theta, locs = stack.init_policies, stack.policies_prior.locs
+    logits = stack.policies_prior.logits
+    dstate = stack.controller.init_state()
+    amat, aseq = dstate.a_mat, dstate.a_seq
+    x, pbw = stack.mpf_init, mstate.prior_bw
+    lik_loc = state = stack.init_state
+    done = False
+    mass0 = float(model.params_dict["mass"])
+    logs = {k: [] for k in ("state", "action", "cost", "bw_sv")}
+    for t in range(steps):
+        bw_sv = silvermans_rule(theta)
+        acts = torch.stack([eps[t, c, :, :m, :n_act].permute(2, 1, 0)
+                            for c in (0, 1)], dim=-1)
+        idx = torch.clamp(torch.floor(pdu[t, :n_par, 0] * mm),
+                          max=mm - 1).long()
+        masses = torch.exp(x[idx, 0] + pbw * pdz[t, :n_par, 0])
+        theta_opt, theta_fwd, amat, _, a_sel, w, _ = fused_particle_solve(
+            state, theta, locs, torch.log_softmax(logits, 0), amat, aseq,
+            theta[None] + sig * acts, masses, bw_sv, exp["learning_rate"],
+            exp["alpha"], 1.0 / exp["alpha"], sig, exp["prior_sigma"],
+            hz=hz, m=m, n_params=n_par, n_act=n_act, **kw)
+        if t >= warm_up:
+            action, theta, locs = a_sel[0], theta_fwd, theta_fwd
+            logits = torch.log(torch.clamp(w, min=1e-37))
+        else:
+            action, theta = torch.zeros(2, device=dev), theta_opt
+        mass = mass0 + stack.load if t >= change_at else mass0
+        new_state = model.step(state[None], action[None],
+                               {"mass": torch.tensor(mass, device=dev)})[0]
+        state = state if done else new_state
+        if t >= warm_up and not done:
+            coll = model.obst_map.get_collisions(lik_loc[0:2])
+            x = fused_particle_mpf_optimize(
+                x, x, lik_loc, state, action, model.dt * (1.0 - coll),
+                torch.tensor(stack.mpf_bw, device=dev), pbw,
+                exp["mpf_learning_rate"], exp["mpf_obs_std"],
+                n_steps=exp["mpf_steps"], max_acc=model.max_acc,
+                max_speed=model.max_speed, log_space=exp["mpf_log_space"])
+            pbw, lik_loc = torch.tensor(stack.mpf_bw, device=dev), state
+        crash = bool(model.obst_map.get_collisions(state[0:2]) > 0)
+        done = done or crash or bool(torch.linalg.norm(model.target - state)
+                                     <= 1.0)
+        for k, v in zip(logs, (state, action,
+                               model.default_inst_cost(state[None])[0],
+                               bw_sv)):
+            logs[k].append(v)
+    out = {k: torch.stack(v) for k, v in logs.items()}
+    out.update(theta=theta, a_mat=amat, mpf_x=x)
+    return out
+
+
+def phase_k9(dev):
+    """K9 against its plain version in host-noise mode (1 and 3 steps,
+    warm_up 0 and 2) and in device-RNG mode (2 steps), and against the K8
+    + K7 kernel composition with the same noise."""
+    import torch
+
+    from dust_tpu_torch.ops import particle_episode as pe
+
+    cfg, stack = _particle_stack(dev)
+    worst = 0.0
+    for steps, warm_up in ((1, 0), (3, 0), (3, 2)):
+        noise = _particle_noise(steps, SEED + 30 + steps + warm_up, dev)
+        got = _particle_episode(pe.fused_particle_episode, cfg, stack, steps,
+                                noise=noise, warm_up=warm_up)
+        torch.cuda.synchronize()
+        want = _particle_episode(pe.plain_particle_episode, cfg, stack,
+                                 steps, noise=noise, warm_up=warm_up)
+        label = f"K9 host noise {steps} steps warm_up {warm_up}"
+        worst = max(worst, _check_particle_episode(label, got, want))
+        if steps == 3:
+            comp = _particle_composition(cfg, stack, steps, noise,
+                                         warm_up=warm_up)
+            for k in ("state", "action", "cost", "bw_sv", "theta", "a_mat",
+                      "mpf_x"):
+                worst = max(worst, _check_close(
+                    f"K9 vs K8+K7 kernel composition warm_up {warm_up} {k}",
+                    got[k], comp[k], **K9_TOLS[k]))
+    got = _particle_episode(pe.fused_particle_episode, cfg, stack, 2,
+                            seed=(3, 7))
+    torch.cuda.synchronize()
+    want = _particle_episode(pe.plain_particle_episode, cfg, stack, 2,
+                             seed=(3, 7))
+    worst = max(worst, _check_particle_episode("K9 device RNG 2 steps", got,
+                                               want))
+    # the kernel's other settings: the Silverman MPF bandwidth, the
+    # unweighted prior, ExpectedCost
+    noise = _particle_noise(2, SEED + 35, dev)
+    for option in (dict(use_fixed_mpf_bw=False, mpf_bw_scale=1.3),
+                   dict(weighted_prior=False), dict(exp_util=False)):
+        got = _particle_episode(pe.fused_particle_episode, cfg, stack, 2,
+                                noise=noise, **option)
+        torch.cuda.synchronize()
+        want = _particle_episode(pe.plain_particle_episode, cfg, stack, 2,
+                                 noise=noise, **option)
+        worst = max(worst, _check_particle_episode(
+            f"K9 host noise 2 steps {option}", got, want))
+    return worst
+
+
+def _particle_outcome(label, states, dyn, crashed, success, n_steps,
+                      mass_before, mass_after):
+    """The task outcome of a particle path; gates finiteness and the
+    movement towards the target before any termination."""
+    states = np.asarray(states)
+    for name, v in (("states", states), ("MPF particles", dyn)):
+        if not np.isfinite(np.asarray(v)).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+    dist = np.hypot(states[:, 0] - 9.0, states[:, 1] - 9.0)
+    out = {"crashed": bool(crashed), "success": bool(success),
+           "steps_run": int(n_steps), "start_distance_m": START_DIST,
+           "min_distance_m": float(dist.min()),
+           "final_distance_m": float(dist[-1]),
+           "mpf_mass_before_load": mass_before,
+           "mpf_mass_after_load": mass_after}
+    print(f"{label}: crashed {out['crashed']}, success {out['success']}, "
+          f"{n_steps} steps run, distance to the target {START_DIST:.2f} m "
+          f"at the start, min {out['min_distance_m']:.3f} m, last "
+          f"{out['final_distance_m']:.3f} m; MPF mass estimate (mean of "
+          f"exp(x)) {mass_before} before the load at step 50, "
+          f"{mass_after} after (true 2.0, then 3.0)")
+    if not START_DIST - out["min_distance_m"] >= MIN_ADVANCE_M:
+        raise AssertionError(f"{label}: the particle did not get "
+                             f"{MIN_ADVANCE_M} m nearer the target")
+    return out
+
+
+def _mass_estimate(x):
+    return float(np.exp(np.asarray(x, np.float64)).mean())
+
+
+def phase_particle_path(dev, fused_solve=False):
+    """Path 5 (fused_solve=False): `run_particle_episode` on the stack
+    with the K6 hook and FusedParticleMPF (K7), 200 steps. Path 6
+    (fused_solve=True): FusedParticleSVMPC (K8) + K7; the K6 hook stays
+    wired and must not launch."""
+    import torch
+
+    from dust_tpu_torch.inference import FusedParticleMPF
+    from dust_tpu_torch.simulation import run_particle_episode
+
+    label = "path 6 (K8 + K7)" if fused_solve else "path 5 (K6 + K7)"
+    cfg, stack = _particle_stack(dev, fused_rollout=True,
+                                 fused_solve=fused_solve)
+    # bench/bench_all.py's particle kernel path: the single-kernel MPF
+    stack.mpf = FusedParticleMPF.from_mpf(stack.mpf)
+
+    def run(steps, seed):
+        svstate = stack.svmpc.init_state(stack.init_policies,
+                                         stack.policies_prior)
+        mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 2,
+                                      bw=stack.mpf_init_bw)
+        return run_particle_episode(
+            torch.Generator(device=dev).manual_seed(seed), stack.model,
+            stack.controller, stack.svmpc, svstate, stack.mpf, mstate,
+            stack.dynamics_prior, load=stack.load, steps=steps, warm_up=0,
+            mpf_bw=stack.mpf_bw, mpf_steps=stack.mpf_steps)
+
+    run(5, SEED + 99)  # warm-up: library handles, allocator, set-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(MAIN_STEPS, SEED)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _counts()
+    n = out["steps"]
+    solve_kernel = "particle_solve" if fused_solve else \
+        "particle_rollout_costs"
+    _check_counts(label, launches, {solve_kernel: MAIN_STEPS,
+                                    "particle_mpf_optimize": n})
+    dyn = out["dyn_particles"]
+    result = {"steps": MAIN_STEPS, "seconds": elapsed,
+              "solves_per_s": MAIN_STEPS / elapsed,
+              "ms_per_step": 1e3 * elapsed / MAIN_STEPS,
+              "launches": launches}
+    print(f"{label}: {MAIN_STEPS} MPC steps (4 mass draws x 64 samples x 6 "
+          f"policies, H 40; 50 MPF particles x 20 steps) in {elapsed:.3f} "
+          f"s, {result['ms_per_step']:.3f} ms per step; launches "
+          f"{launches}")
+    result["outcome"] = _particle_outcome(
+        label, out["trajectory"], dyn, out["crashed"], out["success"], n,
+        _mass_estimate(dyn[min(49, n - 1)]), _mass_estimate(dyn[-1]))
+    for name in ("actions", "costs"):
+        if not np.isfinite(out[name]).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+    return result
+
+
+def _particle_step(stack, generator, state, dstate, svstate, mstate, t):
+    """One MPC step as `particle_episode_fn` runs it before termination
+    (warm_up 0): solve, forward, simulator with the mass of step t, MPF."""
+    import torch
+
+    svstate, dstate, costs = stack.svmpc.optimize(
+        svstate, dstate, state[None], mstate.prior, generator)
+    svstate, a_seq, _ = stack.svmpc.forward(svstate, costs,
+                                            generator=generator)
+    action = a_seq[0]
+    mass = float(stack.model.params_dict["mass"])
+    if t >= MAIN_STEPS // 4:
+        mass += stack.load
+    state = stack.model.step(state[None], action[None],
+                             {"mass": torch.tensor(mass,
+                                                   device=state.device)})[0]
+    mstate, _, _ = stack.mpf.optimize(mstate, action, state, bw=stack.mpf_bw,
+                                      n_steps=stack.mpf_steps)
+    return state, dstate, svstate, mstate, action
+
+
+def phase_particle_kernel_vs_plain(dev, fused_solve=False):
+    """The kernel path (path 5: K6 hook + K7; path 6: K8 + K7) against the
+    plain path (SVMPC rollout loop + autograd MPF) for COMPARE_STEPS steps
+    from the same arrays and generator seed; the plain side starts every
+    step from the kernel side's state."""
+    import torch
+
+    from dust_tpu_torch.experiments import (
+        PARTICLE_DEMO_CONFIG,
+        assemble_particle_stack,
+        draw_particle_stack_arrays,
+    )
+    from dust_tpu_torch.inference import FusedParticleMPF, SVMPCState
+
+    label = "K8 path" if fused_solve else "K6 path"
+    cfg = copy.deepcopy(PARTICLE_DEMO_CONFIG)
+    arrays = draw_particle_stack_arrays(
+        cfg, torch.Generator(device=dev).manual_seed(SEED + 40), dev)
+    k_cfg = copy.deepcopy(cfg)
+    k_cfg["exp_params"].update(fused_rollout=True, fused_solve=fused_solve)
+    k_stack = assemble_particle_stack(k_cfg, arrays, device=dev)
+    k_stack.mpf = FusedParticleMPF.from_mpf(k_stack.mpf)
+    p_stack = assemble_particle_stack(cfg, arrays, device=dev)
+    state = arrays["init_state"]
+    dstate = k_stack.controller.init_state()
+    svstate = k_stack.svmpc.init_state(arrays["init_policies"],
+                                       k_stack.policies_prior)
+    mstate = k_stack.mpf.init_state(arrays["mpf_init"], state, 2,
+                                    bw=k_stack.mpf_init_bw)
+    k_gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    p_gen = torch.Generator(device=dev).manual_seed(SEED + 41)
+    actions, particles = [], []
+    for t in range(COMPARE_STEPS):
+        p_sv = (SVMPCState(theta=svstate.theta, prior=svstate.prior,
+                           prior_updated=t > 0) if fused_solve else svstate)
+        p_out = _particle_step(p_stack, p_gen, state, dstate, p_sv, mstate, t)
+        state, dstate, svstate, mstate, action = _particle_step(
+            k_stack, k_gen, state, dstate, svstate, mstate, t)
+        actions.append((action, p_out[4]))
+        particles.append((mstate.x, p_out[3].x))
+    worst = 0.0
+    for name, pairs in (("action", actions), ("MPF particles", particles)):
+        got = torch.stack([p[0] for p in pairs])
+        want = torch.stack([p[1] for p in pairs])
+        worst = max(worst, _check_close(
+            f"{label} vs plain path, {name}, steps 0-4", got[:5], want[:5],
+            **EARLY_TOL))
+        worst = max(worst, _check_close(
+            f"{label} vs plain path, {name}, {COMPARE_STEPS} steps", got,
+            want, **RUN_TOL))
+    return worst
+
+
+def phase_particle_episode_path(dev):
+    """Path 7: one 200-step episode of the demo stack in one K9 launch,
+    through `megakernel_particle_episode_fn`, device-RNG noise."""
+    import torch
+
+    from dust_tpu_torch.ops import particle_episode as pe
+    from dust_tpu_torch.simulation import megakernel_particle_episode_fn
+
+    cfg, stack = _particle_stack(dev)
+    episode = megakernel_particle_episode_fn(stack, cfg["exp_params"],
+                                             steps=MAIN_STEPS)
+    episode([SEED, 99])  # warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = episode([SEED, 1])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _counts()
+    _check_counts("path 7 (K9 episode)", launches, {"particle_episode": 1})
+    for k, v in out.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"path 7: non-finite values in {k}")
+    again = episode([SEED, 1])
+    other = episode([SEED, 2])
+    same = all(torch.equal(out[k], again[k]) for k in out)
+    differs = not torch.equal(out["action"], other["action"])
+    if not same or not differs:
+        raise AssertionError(f"path 7: same seed gives the same bits: {same}"
+                             f", another seed other results: {differs}")
+    done = out["done"].cpu().numpy()
+    n = int(done.argmax() + 1) if done.any() else MAIN_STEPS
+    # the MPF particles before the load change: the same seed's first 50
+    # steps (the noise is keyed by step)
+    first = _particle_episode(pe.fused_particle_episode, cfg, stack,
+                              MAIN_STEPS // 4, seed=(SEED, 1),
+                              change_at=MAIN_STEPS // 4)
+    if not torch.equal(first["state"], out["state"][:MAIN_STEPS // 4]):
+        raise AssertionError("path 7: a 50-step episode differs from the "
+                             "first 50 steps of the 200-step one")
+    result = {"steps": MAIN_STEPS, "seconds": elapsed,
+              "ms_per_episode": 1e3 * elapsed,
+              "solves_per_s": MAIN_STEPS / elapsed, "launches": launches,
+              "mpf_updates": int(min(n, MAIN_STEPS)),
+              "same_seed_same_bits": same, "other_seed_differs": differs}
+    print(f"path 7 (K9 episode): {MAIN_STEPS} steps in one launch, "
+          f"{result['ms_per_episode']:.3f} ms per episode "
+          f"({result['solves_per_s']:.1f} solves/s); launches {launches}")
+    result["outcome"] = _particle_outcome(
+        "path 7 (K9 episode)", out["state"][:n].cpu().numpy(),
+        out["mpf_x"].cpu().numpy(), bool(out["crashed"][-1] > 0.5),
+        bool(out["done"][-1] > 0.5) and not bool(out["crashed"][-1] > 0.5),
+        n, _mass_estimate(first["mpf_x"].cpu()),
+        _mass_estimate(out["mpf_x"].cpu()))
+    return result
+
+
+def phase_timing_slice3(dev, path7):
+    """K6, K7 and K8 as phase 6 times K1/K2 (device time per call, 20
+    calls in one CUDA graph; plain, kernel, kernel, plain); K9 one 200-step
+    episode between CUDA events (median of 3), its plain version one call."""
+    import torch
+
+    from dust_tpu_torch.ops import particle_episode as pe
+    from dust_tpu_torch.ops import particle_mpf as pm
+    from dust_tpu_torch.ops import particle_rollout as pr
+    from dust_tpu_torch.ops import solve
+    from dust_tpu_torch.simulation import megakernel_particle_episode_fn
+
+    cfg, stack = _particle_stack(dev)
+    model = stack.model
+    kw = _pkw(model)
+    # floats of the model array the kernels read (header and map bits)
+    n_model = pr.model_tensor(kw, model.dt, model.max_acc, model.max_speed,
+                              dev).numel()
+    gen = torch.Generator(device=dev).manual_seed(SEED + 50)
+    s0 = torch.tensor([-9.0, -9.0, 0.0, 0.0], device=dev)
+    acts = 5.0 * torch.randn((64, 6, 40, 2), generator=gen, device=dev)
+    masses = 1.7 + 0.7 * torch.rand((4,), generator=gen, device=dev)
+    inp = _k7_inputs(gen, dev, True, (0.4, -0.2), (3.0, -5.0), 0.015)
+    k8_args = _k8_inputs(gen, dev, (-9.0, -9.0))
+    k8_st = dict(_K8_STATICS, exp_util=True, **kw)
+    out = {}
+    for name, kern, plain, bound in (
+            ("particle_rollout_costs",
+             lambda: pr.fused_particle_rollout_costs(s0, acts, masses, **kw),
+             lambda: pr.particle_rollout_costs_plain(s0, acts, masses, **kw),
+             _k6_bound(4, 64, 6, 40, n_model)),
+            ("particle_mpf_optimize",
+             lambda: pm.fused_particle_mpf_optimize(**inp, n_steps=20),
+             lambda: _k7_plain(inp, True), _k7_bound(50, 20)),
+            ("particle_solve",
+             lambda: solve.fused_particle_solve(*k8_args, **k8_st),
+             lambda: solve.plain_particle_solve(*k8_args, **k8_st),
+             _k8_bound(4, 6, 64, 40, n_model))):
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = kern if which == "kernel" else plain
+            runs[which].append({"device_ms": _device_ms(fn),
+                                "call_ms": _call_ms(fn)})
+        out[name] = {
+            "ms": min(r["device_ms"] for r in runs["kernel"]),
+            "plain_ms": min(r["device_ms"] for r in runs["plain"]),
+            "runs": runs, "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_bytes": bound[2], "bound_ops": bound[3],
+            "timed_as": "device time per call, 20 calls in one CUDA graph"}
+
+    episode = megakernel_particle_episode_fn(stack, cfg["exp_params"],
+                                             steps=MAIN_STEPS)
+    ep_kern = lambda: episode([SEED, 1])
+    ep_plain = lambda: _particle_episode(pe.plain_particle_episode, cfg,
+                                         stack, MAIN_STEPS, seed=(SEED, 1),
+                                         change_at=MAIN_STEPS // 4)
+    bound = _k9_bound(MAIN_STEPS, path7["mpf_updates"], 4, 6, 64, 40, 50, 20,
+                      n_model)
+    runs = {"plain": [], "kernel": []}
+    for which in ("plain", "kernel", "kernel", "plain"):
+        if which == "kernel":
+            runs[which].append(statistics.median(_event_ms(ep_kern, 3)))
+        else:
+            runs[which].append(_event_ms(ep_plain, 1)[0])
+    out["particle_episode"] = {
+        "ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
+        "runs": runs, "bound_ms": bound[0], "bound_by": bound[1],
+        "bound_bytes": bound[2], "bound_ops": bound[3],
+        "timed_as": "one call between CUDA events"}
+    for name, t in out.items():
+        print(f"time {name}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms ({t['timed_as']}); bound "
+              f"{t['bound_ms']:.2e} ms ({t['bound_by']})")
+    return out
+
+
 def main():
     import torch
 
@@ -1276,6 +2078,19 @@ def main():
     k5_err = max(k5_err, path4["layout_max_abs_err"])
     times.update(phase_timing_slice2(dev, PENDULUM_DEMO_CONFIG))
 
+    k6_err, occupancy = phase_k6(dev)
+    k7_err = phase_k7(dev)
+    path5 = phase_particle_path(dev)
+    loop5_err = phase_particle_kernel_vs_plain(dev)
+    k8_err = phase_k8(dev)
+    path6 = phase_particle_path(dev, fused_solve=True)
+    loop6_err = phase_particle_kernel_vs_plain(dev, fused_solve=True)
+    print(f"ms per MPC step: path 5 (K6 + K7) {path5['ms_per_step']:.3f}, "
+          f"path 6 (K8 + K7) {path6['ms_per_step']:.3f}")
+    k9_err = phase_k9(dev)
+    path7 = phase_particle_episode_path(dev)
+    times.update(phase_timing_slice3(dev, path7))
+
     kernels = []
     for name, source, replaces, err, path in (
             ("pendulum_rollout_costs", "dust_tpu_torch/csrc/pendulum_rollout.cu",
@@ -1288,7 +2103,17 @@ def main():
              "dust_tpu/ops/pallas_episode.py:795", k4_err, path3),
             ("pendulum_sweep_episode",
              "dust_tpu_torch/csrc/pendulum_episode.cu",
-             "dust_tpu/ops/pallas_sweep_episode.py:1319", k5_err, path4)):
+             "dust_tpu/ops/pallas_sweep_episode.py:1319", k5_err, path4),
+            ("particle_rollout_costs",
+             "dust_tpu_torch/csrc/particle_rollout.cu",
+             "dust_tpu/ops/pallas_particle_rollout.py:253", k6_err, path5),
+            ("particle_mpf_optimize", "dust_tpu_torch/csrc/particle_mpf.cu",
+             "dust_tpu/ops/pallas_particle_mpf.py:141", k7_err, path5),
+            ("particle_solve", "dust_tpu_torch/csrc/particle_solve.cu",
+             "dust_tpu/ops/pallas_solve.py:538", k8_err, path6),
+            ("particle_episode", "dust_tpu_torch/csrc/particle_episode.cu",
+             "dust_tpu/ops/pallas_particle_episode.py:620", k9_err,
+             path7)):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -1306,6 +2131,11 @@ def main():
         "kernel_vs_plain_path_max_abs_err": loop_err, "timing": times,
         "path2_k3": path2, "k3_path_vs_plain_path_max_abs_err": k3_loop_err,
         "path3_k4_episode": path3, "path4_k5_sweep": path4,
+        "k6_occupancy": occupancy, "path5_k6_k7": path5,
+        "k6_path_vs_plain_path_max_abs_err": loop5_err,
+        "path6_k8_k7": path6,
+        "k8_path_vs_plain_path_max_abs_err": loop6_err,
+        "path7_k9_episode": path7,
         "kernels": kernels,
     }
     out_dir = ROOT / "chiprun_out"

@@ -4,23 +4,26 @@ kernels for an NVIDIA Hopper card.
 A port of `dust_tpu` (JAX/Pallas) that keeps its layout and names, so each
 module's counterpart is found under the same path:
 
-    simulation.py          closed-loop pendulum episode harness (+ the
-                           whole-episode and sweep kernel adapters)
-    experiments.py         config -> stack builders
+    simulation.py          closed-loop pendulum and particle-navigation
+                           episode harnesses (+ the whole-episode and
+                           sweep kernel adapters)
+    experiments.py         config -> stack builders (pendulum, particle)
     parallel/              MegakernelGroupSweep (sweep groups, one launch)
-      inference/           likelihoods, SVMPC (+ FusedPendulumSVMPC), MPF
-                           (+ FusedPendulumMPF)
+      inference/           likelihoods, SVMPC (+ FusedPendulumSVMPC,
+                           FusedParticleSVMPC), MPF (+ FusedPendulumMPF,
+                           FusedParticleMPF)
         controllers/       MultiDisco rollout and update engine
-          models/          batched pendulum dynamics
+          models/          batched pendulum and point-mass dynamics, the
+                           obstacle map
       ops/                 distances, bandwidth rules, RBF kernels, the
                            rollout-cost, MPF-loop, whole-solve, episode and
-                           sweep kernels (csrc/*.cu)
+                           sweep kernels of both tasks (csrc/*.cu)
       distributions.py     MVN / Normal / Uniform / GMM on tensors
     convert.py             state carried across from numpy arrays
 
 The package imports `torch` and `numpy` only. Its entry points
-(`build_pendulum_stack`, `PendulumSimulation`) run on the card unless the
-caller passes `device="cpu"`; the CUDA kernels are compiled on first use
+(`build_pendulum_stack`, `PendulumSimulation`, `build_particle_stack`)
+run on the card unless the caller passes `device="cpu"`; the CUDA kernels are compiled on first use
 (`ops/_build.py`), never at import.
 """
 
@@ -28,7 +31,7 @@ __version__ = "0.1.0"
 
 from .spaces import Box
 from .distributions import GMM, MVN, Normal, Uniform
-from .models import BaseModel, PendulumModel
+from .models import BaseModel, ObstacleMap, Particle, PendulumModel
 from .controllers import DiscoState, MultiDisco
 from .inference import (
     MPF,
@@ -38,30 +41,44 @@ from .inference import (
     CostLikelihood,
     ExpectedCost,
     ExponentiatedUtility,
+    FusedParticleMPF,
+    FusedParticleSVMPC,
     FusedPendulumMPF,
     FusedPendulumSVMPC,
     FusedSVMPCState,
     GaussianLikelihood,
     LikelihoodState,
 )
-from .experiments import PENDULUM_DEMO_CONFIG, build_pendulum_stack
+from .experiments import (
+    PARTICLE_DEMO_CONFIG,
+    PENDULUM_DEMO_CONFIG,
+    build_particle_stack,
+    build_pendulum_stack,
+)
 from .simulation import (
     PendulumSimulation,
+    megakernel_particle_episode_fn,
     megakernel_pendulum_episode_fn,
     megakernel_pendulum_sweep_fn,
+    particle_episode_fn,
+    run_particle_episode,
     to_dataframe,
 )
 from .parallel import MegakernelGroupSweep
 
 __all__ = [
     "Box", "GMM", "MVN", "Normal", "Uniform",
-    "BaseModel", "PendulumModel",
+    "BaseModel", "ObstacleMap", "Particle", "PendulumModel",
     "DiscoState", "MultiDisco",
     "MPF", "MPFState", "SVMPC", "SVMPCState",
     "CostLikelihood", "ExpectedCost", "ExponentiatedUtility",
+    "FusedParticleMPF", "FusedParticleSVMPC",
     "FusedPendulumMPF", "FusedPendulumSVMPC", "FusedSVMPCState",
     "GaussianLikelihood", "LikelihoodState",
-    "PENDULUM_DEMO_CONFIG", "build_pendulum_stack",
+    "PARTICLE_DEMO_CONFIG", "PENDULUM_DEMO_CONFIG", "build_particle_stack",
+    "build_pendulum_stack",
     "PendulumSimulation", "megakernel_pendulum_episode_fn",
-    "megakernel_pendulum_sweep_fn", "to_dataframe", "MegakernelGroupSweep",
+    "megakernel_pendulum_sweep_fn", "megakernel_particle_episode_fn",
+    "particle_episode_fn", "run_particle_episode", "to_dataframe",
+    "MegakernelGroupSweep",
 ]

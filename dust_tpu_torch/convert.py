@@ -15,7 +15,7 @@ import torch
 from .controllers import DiscoState
 from .device import resolve_device
 from .distributions import GMM
-from .experiments import assemble_stack
+from .experiments import assemble_particle_stack, assemble_stack
 from .inference import LikelihoodState, MPFState, SVMPCState
 
 STACK_ARRAY_KEYS = (
@@ -80,3 +80,29 @@ def disco_state_from_numpy(a_seq, a_mat, a_mix, device="cuda"):
     return DiscoState(a_seq=_tensor(a_seq, device),
                       a_mat=_tensor(a_mat, device),
                       a_mix=_tensor(a_mix, device))
+
+
+PARTICLE_STACK_ARRAY_KEYS = (
+    "init_policies",
+    "policies_prior.locs", "policies_prior.scale_tril",
+    "policies_prior.logits",
+    "mpf_init",
+    "init_state",
+)
+
+
+def particle_stack_from_numpy(arrays, config, device="cuda",
+                              reference_compat=False):
+    """Build the port's particle stack from numpy arrays keyed by
+    `PARTICLE_STACK_ARRAY_KEYS` (`mpf_init` only with `use_mpf`) instead
+    of drawing them; the dynamics prior comes from the config's scalars.
+    The controller's a_mat / a_seq carry across with
+    `disco_state_from_numpy`."""
+    device = resolve_device(device)
+    keys = [k for k in PARTICLE_STACK_ARRAY_KEYS
+            if k != "mpf_init" or config["exp_params"]["use_mpf"]]
+    missing = [k for k in keys if k not in arrays]
+    if missing:
+        raise KeyError(f"missing stack arrays: {missing}")
+    tensors = {k: _tensor(arrays[k], device) for k in keys}
+    return assemble_particle_stack(config, tensors, reference_compat, device)

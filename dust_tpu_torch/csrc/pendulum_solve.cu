@@ -22,7 +22,8 @@
 // draws in registers, so the parameter draws are independent chains that
 // hide each other's latency, and the param average needs no shared
 // memory; costs, softmax weights and the particles live in shared memory
-// (dust_solve:: in pendulum_solve.cuh, shared with the episode kernel).
+// (dust_solve:: in pendulum_solve.cuh and stein.cuh, shared with the
+// episode kernels).
 // One warp per particle takes each softmax over the action samples.
 
 #include <cuda_runtime.h>

@@ -1,57 +1,23 @@
 // Block-level device code of one pendulum SVMPC solve, shared by the
 // whole-solve kernel (K3, pendulum_solve.cu) and the whole-episode kernel
-// (K4/K5, pendulum_episode.cu): the rollout costs, the DISCO and
-// likelihood softmaxes, the Stein step with the forward pass, and the
-// exact Silverman bandwidth. Every function here is called by all threads
-// of a block of kThreads threads (they synchronise the block).
+// (K4/K5, pendulum_episode.cu): the pendulum rollout costs. The rest of
+// the solve (softmaxes, Stein step, forward, Silverman) is stein.cuh.
 //
 // The arithmetic follows the plain PyTorch versions (ops/solve.py,
-// ops/episode.py) operation by operation: the library is built with
-// --fmad=false, transcendentals at full precision, and every constant
-// that Python folds in double precision arrives from the host already
-// folded. Only the order of the sums over samples and particles differs.
-// Clamps and max/min reductions propagate NaN as torch.clamp, amax and
-// amin do.
+// ops/episode.py) operation by operation (see stein.cuh).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
-#include <stdint.h>
+
+#include "stein.cuh"
 
 namespace dust_solve {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
-constexpr int kMaxM = 8;       // policy particles
-constexpr int kMaxParams = 8;  // dynamics-parameter draws
 constexpr float kMaxSpeed = 8.0f;
 constexpr float kMaxTorque = 2.0f;
 constexpr float kSwingW = 50.0f;
-
-__device__ __forceinline__ float clampf(float x, float lo, float hi) {
-  return x < lo ? lo : (x > hi ? hi : x);
-}
-__device__ __forceinline__ float maxp(float a, float b) {
-  return (a > b || a != a) ? a : b;
-}
-__device__ __forceinline__ float minp(float a, float b) {
-  return (a < b || a != a) ? a : b;
-}
-
-// xor-butterfly reductions: every lane ends with the same bits
-__device__ __forceinline__ float warp_sum(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-__device__ __forceinline__ float warp_max(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = maxp(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-__device__ __forceinline__ float warp_min(float v) {
-  for (int o = 16; o > 0; o >>= 1) v = minp(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 // sin/cos of the rotation angle x = om * dt, |x| <= xmax
 // (ops/episode.py:rot_sincos)
@@ -149,265 +115,6 @@ __device__ inline void rollout_mcost(float th0, float om0, const float* il,
     }
     mcost[pair] = mc * inv_np;
   }
-}
-
-// Block min of v[0..n) into *out (exact; order-free). red: >= kWarps.
-__device__ inline void block_min(const float* v, int n, float* red,
-                                 float* out) {
-  float mn = INFINITY;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) mn = minp(mn, v[e]);
-  mn = warp_min(mn);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = mn;
-  __syncthreads();
-  if (threadIdx.x == 0) {
-    float r = red[0];
-    for (int w = 1; w < kWarps; ++w) r = minp(r, red[w]);
-    *out = r;
-  }
-  __syncthreads();
-}
-
-struct DiscoConsts {
-  float inv_temp, alpha, log_n_act, inv_n_act;
-  int exp_util;
-};
-
-// DISCO softmax weights omega and eta per particle, the likelihood's
-// per-particle softmax w_lik and log-likelihood log_l
-// (ops/solve.py:disco_weights). One warp per particle row; mcost, omega,
-// w_lik [m * n_act]; eta, log_l [m]; beta_red: >= kWarps + 1 scratch.
-__device__ inline void disco_weights(const float* mcost, int m, int n_act,
-                              const DiscoConsts& k, float* omega,
-                              float* w_lik, float* eta, float* log_l,
-                              float* red) {
-  block_min(mcost, m * n_act, red, red + kWarps);
-  const float beta = red[kWarps];
-  const int lane = threadIdx.x & 31;
-  for (int q = threadIdx.x >> 5; q < m; q += kWarps) {
-    const float* mc = mcost + q * n_act;
-    float* om = omega + q * n_act;
-    float* wl = w_lik + q * n_act;
-    float rmax = -INFINITY, wmax = -INFINITY;
-    for (int i = lane; i < n_act; i += 32) {
-      const float lc = -(mc[i] - beta) * k.inv_temp;
-      const float w = -mc[i] * k.alpha;
-      om[i] = lc;
-      wl[i] = w;
-      rmax = maxp(rmax, lc);
-      wmax = maxp(wmax, w);
-    }
-    rmax = warp_max(rmax);
-    wmax = warp_max(wmax);
-    float se = 0.0f, sw = 0.0f, sc = 0.0f;
-    for (int i = lane; i < n_act; i += 32) {
-      const float e = expf(om[i] - rmax);
-      const float w = expf(wl[i] - wmax);
-      om[i] = e;
-      wl[i] = w;
-      se = se + e;
-      sw = sw + w;
-      sc = sc + mc[i];
-    }
-    se = warp_sum(se);
-    sw = warp_sum(sw);
-    sc = warp_sum(sc);
-    for (int i = lane; i < n_act; i += 32) {
-      om[i] = om[i] / se;
-      wl[i] = wl[i] / sw;
-    }
-    if (lane == 0) {
-      eta[q] = rmax + logf(se);
-      log_l[q] = k.exp_util ? (wmax + logf(sw)) - k.log_n_act
-                            : (-k.alpha) * sc * k.inv_n_act;
-    }
-  }
-  __syncthreads();
-}
-
-// Scratch of the Stein step (shared memory).
-struct SteinSmem {
-  float* lp;        // [m * m]
-  float* r;         // [m * m]
-  float* kmat;      // [m * m]
-  float* rowsum;    // [m]
-  float* log_w;     // [m]
-  float* weights;   // [m]
-  int* i_star;      // [1]
-};
-
-// Stein direction + SGD step, then the forward pass
-// (ops/solve.py:stein_forward). theta/locs [m * hz]; score holds the
-// likelihood gradient on entry and the score on return; lm[c * lm_stride]
-// the mixture log-weights; log_l [m]. Writes theta_new [m * hz],
-// s.weights [m] and *s.i_star (m when no row reaches the max).
-__device__ inline void stein_forward(const float* theta, const float* locs,
-                              float* score, const float* lm, int lm_stride,
-                              const float* log_l, int m, int hz, float bw,
-                              float lr, float inv_ps2, const SteinSmem& s,
-                              float* theta_new) {
-  const int tid = threadIdx.x;
-  const int nt = blockDim.x;
-  const float inv_bw2 = 1.0f / (bw * bw);
-  const float inv_2bw2 = 0.5f * inv_bw2;
-  const float nh = -0.5f * inv_ps2;
-  const float inv_m = static_cast<float>(1.0 / m);
-
-  for (int e = tid; e < m * m; e += nt) {
-    const int q = e / m;
-    const int c = e - q * m;
-    float sp = 0.0f, sk = 0.0f;
-    for (int t = 0; t < hz; ++t) {
-      const float d = theta[q * hz + t] - locs[c * hz + t];
-      const float dk = theta[q * hz + t] - theta[c * hz + t];
-      sp = sp + d * d;
-      sk = sk + dk * dk;
-    }
-    s.lp[e] = nh * sp + lm[c * lm_stride];
-    s.kmat[e] = expf(-inv_2bw2 * sk);
-  }
-  __syncthreads();
-  if (tid < m) {
-    const int q = tid;
-    float rmax = -INFINITY;
-    for (int c = 0; c < m; ++c) rmax = maxp(rmax, s.lp[q * m + c]);
-    float se = 0.0f, rs = 0.0f;
-    for (int c = 0; c < m; ++c) {
-      const float e = expf(s.lp[q * m + c] - rmax);
-      s.r[q * m + c] = e;
-      se = se + e;
-      rs = rs + s.kmat[q * m + c];
-    }
-    for (int c = 0; c < m; ++c) s.r[q * m + c] = s.r[q * m + c] / se;
-    s.rowsum[q] = rs;
-  }
-  __syncthreads();
-  for (int e = tid; e < m * hz; e += nt) {
-    const int q = e / hz;
-    const int t = e - q * hz;
-    const float th = theta[e];
-    float sc = score[e];
-    for (int c = 0; c < m; ++c)
-      sc = sc + s.r[q * m + c] * (locs[c * hz + t] - th) * inv_ps2;
-    score[e] = sc;
-  }
-  __syncthreads();
-  for (int e = tid; e < m * hz; e += nt) {
-    const int q = e / hz;
-    const int t = e - q * hz;
-    float ks = 0.0f, kt = 0.0f;
-    for (int c = 0; c < m; ++c) {
-      const float kk = s.kmat[q * m + c];
-      ks = ks + kk * score[c * hz + t];
-      kt = kt + kk * theta[c * hz + t];
-    }
-    const float gk = -(kt - s.rowsum[q] * theta[e]) * inv_bw2;
-    const float phi = (ks + gk) * inv_m;
-    theta_new[e] = theta[e] + lr * phi;
-  }
-  __syncthreads();
-  for (int e = tid; e < m * m; e += nt) {
-    const int q = e / m;
-    const int c = e - q * m;
-    float sp = 0.0f;
-    for (int t = 0; t < hz; ++t) {
-      const float d = theta_new[q * hz + t] - locs[c * hz + t];
-      sp = sp + d * d;
-    }
-    s.lp[e] = nh * sp + lm[c * lm_stride];
-  }
-  __syncthreads();
-  if (tid < m) {
-    const int q = tid;
-    float nmax = -INFINITY;
-    for (int c = 0; c < m; ++c) nmax = maxp(nmax, s.lp[q * m + c]);
-    float se = 0.0f;
-    for (int c = 0; c < m; ++c) se = se + expf(s.lp[q * m + c] - nmax);
-    s.log_w[q] = log_l[q] + (nmax + logf(se));
-  }
-  __syncthreads();
-  if (tid == 0) {
-    float wmax = -INFINITY;
-    for (int q = 0; q < m; ++q) wmax = maxp(wmax, s.log_w[q]);
-    float se = 0.0f;
-    for (int q = 0; q < m; ++q) {
-      const float w = expf(s.log_w[q] - wmax);
-      s.weights[q] = w;
-      se = se + w;
-    }
-    int star = m;
-    for (int q = m - 1; q >= 0; --q) {
-      s.weights[q] = s.weights[q] / se;
-      if (s.log_w[q] >= wmax) star = q;
-    }
-    *s.i_star = star;
-  }
-  __syncthreads();
-}
-
-// KDEpy-convention Silverman bandwidth of v[0..n) from exact order
-// statistics (ops/episode.py:silverman_rows): a rank count gives each
-// value its sorted positions (#smaller + 1 .. #smaller-or-equal), exact
-// under duplicates. red: >= 2 * kWarps + 4 scratch. Returns the bandwidth
-// to every thread.
-__device__ inline float silverman(const float* v, int n, float* red) {
-  float* os = red + 2 * kWarps;  // the 4 order statistics
-  const double pos25 = 25.0 / 100.0 * (n - 1);
-  const double pos75 = 75.0 / 100.0 * (n - 1);
-  const int lo25 = static_cast<int>(floor(pos25));
-  const int lo75 = static_cast<int>(floor(pos75));
-  const double f25 = pos25 - lo25;
-  const double f75 = pos75 - lo75;
-  const int ks[4] = {lo25 + 1, min(lo25 + 2, n), lo75 + 1, min(lo75 + 2, n)};
-  if (threadIdx.x < 4) os[threadIdx.x] = NAN;
-  float a = 0.0f, b = 0.0f;
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    a = a + v[e];
-    b = b + v[e] * v[e];
-  }
-  a = warp_sum(a);
-  b = warp_sum(b);
-  if ((threadIdx.x & 31) == 0) {
-    red[threadIdx.x >> 5] = a;
-    red[kWarps + (threadIdx.x >> 5)] = b;
-  }
-  __syncthreads();
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const float ve = v[e];
-    int lt = 0, le = 0;
-    for (int j = 0; j < n; ++j) {
-      lt += v[j] < ve;
-      le += v[j] <= ve;
-    }
-#pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (lt < ks[k] && ks[k] <= le) os[k] = ve;
-  }
-  __syncthreads();
-  float bw = 0.0f;
-  if (threadIdx.x == 0) {
-    float s1 = red[0], s2 = red[kWarps];
-    for (int w = 1; w < kWarps; ++w) {
-      s1 = s1 + red[w];
-      s2 = s2 + red[kWarps + w];
-    }
-    const float fn = static_cast<float>(n);
-    const float mean = s1 / fn;
-    const float var = (s2 - fn * mean * mean) / static_cast<float>(n - 1);
-    const float std = sqrtf(maxp(var, 0.0f));
-    const float q25 = os[0] * static_cast<float>(1.0 - f25) +
-                      os[1] * static_cast<float>(f25);
-    const float q75 = os[2] * static_cast<float>(1.0 - f75) +
-                      os[3] * static_cast<float>(f75);
-    const float iqr =
-        (q75 - q25) * static_cast<float>(1.0 / 1.3489795003921634);
-    const float sigma = iqr > 0.0f ? minp(std, iqr) : std;
-    bw = maxp(sigma * static_cast<float>(pow(n * 3.0 / 4.0, -0.2)), 1e-6f);
-    red[2 * kWarps + 4] = bw;
-  }
-  __syncthreads();
-  bw = red[2 * kWarps + 4];
-  __syncthreads();
-  return bw;
 }
 
 }  // namespace dust_solve

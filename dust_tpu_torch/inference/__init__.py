@@ -7,11 +7,12 @@ from .likelihoods import (
 )
 from .svmpc import (
     SVMPC,
+    FusedParticleSVMPC,
     FusedPendulumSVMPC,
     FusedSVMPCState,
     SVMPCState,
 )
-from .mpf import MPF, FusedPendulumMPF, MPFState
+from .mpf import MPF, FusedParticleMPF, FusedPendulumMPF, MPFState
 
 __all__ = [
     "CostLikelihood",
@@ -21,9 +22,11 @@ __all__ = [
     "LikelihoodState",
     "SVMPC",
     "SVMPCState",
+    "FusedParticleSVMPC",
     "FusedPendulumSVMPC",
     "FusedSVMPCState",
     "MPF",
+    "FusedParticleMPF",
     "FusedPendulumMPF",
     "MPFState",
 ]

@@ -1,5 +1,6 @@
 """MPF — Stein particle filter over dynamics parameters (counterpart of
-`dust_tpu/inference/mpf.py`: `MPF` and `FusedPendulumMPF`).
+`dust_tpu/inference/mpf.py`: `MPF`, `FusedPendulumMPF` and
+`FusedParticleMPF`).
 
 SVGD over parameter particles [n, dim], conditioned online on each new
 observation. The score is the gradient of (GMM prior around the particles)
@@ -22,6 +23,7 @@ from ..distributions import GMM
 from ..ops.bandwidth import bw_silverman, silvermans_rule
 from ..ops.kernels import rbf_gram_and_grad
 from ..ops.mpf import fused_pendulum_mpf_optimize
+from ..ops.particle_mpf import fused_particle_mpf_optimize
 from .likelihoods import GaussianLikelihood, LikelihoodState
 
 
@@ -171,6 +173,68 @@ class FusedPendulumMPF(MPF):
             mstate.lik.loc, mstate.lik.past_action, bw, mstate.prior_bw,
             self.lr, self.likelihood.sigma, n_steps=n,
             dt=model.dt, g=model.params_dict["g"],
+            log_space=self.likelihood.log_space,
+        )
+        return (self._refresh_prior(mstate, x, bw),
+                torch.zeros((n,), device=x.device), bw)
+
+
+class FusedParticleMPF(MPF):
+    """MPF whose whole optimize loop runs as ONE CUDA kernel with the
+    hand-derived mass-likelihood gradient of the particle task
+    (`ops/particle_mpf.py`, `csrc/particle_mpf.cu`). Semantics =
+    `MPF(reference_compat=False)` with a `GaussianLikelihood` over an
+    acceleration-control `Particle` model and one uncertain mass
+    parameter; `optimize` returns a zero grad-norm trace. The crash factor
+    at the prediction start is evaluated once outside the kernel: every
+    particle's prediction starts from the same past_obs. On CPU tensors
+    the kernel's plain PyTorch version runs instead."""
+
+    def __init__(self, likelihood, lr=1e-2, bw_scale=1.0, n_steps=100):
+        model = likelihood.model
+        if model.control_type != "acceleration":
+            raise ValueError(
+                "FusedParticleMPF requires acceleration control (the mass "
+                "does not enter velocity-control dynamics)."
+            )
+        if tuple(model.uncertain_params) != ("mass",):
+            raise ValueError(
+                "FusedParticleMPF supports exactly one uncertain param: "
+                f"('mass',), got {tuple(model.uncertain_params)}"
+            )
+        super().__init__(likelihood, lr=lr, bw_scale=bw_scale,
+                         n_steps=n_steps, reference_compat=False)
+
+    @classmethod
+    def from_mpf(cls, mpf: MPF) -> "FusedParticleMPF":
+        """The fused counterpart of a plain `MPF` (same likelihood,
+        learning rate, bandwidth scale and step count) — how the kernel
+        path swaps K7 into a built stack."""
+        if mpf.reference_compat:
+            raise ValueError("FusedParticleMPF has no reference_compat mode")
+        return cls(mpf.likelihood, lr=mpf.lr, bw_scale=mpf.bw_scale,
+                   n_steps=mpf.n_steps)
+
+    def optimize(self, mstate: MPFState, action, new_obs, bw=None,
+                 n_steps=None):
+        mstate = self._condition(mstate, action, new_obs)
+        if bw is None:
+            bw = silvermans_rule(mstate.x) * self.bw_scale
+        n = self.n_steps if n_steps is None else n_steps
+
+        model = self.likelihood.model
+        if model.can_crash and model.with_obstacle:
+            collision = model.obst_map.get_collisions(mstate.lik.past_obs[0:2])
+        else:
+            collision = torch.zeros((), device=mstate.x.device)
+        scale = model.dt * (1.0 - collision)
+        # the conditioned state's past_action (NOT the raw argument):
+        # matches MPF semantics when re-optimizing with new_obs=None
+        x = fused_particle_mpf_optimize(
+            mstate.x, mstate.prior.locs, mstate.lik.past_obs,
+            mstate.lik.loc, mstate.lik.past_action, scale, bw,
+            mstate.prior_bw, self.lr, self.likelihood.sigma, n_steps=n,
+            max_acc=model.max_acc, max_speed=model.max_speed,
             log_space=self.likelihood.log_space,
         )
         return (self._refresh_prior(mstate, x, bw),

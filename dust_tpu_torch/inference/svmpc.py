@@ -1,5 +1,7 @@
 """SVMPC — Stein variational MPC over control-sequence particles
-(counterpart of `dust_tpu/inference/svmpc.py`, plain `SVMPC` only).
+(counterpart of `dust_tpu/inference/svmpc.py`: `SVMPC` and the
+whole-solve classes `FusedPendulumSVMPC` (K3) and `FusedParticleSVMPC`
+(K8)).
 
 Policy particles theta [m, horizon, ctrl_dim] follow the Stein direction
 of the control posterior: a GMM prior around the previous particles plus
@@ -277,7 +279,9 @@ class _FusedSolveSVMPC(SVMPC):
         )
 
     def optimize(self, svstate, dstate, state, params_dist, generator,
-                 bw=None, n_steps=None):
+                 bw=None, n_steps=None, noise=None):
+        """One whole solve. `noise` optionally injects the standard-normal
+        action draw [n_samples, m, H, A], as `SVMPC.svgd_step` takes it."""
         if n_steps not in (None, 1):
             raise ValueError("fused solve supports n_steps=1")
         theta = svstate.theta                       # [m, H, A]
@@ -287,8 +291,9 @@ class _FusedSolveSVMPC(SVMPC):
             bw = silvermans_rule(theta)
         # the plain path's draws, in its order: CostLikelihood.sample's
         # action noise, then MultiDisco._sample_params' parameter draws
-        noise = torch.randn((self.likelihood.n_samples, m, hz, a),
-                            generator=generator, device=theta.device)
+        if noise is None:
+            noise = torch.randn((self.likelihood.n_samples, m, hz, a),
+                                generator=generator, device=theta.device)
         actions = theta + noise @ ctrl.a_scale_tril.T
         cols = {}
         if ctrl._params_mode == "sampled":
@@ -312,15 +317,19 @@ class _FusedSolveSVMPC(SVMPC):
         return svstate, dstate, costs
 
     def forward(self, svstate, costs, generator=None, steps=-1):
-        """Commit the kernel's selection and roll and refresh the prior.
+        """Commit the kernel's selection and roll and refresh the prior
+        (weighted by the posterior weights when `weighted_prior`).
         `costs`/`generator` are accepted for interface parity; the roll is
         always the "repeat" strategy at steps=-1."""
         if steps != -1:
             raise ValueError("fused solve supports steps=-1")
         theta = svstate.fwd_theta
-        # uniform mixture: the fused solve takes no weighted prior
+        if self.weighted_prior:
+            logits = torch.log(torch.clamp(svstate.fwd_weights, min=1e-37))
+        else:
+            logits = torch.zeros(theta.shape[0], device=theta.device)
         prior = GMM(locs=theta, scale_tril=svstate.prior.scale_tril,
-                    logits=torch.zeros(theta.shape[0], device=theta.device))
+                    logits=logits)
         svstate = replace(svstate, theta=theta, prior=prior)
         return svstate, svstate.fwd_a_seq, svstate.fwd_weights
 
@@ -364,3 +373,38 @@ class FusedPendulumSVMPC(_FusedSolveSVMPC):
         )
         return (theta_opt[..., None], theta_fwd[..., None],
                 amat[..., None], a_mix, a_seq_sel[:, None], weights, costs)
+
+
+class FusedParticleSVMPC(_FusedSolveSVMPC):
+    """Whole-solve-fused SVMPC for the particle-navigation task (ctrl_dim
+    2, optionally weighted prior, a mass parameter column, rectangle
+    collisions in the kernel): K8, `ops/solve.py:fused_particle_solve`."""
+
+    def _check_model(self, model):
+        from ..ops.particle_rollout import particle_kernel_statics
+
+        if self.ctrl_dim != 2:
+            raise ValueError("particle fused solve supports ctrl_dim=2")
+        # validates control type, determinism and uncertain params, and
+        # extracts the cost/collision configuration
+        self._statics = particle_kernel_statics(model)
+
+    def _run_kernel(self, state, theta, locs, log_mix, a_mat, a_seq,
+                    actions, cols, bw, prior_scale, hz, m):
+        from ..ops.solve import fused_particle_solve
+
+        ctrl = self.controller
+        model = self._model
+        masses = cols.get(
+            "mass",
+            torch.full((ctrl.n_params,), float(model.params_dict["mass"]),
+                       device=theta.device),
+        )
+        return fused_particle_solve(
+            state.reshape(-1)[:4], theta, locs, log_mix, a_mat, a_seq,
+            actions, masses, bw, self.lr, self.likelihood.alpha, ctrl.temp,
+            self.sigma[0], prior_scale, hz=hz, m=m, n_params=ctrl.n_params,
+            n_act=self.likelihood.n_samples, dt=float(model.dt),
+            max_acc=float(model.max_acc), max_speed=float(model.max_speed),
+            exp_util=self._exp_util, **self._statics,
+        )

@@ -75,6 +75,35 @@ _SIGNATURES = {
         + [_INT, _VOID_P]                              # exp_util stream
     ),
     "dust_pendulum_episodes": _EPISODE_ARGS,
+    "dust_particle_rollout_costs": [
+        _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,   # model state0 acts masses costs
+        _INT, _INT, _INT,                              # n_params n_traj hz
+        _VOID_P,                                       # stream
+    ],
+    "dust_particle_occupancy": [
+        _VOID_P, _VOID_P, _VOID_P, _INT, _VOID_P,      # model pts out n stream
+    ],
+    "dust_particle_mpf_optimize": [
+        _VOID_P, _VOID_P, _VOID_P, _VOID_P,            # x centers scal x_out
+        _INT, _INT,                                    # m n_steps
+        _FLOAT, _FLOAT, _INT,                          # max_acc max_speed log_space
+        _VOID_P,                                       # stream
+    ],
+    "dust_particle_solve": (
+        [_VOID_P] * 9                                  # model scal theta locs log_mix amat aseq actions masses
+        + [_VOID_P] * 7                                # theta_opt theta_fwd amat_out a_mix aseq_sel weights costs
+        + [_INT] * 4                                   # hz m n_params n_act
+        + [_FLOAT, _INT, _VOID_P]                      # log_n_act exp_util stream
+    ),
+    "dust_particle_episodes": (
+        [_VOID_P] * 18                # model scal base_mass ep_i logmix0 theta0 locs0
+                                      # amat0 aseq mpfx0 eps pdz pdu log theta locs amat mpfx
+        + [_INT] * 10                 # B steps warm_up hz m n_params n_act m_mpf
+                                      # mpf_steps change_at
+        + [_FLOAT] * 2                # success_dist2 log_n_act
+        + [_INT] * 4                  # exp_util weighted_prior log_space fixed_bw
+        + [_FLOAT, _INT, _VOID_P]     # mpf_bw_scale host_noise stream
+    ),
     "dust_cuda_error_string": [_INT],
 }
 

@@ -1,0 +1,149 @@
+"""The whole particle-mass MPF optimize loop in one launch (K7):
+counterpart of `dust_tpu/ops/pallas_particle_mpf.py`.
+
+Each of the n_steps SVGD iterations on m one-dimensional (log-)mass
+particles computes the GMM prior score over the fixed centers (isotropic
+`prior_bw`), the hand-derived gradient of the Gaussian observation
+likelihood through one acceleration-control `Particle.step`, the RBF
+Stein direction, and the SGD update. The mass enters the prediction only
+through the velocity,
+
+    v_pred_j = clip(v0_j + clip(a_j / m, +-max_acc) * scale, +-max_speed),
+
+with scale = dt * (1 - collision at the prediction start) computed by the
+caller, so the gradient needs only the velocity components; both clips
+pass the gradient on their strict interior only. Semantics =
+`MPF(reference_compat=False)`.
+
+* On CUDA tensors `fused_particle_mpf_optimize` launches the hand-written
+  kernel `csrc/particle_mpf.cu` (which replaces the TPU kernel
+  `dust_tpu/ops/pallas_particle_mpf.py:fused_particle_mpf_optimize`): one
+  block, one thread per particle, the particles in shared memory; bound
+  by the latency of its dependent iterations.
+* On CPU tensors it runs `particle_mpf_optimize_plain`, the same
+  arithmetic in plain PyTorch.
+"""
+
+from __future__ import annotations
+
+import torch
+
+# one CUDA block holds every particle
+MAX_PARTICLES = 1024
+
+
+def mpf_scalars(x, past_obs, loc, action, scale, bw, prior_bw, lr,
+                obs_sigma):
+    """[bw, prior_bw, lr, sigma, v0x, v0y, ax, ay, loc_vx, loc_vy, scale]
+    as one float32 tensor on x's device (no host sync for device
+    scalars)."""
+    def f(v):
+        return torch.as_tensor(v, dtype=torch.float32,
+                               device=x.device).reshape(-1)
+
+    return torch.cat([
+        f(bw), f(prior_bw), f(lr), f(obs_sigma), f(past_obs)[2:4],
+        f(action)[:2], f(loc)[2:4], f(scale),
+    ])
+
+
+def _vel_grad_term(a, v0, loc, invm, scale, inv_s2, max_acc, max_speed):
+    """-(pred - loc) / sigma^2 * dpred/dm for one velocity component."""
+    acc_raw = a * invm
+    acc = torch.clamp(acc_raw, -max_acc, max_acc)
+    g_a = ((acc_raw > -max_acc) & (acc_raw < max_acc)).to(invm.dtype)
+    v_raw = v0 + acc * scale
+    pred = torch.clamp(v_raw, -max_speed, max_speed)
+    g_v = ((v_raw > -max_speed) & (v_raw < max_speed)).to(invm.dtype)
+    dpred = g_v * g_a * (-a * invm * invm) * scale
+    return -(pred - loc) * inv_s2 * dpred
+
+
+def particle_mpf_optimize_plain(x, prior_locs, scal, n_steps=20,
+                                max_acc=10.0, max_speed=5.0, log_space=True):
+    """Plain PyTorch version of the kernel: x, prior_locs [..., m, 1];
+    scal [..., 11] as built by `mpf_scalars` (leading dims batch
+    independent particle sets). Returns the particles after n_steps
+    updates."""
+    bw, pbw, lr, sigma, v0x, v0y, ax, ay, loc_vx, loc_vy, scale = (
+        v[..., None, None] for v in scal.unbind(-1))
+    m = x.shape[-2]
+    inv_pbw2 = 1.0 / (pbw * pbw)
+    inv_bw2 = 1.0 / (bw * bw)
+    inv_s2 = 1.0 / (sigma * sigma)
+    c0t = prior_locs.transpose(-1, -2)            # centers as a row
+    x0 = x
+    for _ in range(n_steps):
+        mass = torch.exp(x0) if log_space else x0
+        invm = 1.0 / mass
+        # ---- likelihood gradient (hand-derived particle physics) ----
+        gl = (_vel_grad_term(ax, v0x, loc_vx, invm, scale, inv_s2, max_acc,
+                             max_speed)
+              + _vel_grad_term(ay, v0y, loc_vy, invm, scale, inv_s2,
+                               max_acc, max_speed))
+        if log_space:
+            gl = gl * mass
+        x0t = x0.transpose(-1, -2)
+        # ---- GMM prior score over the fixed centers ----
+        logits = -0.5 * (x0 - c0t) ** 2 * inv_pbw2
+        p = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
+        psum = p.sum(dim=-1, keepdim=True)
+        pc0 = (p * c0t).sum(dim=-1, keepdim=True) / psum
+        s0 = gl + (pc0 - x0) * inv_pbw2
+        # ---- RBF Stein direction, repulsion folded into the drive ----
+        k = torch.exp(-0.5 * (x0 - x0t) ** 2 * inv_bw2)
+        rows = k.sum(dim=-1, keepdim=True)
+        t0t = s0.transpose(-1, -2) - x0t * inv_bw2
+        drive0 = (k * t0t).sum(dim=-1, keepdim=True)
+        phi0 = (drive0 + rows * x0 * inv_bw2) / float(m)
+        x0 = x0 + lr * phi0
+    return x0
+
+
+def fused_particle_mpf_optimize(x, prior_locs, past_obs, loc, action, scale,
+                                bw, prior_bw, lr, obs_sigma, n_steps=20,
+                                max_acc=10.0, max_speed=5.0, log_space=True):
+    """Run the whole particle-mass MPF SVGD loop. x, prior_locs: [m, 1]
+    (log-)mass particles / prior centers; past_obs [4] the prediction
+    start, loc [4] the newest observation, action [2], scale = dt * (1 -
+    collision(past_obs)); bw, prior_bw, lr, obs_sigma scalars (numbers or
+    tensors). Returns x_final [m, 1].
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in `fused_particle_mpf_optimize.launches`)."""
+    scal = mpf_scalars(x, past_obs, loc, action, scale, bw, prior_bw, lr,
+                       obs_sigma)
+    if x.device.type == "cpu":
+        return particle_mpf_optimize_plain(
+            x, prior_locs, scal, n_steps=n_steps, max_acc=max_acc,
+            max_speed=max_speed, log_space=log_space)
+    if x.device.type != "cuda":
+        raise ValueError(f"unsupported device {x.device}")
+    m = x.shape[0]
+    if x.shape != (m, 1) or prior_locs.shape != (m, 1):
+        raise ValueError("x and prior_locs must both be [m, 1]")
+    if not 1 <= m <= MAX_PARTICLES:
+        raise ValueError(
+            f"fused particle MPF holds 1..{MAX_PARTICLES} particles in one "
+            f"CUDA block, got m={m}"
+        )
+    if (x.dtype != torch.float32 or prior_locs.dtype != torch.float32
+            or prior_locs.device != x.device):
+        raise ValueError("x and prior_locs must be float32 on one device")
+    from ._build import check, load_library
+
+    x = x.contiguous()
+    centers = prior_locs.contiguous()
+    out = torch.empty_like(x)
+    rc = load_library().dust_particle_mpf_optimize(
+        x.data_ptr(), centers.data_ptr(), scal.data_ptr(), out.data_ptr(),
+        m, int(n_steps), float(max_acc), float(max_speed),
+        int(bool(log_space)),
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    fused_particle_mpf_optimize.launches += 1
+    check(rc, "particle_mpf_optimize")
+    return out
+
+
+fused_particle_mpf_optimize.launches = 0

@@ -1,7 +1,15 @@
-"""The whole pendulum SVMPC solve in one launch (K3): counterpart of
-`dust_tpu/ops/pallas_solve.py` (pendulum part: `_solve_tail`,
-`_pendulum_solve_kernel`, `_check_dims`, `_solve_scal`,
-`fused_pendulum_solve`).
+"""The whole SVMPC solve in one launch, pendulum (K3) and particle
+navigation (K8): counterpart of `dust_tpu/ops/pallas_solve.py`
+(`_solve_tail`, `_pendulum_solve_kernel`, `_particle_solve_kernel`,
+`_check_dims`, `_solve_scal`, `fused_pendulum_solve`,
+`fused_particle_solve`).
+
+The particle solve (`fused_particle_solve`, kernel
+`csrc/particle_solve.cu`) runs all n_params x m x n_act point-mass
+rollouts with rectangle collisions (`particle_rollout.rollout_costs`'s
+arithmetic), then the same tail as the pendulum's on particles of
+hz * 2 values: DISCO weights, Stein step with the (weighted) mixture
+log-weights, forward, and the "repeat" roll by one step of two values.
 
 One solve: all n_params x m x n_act pendulum rollouts (the rollout state
 is (cos th, sin th, om), advanced by plane rotation with `rot_sincos`) ->
@@ -120,11 +128,14 @@ def _prior_logits(theta, locs, log_mix, neg_half_ips2):
     return torch.cat(cols, dim=-1)
 
 
-def stein_forward(theta, locs, glik, log_mix, bw, lr, inv_ps2, log_l):
+def stein_forward(theta, locs, glik, log_mix, bw, lr, inv_ps2, log_l,
+                  dim_a=1):
     """Stein direction + SGD step, then the forward pass (weights,
-    first-argmax selection, "repeat" roll). theta/locs/glik [B, m, hz];
-    log_mix a scalar or [B, m]; bw [B]; log_l [B, m, 1]. Returns
-    (theta_new, theta_fwd [B, m, hz], weights [B, m], a_seq_sel [B, hz])."""
+    first-argmax selection, "repeat" roll by one step of `dim_a` values).
+    theta/locs/glik [B, m, hz * dim_a] (the horizon flattened); log_mix a
+    scalar or [B, m]; bw [B]; log_l [B, m, 1]. Returns (theta_new,
+    theta_fwd [B, m, hz * dim_a], weights [B, m], a_seq_sel
+    [B, hz * dim_a])."""
     m = theta.shape[1]
     bw = bw.reshape(-1, 1, 1)
     inv_bw2 = 1.0 / (bw * bw)
@@ -171,21 +182,22 @@ def stein_forward(theta, locs, glik, log_mix, bw, lr, inv_ps2, log_l):
         theta_new[torch.arange(theta.shape[0], device=theta.device),
                   i_star.clamp(max=m - 1)],
         0.0)
-    theta_fwd = torch.cat([theta_new[..., 1:], theta_new[..., -1:]], dim=-1)
+    theta_fwd = torch.cat([theta_new[..., dim_a:], theta_new[..., -dim_a:]],
+                          dim=-1)
     return theta_new, theta_fwd, weights, a_seq_sel
 
 
 def _solve_scal(state0, bw, lr, alpha, temp, ctrl_sigma, prior_sigma,
-                device):
-    """[th0, om0, bw, lr, alpha, inv_temp, inv_s2, inv_ps2] as one float32
-    tensor on `device` (as `pallas_solve.py:_solve_scal`; the mixture
-    log-weights travel as their own tensor)."""
+                device, dim_s=2):
+    """[state0 (dim_s values), bw, lr, alpha, inv_temp, inv_s2, inv_ps2]
+    as one float32 tensor on `device` (as `pallas_solve.py:_solve_scal`;
+    the mixture log-weights travel as their own tensor)."""
     def f(v):
         return torch.as_tensor(v, dtype=torch.float32,
                                device=device).reshape(-1)
 
     return torch.cat([
-        f(state0)[:2], f(bw), f(lr), f(alpha), 1.0 / f(temp),
+        f(state0)[:dim_s], f(bw), f(lr), f(alpha), 1.0 / f(temp),
         1.0 / f(ctrl_sigma) ** 2, 1.0 / f(prior_sigma) ** 2,
     ])
 
@@ -277,3 +289,147 @@ def fused_pendulum_solve(state0, theta, locs, log_mix, a_mat, a_seq, actions,
 
 
 fused_pendulum_solve.launches = 0
+
+
+# -- particle navigation (K8) -------------------------------------------------
+
+
+def particle_rollout_mcost(s0, act, im, st):
+    """Param-averaged navigation costs of every rollout. s0 [B, 4]; act(t)
+    -> (a_x, a_y) [B, 1, m, n_act]; im [B, n_params] (1/mass); st the
+    rollout statics of `particle_rollout.rollout_costs` (with hz).
+    Returns mcost [B, m, n_act]."""
+    from .particle_rollout import rollout_costs
+
+    B, n_params = im.shape
+    a_x, _ = act(0)
+    shape = (B, n_params) + tuple(a_x.shape[2:])
+    cost = rollout_costs(tuple(s0[:, i].reshape(B, 1, 1, 1)
+                               for i in range(4)),
+                         act, im[:, :, None, None], shape, st)
+    mcost = cost[:, 0]
+    for p in range(1, n_params):
+        mcost = mcost + cost[:, p]
+    return mcost * (1.0 / n_params)
+
+
+def particle_solve_plain(scal, theta, locs, log_mix, a_mat, a_seq, actions,
+                         masses, st, exp_util=True):
+    """Plain PyTorch version of the kernel. scal as built by `_solve_scal`
+    with dim_s=4; theta/locs/a_mat [m, hz * 2]; log_mix [m]; a_seq
+    [hz * 2]; actions [n_act, m, hz, 2]; masses [n_params]; st the rollout
+    statics. Returns the 7 outputs of `fused_particle_solve`, horizon
+    flattened."""
+    s0 = scal[:4]
+    bw, lr, alpha, inv_temp, inv_s2, inv_ps2 = scal[4:].unbind()
+    n_act, m, hz, _ = actions.shape
+
+    def act(t):
+        return (actions[:, :, t, 0].T[None, None],
+                actions[:, :, t, 1].T[None, None])
+
+    mcost = particle_rollout_mcost(s0[None], act, (1.0 / masses)[None], st)
+    omega, eta, w_lik, log_l = disco_weights(mcost, inv_temp, alpha,
+                                             exp_util)
+    a_qil = actions.reshape(n_act, m, hz * 2).permute(1, 0, 2)
+    delta = (omega[0, :, :, None] * (a_qil - a_seq)).sum(dim=1)
+    wa = (w_lik[0, :, :, None] * a_qil).sum(dim=1)
+    glik = (wa - theta) * inv_s2
+    eta_e = torch.exp(eta - eta.amax(dim=-2, keepdim=True))
+    a_mix = (eta_e / eta_e.sum(dim=-2, keepdim=True))[0, :, 0]
+    theta_new, theta_fwd, weights, a_seq_sel = stein_forward(
+        theta[None], locs[None], glik[None], log_mix[None], bw.reshape(1),
+        lr, inv_ps2, log_l, dim_a=2)
+    return (theta_new[0], theta_fwd[0], a_mat + delta, a_mix, a_seq_sel[0],
+            weights[0], mcost[0].T)
+
+
+def _particle_solve(plain, state0, theta, locs, log_mix, a_mat, a_seq,
+                    actions, masses, bw, lr, alpha, temp, ctrl_sigma,
+                    prior_sigma, *, hz, m, n_params, n_act, dt, max_acc,
+                    max_speed, weights, target, rects, grid, crash,
+                    exp_util=True):
+    """`fused_particle_solve`; `plain` runs the plain version on the
+    inputs' device."""
+    from .particle_rollout import _statics, model_tensor
+
+    check_dims(hz, m, n_act, 2)
+    dev = theta.device
+    ev = hz * 2
+    scal = _solve_scal(state0, bw, lr, alpha, temp, ctrl_sigma, prior_sigma,
+                       dev, dim_s=4)
+    if tuple(actions.shape) != (n_act, m, hz, 2) or \
+            tuple(theta.shape) != (m, hz, 2):
+        raise ValueError("expected theta [m, hz, 2] and actions "
+                         "[n_act, m, hz, 2]")
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
+    locs, log_mix, a_mat, a_seq, actions, masses = (
+        f32(v) for v in (locs, log_mix, a_mat, a_seq, actions, masses))
+    if masses.shape != (n_params,):
+        raise ValueError("masses must be [n_params]")
+    st = _statics(hz, dt, max_acc, max_speed, weights, target, rects, grid,
+                  crash)
+    if plain or dev.type == "cpu":
+        outs = particle_solve_plain(
+            scal, theta.reshape(m, ev), locs.reshape(m, ev), log_mix,
+            a_mat.reshape(m, ev), a_seq.reshape(ev), actions, masses, st,
+            exp_util=exp_util)
+    elif dev.type != "cuda":
+        raise ValueError(f"unsupported device {dev}")
+    else:
+        if n_params > 8:
+            raise ValueError("fused solve kernel supports n_params <= 8")
+        from ._build import check, load_library
+
+        model = model_tensor(st, dt, max_acc, max_speed, dev)
+        ins = [t.contiguous() for t in (theta, locs, log_mix, a_mat, a_seq,
+                                        actions, masses)]
+        outs = [torch.empty((m, ev), dtype=torch.float32, device=dev)
+                for _ in range(3)]
+        outs += [torch.empty((m,), dtype=torch.float32, device=dev),
+                 torch.empty((ev,), dtype=torch.float32, device=dev),
+                 torch.empty((m,), dtype=torch.float32, device=dev),
+                 torch.empty((n_act, m), dtype=torch.float32, device=dev)]
+        rc = load_library().dust_particle_solve(
+            model.data_ptr(), scal.data_ptr(), *(t.data_ptr() for t in ins),
+            *(t.data_ptr() for t in outs), hz, m, n_params, n_act,
+            math.log(float(n_act)), int(bool(exp_util)),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+        fused_particle_solve.launches += 1
+        check(rc, "particle_solve")
+    theta_opt, theta_fwd, amat, a_mix, a_seq_sel, w, costs = outs
+    return (theta_opt.reshape(m, hz, 2), theta_fwd.reshape(m, hz, 2),
+            amat.reshape(m, hz, 2), a_mix, a_seq_sel.reshape(hz, 2), w,
+            costs)
+
+
+def fused_particle_solve(*args, **kwargs):
+    """fused_particle_solve(state0, theta, locs, log_mix, a_mat, a_seq,
+    actions, masses, bw, lr, alpha, temp, ctrl_sigma, prior_sigma, *, hz,
+    m, n_params, n_act, dt, max_acc, max_speed, weights, target, rects,
+    grid, crash, exp_util=True)
+
+    One full particle-navigation SVMPC solve.
+
+    state0 [4]; theta/locs/a_mat [m, hz, 2]; log_mix [m] normalized prior
+    mixture log-weights; a_seq [hz, 2]; actions [n_act, m, hz, 2]
+    (sampled, reparameterized); masses [n_params]; bw, lr, alpha, temp,
+    ctrl_sigma, prior_sigma scalars (numbers or tensors); the model's dt,
+    limits and statics as `particle_rollout.particle_kernel_statics`
+    returns them. Returns (theta_opt [m, hz, 2], theta_fwd [m, hz, 2],
+    a_mat_new [m, hz, 2], a_mix [m], a_seq_sel [hz, 2], weights [m], costs
+    [n_act, m]).
+
+    CPU tensors take the plain version; CUDA tensors launch the kernel
+    (counted in `fused_particle_solve.launches`)."""
+    return _particle_solve(False, *args, **kwargs)
+
+
+fused_particle_solve.launches = 0
+
+
+def plain_particle_solve(*args, **kwargs):
+    """`fused_particle_solve`'s plain version on the inputs' device, with
+    the same arguments (the kernel's reference on the card)."""
+    return _particle_solve(True, *args, **kwargs)

@@ -1,5 +1,7 @@
-"""Closed-loop MPC episode harness (counterpart of
-`dust_tpu/simulation.py:PendulumSimulation`).
+"""Closed-loop MPC episode harnesses (counterpart of
+`dust_tpu/simulation.py`): `PendulumSimulation`, the particle-navigation
+`particle_episode_fn` / `run_particle_episode`, and the whole-episode and
+sweep kernel adapters.
 
 One MPC step: SVMPC optimize -> (after warm-up) forward and select ->
 simulator step -> MPF optimize, logged per step. The simulator is the
@@ -345,3 +347,169 @@ def megakernel_pendulum_sweep_fn(stack, exp_params, steps, n_sc,
 
     sweep.groups = groups
     return sweep
+
+
+# -- particle navigation --------------------------------------------------------
+
+
+def particle_episode_fn(model, controller, svmpc=None, mpf=None,
+                        dyn_dist=None, load=0.0, steps=400, warm_up=30,
+                        mpf_bw=None, mpf_steps=None, use_svmpc=True,
+                        success_dist=1.0):
+    """The particle-navigation episode (counterpart of
+    `dust_tpu/simulation.py:particle_episode_fn`): the model doubles as
+    the simulator, the simulator mass gains `load` at steps // 4, a
+    collision terminates the episode as a crash, reaching within
+    `success_dist` of the target (full 4-dim distance) terminates it as a
+    success. All `steps` run; the state freezes once done.
+
+    Returns episode(generator, state0, dstate, svstate, mstate, sim_mass)
+    -> (final_state, done, crashed, cum_cost, logs), logs = (states,
+    actions, costs, dyn_particles, dones) stacked over steps on the
+    device. Per step, as JAX sequences it: SVMPC optimize; forward only at
+    t >= warm_up (else the zero action); the simulator with the mass of
+    step t; the state frozen once done; the MPF update when t >= warm_up
+    and not done; the cost of the new state added to the sum unless done;
+    then crash and success detection against the pre-detection done. The
+    done flag is read on the host every step (it gates the MPF)."""
+    ctrl = controller
+    dev = ctrl.device
+    target = model.target
+    change_at = steps // 4
+    has_map = model.with_obstacle and model.obst_map is not None
+
+    def episode(generator, state0, dstate, svstate, mstate, sim_mass):
+        base_mass = torch.as_tensor(sim_mass, dtype=torch.float32,
+                                    device=dev)
+        state = torch.as_tensor(state0, dtype=torch.float32, device=dev)
+        done = crashed = False
+        cum = torch.zeros((), device=dev)
+        logs = []
+        for t in range(steps):
+            dyn_dist_t = mstate.prior if mpf is not None else dyn_dist
+            if use_svmpc:
+                svstate, dstate, costs = svmpc.optimize(
+                    svstate, dstate, state[None], dyn_dist_t, generator)
+                if t >= warm_up:
+                    svstate, a_seq, _ = svmpc.forward(svstate, costs,
+                                                      generator=generator)
+                    action = a_seq[0]
+                else:
+                    action = torch.zeros((ctrl.dim_a,), device=dev)
+            else:
+                dstate, _, _, _, _, _ = ctrl.forward(
+                    dstate, state[None], model, dyn_dist_t, generator)
+                dstate, next_actions = ctrl.step(dstate, strategy="argmax")
+                action = next_actions.reshape(-1)
+
+            mass = base_mass + load if t >= change_at else base_mass
+            if not done:
+                state = model.step(state[None], action[None],
+                                   {"mass": mass})[0]
+                if mpf is not None and t >= warm_up:
+                    mstate, _, _ = mpf.optimize(mstate, action, state,
+                                                bw=mpf_bw, n_steps=mpf_steps)
+
+            cost = ctrl.inst_cost_fn(state[None])[0]
+            if not done:
+                cum = cum + cost
+            crash_now = (model.obst_map.get_collisions(state[:2]) > 0) \
+                if has_map else torch.zeros((), dtype=torch.bool, device=dev)
+            success_now = torch.linalg.norm(target - state) <= success_dist
+            # the one host read of the step
+            crash_now, success_now = (bool(v) for v in torch.stack(
+                [crash_now, success_now]).cpu())
+            crashed = crashed or (crash_now and not done)
+            done = done or crash_now or success_now
+
+            dyn_log = mstate.x if mpf is not None else torch.zeros(
+                (1, 1), device=dev)
+            logs.append((state, action, cost, dyn_log, done))
+        states, actions, costs, dyn_parts = (
+            torch.stack([log[i] for log in logs]) for i in range(4))
+        dones = torch.tensor([log[4] for log in logs], device=dev)
+        return state, done, crashed, cum, (states, actions, costs,
+                                           dyn_parts, dones)
+
+    return episode
+
+
+def run_particle_episode(generator, model, controller, svmpc=None,
+                         svstate=None, mpf=None, mstate=None, dyn_dist=None,
+                         init_state=None, load=0.0, steps=400, warm_up=30,
+                         mpf_bw=None, mpf_steps=None, use_svmpc=True,
+                         success_dist=1.0):
+    """Run one particle episode end to end; returns a dict of outcome
+    scalars and logged arrays (numpy): the trajectory cut at termination,
+    cum_cost = inf on a crash."""
+    episode = particle_episode_fn(
+        model, controller, svmpc=svmpc, mpf=mpf, dyn_dist=dyn_dist,
+        load=load, steps=steps, warm_up=warm_up, mpf_bw=mpf_bw,
+        mpf_steps=mpf_steps, use_svmpc=use_svmpc, success_dist=success_dist,
+    )
+    state0 = init_state if init_state is not None else model.init_state
+    dstate = controller.init_state()
+    state, done, crashed, cum, logs = episode(
+        generator, state0, dstate, svstate if use_svmpc else (),
+        mstate if mpf is not None else (), model.params_dict["mass"])
+    states, actions, costs, dyn_parts, dones = (
+        v.detach().cpu().numpy() for v in logs)
+    n_steps = int(dones.argmax() + 1) if bool(dones.any()) else int(steps)
+    return {
+        "cum_cost": float(np.inf) if crashed else float(cum),
+        "crashed": bool(crashed),
+        "success": bool(done) and not bool(crashed),
+        "steps": n_steps,
+        "trajectory": states[:n_steps],
+        "actions": actions[:n_steps],
+        "costs": costs[:n_steps],
+        "dyn_particles": dyn_parts[:n_steps],
+        "final_state": state.detach().cpu().numpy(),
+    }
+
+
+def megakernel_particle_episode_fn(stack, exp_params, steps, warm_up=0,
+                                   success_dist=1.0):
+    """Whole-episode kernel adapter of the particle task (K9,
+    `ops/particle_episode.py`): the whole obstacle-navigation episode —
+    SVMPC solves, the simulator with the mass change at steps // 4,
+    crash/goal termination, gated MPF mass-posterior updates — runs as one
+    launch with the kernel's own counter-based noise. Returns
+    episode(seed [2] int, base_mass=None) -> logs dict. Requires the
+    demo config's fixed MPF bandwidth (`mpf_bandwidth` set)."""
+    from .ops.particle_episode import fused_particle_episode
+    from .ops.particle_rollout import particle_kernel_statics
+
+    exp = exp_params
+    if stack.mpf_bw is None:
+        raise ValueError("particle megakernel expects a fixed "
+                         "mpf_bandwidth (the demo config sets 0.5)")
+    statics = particle_kernel_statics(stack.model)
+    mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 2,
+                                  bw=stack.mpf_init_bw)
+    dstate = stack.controller.init_state()
+    log_mix0 = torch.log_softmax(stack.policies_prior.logits, dim=0)
+    model = stack.model
+
+    def episode(seed, base_mass=None):
+        return fused_particle_episode(
+            seed, stack.init_state, stack.init_policies,
+            stack.policies_prior.locs, log_mix0, dstate.a_mat, dstate.a_seq,
+            stack.mpf_init, mstate.prior_bw,
+            model.params_dict["mass"] if base_mass is None else base_mass,
+            stack.load, exp["ctrl_sigma"], exp["learning_rate"],
+            exp["alpha"], 1.0 / exp["alpha"], exp["prior_sigma"],
+            exp["mpf_learning_rate"], exp["mpf_obs_std"], stack.mpf_bw,
+            steps=steps, warm_up=warm_up, hz=exp["horizon"],
+            m=exp["n_particles"], n_params=exp["params_samples"],
+            n_act=exp["action_samples"], m_mpf=exp["mpf_n_particles"],
+            mpf_steps=exp["mpf_steps"], dt=float(model.dt),
+            max_acc=float(model.max_acc), max_speed=float(model.max_speed),
+            change_at=steps // 4, success_dist=success_dist,
+            exp_util=_exp_util(exp),
+            weighted_prior=exp.get("weighted_prior", False),
+            mpf_log_space=exp["mpf_log_space"], use_fixed_mpf_bw=True,
+            mpf_bw_scale=exp["mpf_bandwidth_scaling"], **statics,
+        )
+
+    return episode

@@ -43,8 +43,33 @@ def test_package_imports_without_jax_or_dust_tpu():
     for name in ("ops.rollout", "ops.mpf", "ops._build", "convert",
                  "simulation", "experiments", "inference.mpf",
                  "inference.svmpc", "ops.solve", "ops.episode",
-                 "ops.sweep_episode", "parallel", "parallel.sweep"):
+                 "ops.sweep_episode", "parallel", "parallel.sweep",
+                 "models.obstacle_map", "models.particle",
+                 "ops.particle_rollout", "ops.particle_mpf",
+                 "ops.particle_episode"):
         assert f"dust_tpu_torch.{name}" in _modules()
+
+
+def test_every_c_entry_has_a_signature_and_a_source():
+    """Each C entry the wrappers call is declared in `_SIGNATURES` and
+    defined in exactly one `csrc/*.cu` file."""
+    from dust_tpu_torch.ops import _build
+
+    sources = {p.name: p.read_text() for p in _build.SRC_DIR.glob("*.cu")}
+    for name in _build._SIGNATURES:
+        defined = [f for f, text in sources.items()
+                   if re.search(rf'extern "C" [\w\s*]*\b{name}\(', text)]
+        assert len(defined) == 1, (name, defined)
+    for name in ("particle_rollout.cu", "particle_mpf.cu", "particle_solve.cu",
+                 "particle_episode.cu"):
+        assert name in sources
+    calls = set()
+    for path in sorted(PKG_DIR.rglob("*.py")):
+        calls |= set(re.findall(r"load_library\(\)\.(\w+)\(",
+                                path.read_text()))
+    assert calls <= set(_build._SIGNATURES), calls - set(_build._SIGNATURES)
+    assert {"dust_particle_rollout_costs", "dust_particle_mpf_optimize",
+            "dust_particle_solve", "dust_particle_episodes"} <= calls
 
 
 def test_sources_name_no_jax_or_dust_tpu():
