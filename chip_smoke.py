@@ -80,6 +80,33 @@ Phases (any failure raises and exits non-zero):
      device RNG): ms per episode, the outcome, the same seed gives the
      same bits, another seed other results;
  23. K6-K9 times beside their bounds, as phases 6 and 14.
+ 24. K10 (the particle scenario sweep) against independent K9 launches,
+     8 scenarios x 4 chains, bit for bit (host noise: every episode;
+     device RNG: scenario 0 of each chain); a NaN true mass or MPF
+     particle in one scenario leaves every other scenario's bits alone;
+     the device-RNG sweep and its final log-mix against the plain version;
+ 25. path 8: bench/bench_all.py's particle sweep, 256 episodes = 8 groups x
+     8 scenarios x 4 chains x 200 steps, in one K10 launch through
+     MegakernelGroupSweep: solves/s, crash and success shares, the mean
+     minimum distance to the target; before it the layout against the
+     plain version after 1 and 2 steps and against per-group launches,
+     after it the plain sweep's outcome on the same draws;
+ 26. path 9: ParticleScenarioSweep over the K6 + K7 step loop, 8 scenarios
+     (true masses 1.5-3.0) x 200 steps: crashed <=> inf cost, the masses
+     move the trajectories, every scenario against run_particle_episode on
+     the same generator seed;
+ 27. K11a-c (streamed SVGD direction), K12a-b (streamed GMM prior score)
+     and K13 (the fused SVGD step) against their plain versions at m =
+     2048 and 8192, the JAX tests' odd shapes, far from the origin, bf16,
+     and m = 32768 in four 1024-row chunks;
+ 28. path 10: bench_all.py's particle_large stack (16 x 512 x 8 rollouts,
+     2048 MPF particles) with FusedMPF (K11a + K12a, 20 launches each per
+     step), 50 steps of run_particle_episode; the generic MPF on the same
+     seed;
+ 29. path 11: FusedMPF.optimize in bench_mpf_large's form at m = 2048,
+     8192, 32768 and with fuse_streams at 8192 and 32768: conditioned
+     updates per second and the launches of each layout;
+ 30. K10-K13 times beside their bounds, as phases 6 and 14.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. The line before the last is the kernels' JSON summary;
@@ -367,12 +394,16 @@ def _wrappers():
     """name -> the wrapper whose `launches` counts its kernel's launches."""
     from dust_tpu_torch.ops import (
         episode,
+        gmm,
         mpf,
+        mpf_stream,
         particle_episode,
         particle_mpf,
         particle_rollout,
+        particle_sweep_episode,
         rollout,
         solve,
+        svgd,
         sweep_episode,
     )
 
@@ -387,6 +418,14 @@ def _wrappers():
         "particle_mpf_optimize": particle_mpf.fused_particle_mpf_optimize,
         "particle_solve": solve.fused_particle_solve,
         "particle_episode": particle_episode.fused_particle_episode,
+        "particle_sweep_episode":
+            particle_sweep_episode.fused_particle_sweep_episode,
+        "svgd_phi": svgd.svgd_phi_streamed,
+        "svgd_phi_packed": svgd.svgd_phi_streamed_packed,
+        "svgd_phi_symm": svgd.svgd_phi_streamed_symm,
+        "gmm_prior_score": gmm.gmm_prior_score_streamed,
+        "gmm_prior_score_packed": gmm.gmm_prior_score_streamed_packed,
+        "mpf_stream_step": mpf_stream.fused_mpf_stream_step,
     }
 
 
@@ -1390,25 +1429,28 @@ def _k8_bound(n_params, m, n_act, hz, n_model):
 
 
 def _k9_bound(steps, mpf_updates, n_params, m, n_act, hz, m_mpf, mpf_steps,
-              n_model):
-    """One device-RNG episode: per step the solve (episode form), the
-    noise (48 per normal for 2 hz m n_act + n_params normals, 20 per
-    uniform), the Silverman rank count over the m hz 2 policy values (2
-    compares per value pair, 4 per value), the draws (8 each), the
-    simulator, cost and termination (~80); the MPF loop on the steps that
-    ran it (`_k7_ops`). Bytes: the inputs read once (model, 15 scalars,
-    base mass, seeds, log-weights, theta/locs/a_mat, a_seq, the MPF
-    particles) and the outputs written once (12 log values per step,
-    theta/locs/a_mat, the MPF particles)."""
+              n_model, episodes=1, log_mix=False):
+    """`episodes` device-RNG episodes: per episode and step the solve
+    (episode form), the noise (48 per normal for 2 hz m n_act + n_params
+    normals, 20 per uniform), the Silverman rank count over the m hz 2
+    policy values (2 compares per value pair, 4 per value), the draws (8
+    each), the simulator, cost and termination (~80); the MPF loop on the
+    `mpf_updates` steps that ran it, over all episodes (`_k7_ops`). Bytes:
+    per episode the inputs read once (model, 15 scalars, base mass, seeds,
+    log-weights, theta/locs/a_mat, a_seq, the MPF particles) and the
+    outputs written once (12 log values per step, theta/locs/a_mat, the
+    MPF particles, with `log_mix` the final log-weights)."""
     ev = 2 * hz
     n_sv = m * ev
     n_normals = 2 * hz * m * n_act + n_params
     per_step = (_particle_solve_ops(n_params, m, n_act, hz, episode=True)
                 + 48 * n_normals + 20 * n_params
                 + 2 * n_sv * n_sv + 4 * n_sv + 8 * n_params + 80)
-    ops = steps * per_step + mpf_updates * _k7_ops(m_mpf, mpf_steps)
-    nbytes = 4 * (n_model + 15 + 1 + 3 + m + 3 * m * ev + ev + m_mpf
-                  + 12 * steps + 3 * m * ev + m_mpf)
+    ops = (episodes * steps * per_step
+           + mpf_updates * _k7_ops(m_mpf, mpf_steps))
+    nbytes = episodes * 4 * (n_model + 15 + 1 + 3 + m + 3 * m * ev + ev
+                             + m_mpf + 12 * steps + 3 * m * ev + m_mpf
+                             + (m if log_mix else 0))
     return _bound(nbytes, ops)
 
 
@@ -1579,7 +1621,8 @@ def _particle_noise(steps, seed, dev):
 
 
 def _particle_episode(fn, cfg, stack, steps, seed=(0, 0), noise=None,
-                      warm_up=0, change_at=100, success_dist=1.0, **over):
+                      warm_up=0, change_at=100, success_dist=1.0,
+                      base_mass=None, **over):
     """`fn` (the K9 wrapper or its plain version) with the arguments the
     megakernel adapter passes for `stack`; `over` replaces its settings."""
     import torch
@@ -1602,7 +1645,8 @@ def _particle_episode(fn, cfg, stack, steps, seed=(0, 0), noise=None,
         stack.policies_prior.locs,
         torch.log_softmax(stack.policies_prior.logits, 0), dstate.a_mat,
         dstate.a_seq, stack.mpf_init, mstate.prior_bw,
-        model.params_dict["mass"], stack.load, exp["ctrl_sigma"],
+        model.params_dict["mass"] if base_mass is None else base_mass,
+        stack.load, exp["ctrl_sigma"],
         exp["learning_rate"], exp["alpha"], 1.0 / exp["alpha"],
         exp["prior_sigma"], exp["mpf_learning_rate"], exp["mpf_obs_std"],
         stack.mpf_bw, steps=steps, warm_up=warm_up, hz=exp["horizon"],
@@ -1748,7 +1792,8 @@ def phase_k9(dev):
 
 
 def _particle_outcome(label, states, dyn, crashed, success, n_steps,
-                      mass_before, mass_after):
+                      mass_before, mass_after, load_step=MAIN_STEPS // 4,
+                      min_advance=MIN_ADVANCE_M):
     """The task outcome of a particle path; gates finiteness and the
     movement towards the target before any termination."""
     states = np.asarray(states)
@@ -1766,11 +1811,11 @@ def _particle_outcome(label, states, dyn, crashed, success, n_steps,
           f"{n_steps} steps run, distance to the target {START_DIST:.2f} m "
           f"at the start, min {out['min_distance_m']:.3f} m, last "
           f"{out['final_distance_m']:.3f} m; MPF mass estimate (mean of "
-          f"exp(x)) {mass_before} before the load at step 50, "
+          f"exp(x)) {mass_before} before the load at step {load_step}, "
           f"{mass_after} after (true 2.0, then 3.0)")
-    if not START_DIST - out["min_distance_m"] >= MIN_ADVANCE_M:
+    if not START_DIST - out["min_distance_m"] >= min_advance:
         raise AssertionError(f"{label}: the particle did not get "
-                             f"{MIN_ADVANCE_M} m nearer the target")
+                             f"{min_advance} m nearer the target")
     return out
 
 
@@ -2043,6 +2088,899 @@ def phase_timing_slice3(dev, path7):
     return out
 
 
+# -- slice 4: the particle sweep (K10), the streamed MPF kernels (K11-K13) --
+
+# bench/bench_all.py:444-484: 8 scenarios x 4 chains per program
+PSWEEP_GROUPS, PSWEEP_SC, PSWEEP_CHAINS = 8, 8, 4
+PSWEEP_LOGS = ("px", "py", "vx", "vy", "a_x", "a_y", "cost", "done",
+               "crashed", "cum", "bw_sv", "bw_mpf")
+# the sweep against its plain version at the CPU tests' tolerances
+# (tests/test_torch_particle_sweep.py, from
+# tests/test_pallas_particle_sweep.py:67-72, :126-169; a_mat at theta's):
+# over path 8's 256 episodes K9's bw_sv atol of 1e-6 is ~8 ulp of a ~1.2
+# bandwidth, and its a_mat atol of 1e-3 was 1.5e-3 after 2 steps (the
+# DISCO weights amplify one-ulp cost differences, as in the pendulum)
+_K10_STATE = dict(rtol=1e-4, atol=1e-3)
+_K10_ACTION = dict(rtol=1e-3, atol=1e-3)
+_K10_COST = dict(rtol=2e-3, atol=1.0)
+_K10_BW = dict(rtol=1e-4, atol=1e-6)
+K10_TOLS = {"px": _K10_STATE, "py": _K10_STATE, "vx": _K10_STATE,
+            "vy": _K10_STATE, "a_x": _K10_ACTION, "a_y": _K10_ACTION,
+            "cost": _K10_COST, "cum": _K10_COST, "bw_sv": _K10_BW,
+            "bw_mpf": _K10_BW, "theta": dict(rtol=1e-3, atol=5e-3),
+            "a_mat": dict(rtol=1e-3, atol=5e-3),
+            "mpf_x": dict(rtol=1e-4, atol=1e-5)}
+# the final prior weights exp(log_mix): the log of a weight near the
+# 1e-37 floor moves by O(1) for an ulp of the weight, the weight does not
+K10_WEIGHT_TOL = dict(rtol=0.0, atol=1e-5)
+_K9_SOURCE = {"px": ("state", 0), "py": ("state", 1), "vx": ("state", 2),
+              "vy": ("state", 3), "a_x": ("action", 0), "a_y": ("action", 1)}
+# path 8: a kernel fault crashes many episodes; the chaotic loop moves a
+# few between the kernel and its plain version
+PSWEEP_MAX_EXTRA_CRASHES = 16
+# the CPU tests' tolerances (tests/test_torch_svgd_stream.py,
+# tests/test_torch_gmm_stream.py, tests/test_torch_fused_mpf.py)
+K11_TOL = dict(rtol=2e-4, atol=2e-5)
+K12_TOL = dict(rtol=1e-4, atol=1e-4)
+K13_X_TOL = dict(rtol=1e-4, atol=1e-5)
+K11_BF16_ATOL = 5e-3      # times the largest |phi|
+K12_BF16_ATOL = 1.4e-2    # times the largest |score|
+STREAM_KERNELS = ("svgd_phi", "svgd_phi_packed", "svgd_phi_symm",
+                  "gmm_prior_score", "gmm_prior_score_packed",
+                  "mpf_stream_step")
+# path 10 runs 50 steps: the particle is still speeding up
+PATH10_STEPS, PATH10_MIN_ADVANCE_M = 50, 0.5
+# path 10's FusedMPF against the generic MPF on the same seed: the log-mass
+# particles after the first update, the relative mass estimate at every
+# step, and the positions (m) over the first PATH10_DRIFT_STEPS steps
+PATH10_DRIFT = {"mpf_particles_step0": 1e-4, "mass_estimate_rel": 1e-3,
+                "trajectory_m": 1e-2}
+PATH10_DRIFT_STEPS = 10
+# phase 27's particle counts: the packed threshold's side and the largest
+# count bench_mpf_large runs (plain versions there in 1024-row chunks)
+STREAM_M, STREAM_LARGE_M = 8192, 32768
+# path 11 (bench/bench_all.py:169-206): label, m, conditioned updates,
+# FusedMPF options, the kernels launched once per update (or per SVGD
+# step) and once per SVGD step
+_FUSE = dict(fuse_streams=True, fused_lr=1e-3)
+PATH11_CASES = (
+    ("m=2048", 2048, 10, dict(lr=1e-3), ("gmm_prior_score", "svgd_phi")),
+    ("m=8192", 8192, 10, dict(lr=1e-3),
+     ("gmm_prior_score_packed", "svgd_phi_packed")),
+    ("m=32768", 32768, 5, dict(lr=1e-3),
+     ("gmm_prior_score_packed", "svgd_phi_packed")),
+    ("m=8192 fuse_streams", 8192, 10, _FUSE,
+     ("gmm_prior_score_packed", "mpf_stream_step")),
+    ("m=32768 fuse_streams", 32768, 5, _FUSE,
+     ("gmm_prior_score_packed", "mpf_stream_step")),
+)
+
+
+def _psweep_noise(n_sc, chains, steps, seed, dev):
+    """Sweep host noise in the JAX layout with a chain axis: eps
+    [chains, steps, hz, 2, smp, 128], pdz/pdu [chains, steps, n_sc, 8,
+    128], from a numpy seed."""
+    import torch
+
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.tensor(np.asarray(a, np.float32), device=dev)
+    smp = -(-n_sc * 6 // 8) * 8
+    return (t(rng.normal(size=(chains, steps, 40, 2, smp, 128))),
+            t(rng.normal(size=(chains, steps, n_sc, 8, 128))),
+            t(rng.uniform(size=(chains, steps, n_sc, 8, 128))))
+
+
+def _psweep_call(fn, cfg, stack, seeds, masses, steps, n_sc, chains,
+                 mpfx0=None, noise=None):
+    """`fn` (`fused_particle_sweep_groups` or its plain version) with the
+    arguments `megakernel_particle_sweep_fn` passes for `stack`: seeds
+    [G, 2], masses [G, n_sc] or [n_sc], per-scenario MPF particles or None
+    (the stack's), host noise with a leading G axis or None."""
+    import torch
+
+    exp = cfg["exp_params"]
+    mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 2,
+                                  bw=stack.mpf_init_bw)
+    dstate = stack.controller.init_state()
+    nz = {} if noise is None else dict(host_eps=noise[0], host_pdz=noise[1],
+                                       host_pdu=noise[2])
+    return fn(
+        seeds, stack.init_state, stack.init_policies,
+        stack.policies_prior.locs,
+        torch.log_softmax(stack.policies_prior.logits, 0), dstate.a_mat,
+        stack.mpf_init if mpfx0 is None else mpfx0, mstate.prior_bw, masses,
+        stack.load, exp["ctrl_sigma"], exp["learning_rate"], exp["alpha"],
+        1.0 / exp["alpha"], exp["prior_sigma"], exp["mpf_learning_rate"],
+        exp["mpf_obs_std"], stack.mpf_bw, n_sc=n_sc, steps=steps,
+        hz=exp["horizon"], m=exp["n_particles"],
+        n_params=exp["params_samples"], n_act=exp["action_samples"],
+        m_mpf=exp["mpf_n_particles"], mpf_steps=exp["mpf_steps"],
+        change_at=steps // 4, weighted_prior=exp["weighted_prior"],
+        mpf_log_space=exp["mpf_log_space"],
+        mpf_bw_scale=exp["mpf_bandwidth_scaling"], n_chains=chains, **nz,
+        **_pkw(stack.model))
+
+
+def _k10_mismatches(out, c, s, ref):
+    """Fields of chain c, scenario s of a sweep `out` ([chains, ...])
+    that differ in any bit from the single episode `ref`."""
+    import torch
+
+    n = 0
+    for k in PSWEEP_LOGS:
+        src, i = _K9_SOURCE.get(k, (k, None))
+        want = ref[src] if i is None else ref[src][:, i]
+        n += not torch.equal(out[k][c][:, s], want)
+    return n + sum(not torch.equal(out[k][c][s], ref[k])
+                   for k in ("theta", "locs", "a_mat", "mpf_x"))
+
+
+def _check_psweep(label, got, want):
+    """A sweep against its plain version: every field at K9's tolerance,
+    done and crashed equal, the final prior weights at K10_WEIGHT_TOL."""
+    import torch
+
+    worst = 0.0
+    for k, tol in K10_TOLS.items():
+        worst = max(worst, _check_close(f"{label} {k}", got[k], want[k],
+                                        **tol))
+    for k in ("done", "crashed"):
+        if not torch.equal(got[k], want[k]):
+            raise AssertionError(f"{label} {k} differs from plain")
+    worst = max(worst, _check_close(
+        f"{label} final prior weights", torch.exp(got["log_mix"]),
+        torch.exp(want["log_mix"]), **K10_WEIGHT_TOL))
+    return worst
+
+
+def phase_k10(dev):
+    """K10 against independent K9 launches, bit for bit: 8 scenarios x 4
+    chains, 2 steps, with host noise (every episode) and device RNG
+    (scenario 0 of each chain, whose draws K9 keys alike); NaN isolation;
+    the device-RNG sweep and its final log-mix against the plain
+    version."""
+    import torch
+
+    from dust_tpu_torch.ops import particle_episode as pe
+    from dust_tpu_torch.ops import particle_sweep_episode as pse
+
+    cfg, stack = _particle_stack(dev)
+    n_sc, chains, steps = PSWEEP_SC, PSWEEP_CHAINS, 2
+    masses = torch.linspace(1.6, 2.4, n_sc, device=dev)
+    noise = _psweep_noise(n_sc, chains, steps, SEED + 60, dev)
+    lead = lambda nz: tuple(v[None] for v in nz)
+
+    def sweep(seed, ms=masses, mpfx0=None, nz=noise):
+        out = _psweep_call(pse.fused_particle_sweep_groups, cfg, stack,
+                           torch.tensor([seed], device=dev), ms, steps, n_sc,
+                           chains, mpfx0=mpfx0,
+                           noise=None if nz is None else lead(nz))
+        return {k: v[0] for k, v in out.items()}
+
+    out = sweep([1, 2])
+    torch.cuda.synchronize()
+    mismatches = 0
+    for c in range(chains):
+        for s in range(n_sc):
+            eps_s = torch.zeros((steps, 2, 40, 8, 128), device=dev)
+            eps_s[:, :, :, :6] = noise[0][c, :, :, :, 6 * s:6 * s + 6] \
+                .transpose(1, 2)
+            ref = _particle_episode(
+                pe.fused_particle_episode, cfg, stack, steps,
+                noise=(eps_s, noise[1][c, :, s], noise[2][c, :, s]),
+                change_at=steps // 4, base_mass=masses[s])
+            mismatches += _k10_mismatches(out, c, s, ref)
+    rng_out = sweep([5, 9], nz=None)
+    for c in range(chains):
+        ref = _particle_episode(pe.fused_particle_episode, cfg, stack, steps,
+                                seed=(5, 9 + 4099 * c), change_at=steps // 4,
+                                base_mass=masses[0])
+        mismatches += _k10_mismatches(rng_out, c, 0, ref)
+    print(f"K10 vs {chains * n_sc} independent K9 launches (host noise) and "
+          f"{chains} (device RNG, scenario 0), {n_sc} scenarios x {chains} "
+          f"chains, {steps} steps: {mismatches} fields differ in any bit")
+    if mismatches:
+        raise AssertionError("K10 differs from independent K9 launches")
+
+    # NaN in one scenario's true mass, then in its MPF particles
+    others = [s for s in range(n_sc) if s != 1]
+    bad = masses.clone()
+    bad[1] = float("nan")
+    per = stack.mpf_init.expand(n_sc, -1, -1).clone()
+    per_nan = per.clone()
+    per_nan[1] = float("nan")
+    for label, base, poisoned, field in (
+            ("true mass", out, sweep([1, 2], ms=bad), "vx"),
+            ("MPF particles", sweep([1, 2], mpfx0=per),
+             sweep([1, 2], mpfx0=per_nan), "mpf_x")):
+        leak = sum(
+            not torch.equal(base[k][:, :, others] if k in PSWEEP_LOGS
+                            else base[k][:, others],
+                            poisoned[k][:, :, others] if k in PSWEEP_LOGS
+                            else poisoned[k][:, others])
+            for k in base)
+        own = poisoned[field][:, :, 1] if field in PSWEEP_LOGS \
+            else poisoned[field][:, 1]
+        print(f"K10 NaN in scenario 1's {label}: {leak} fields of the "
+              f"other scenarios changed; scenario 1 finite: "
+              f"{bool(torch.isfinite(own).all())}")
+        if leak or torch.isfinite(own).all():
+            raise AssertionError(f"K10 scenario isolation ({label})")
+
+    want = _psweep_call(pse.plain_particle_sweep_groups, cfg, stack,
+                        torch.tensor([[5, 9]], device=dev), masses, steps,
+                        n_sc, chains)
+    return _check_psweep(f"K10 device RNG {n_sc}x{chains} {steps} steps",
+                         rng_out, {k: v[0] for k, v in want.items()})
+
+
+def _bench_particle_sweep(dev, steps):
+    """bench/bench_all.py:444-484's particle sweep on the demo stack: the
+    MegakernelGroupSweep over 8 groups of 8 scenarios x 4 chains, the
+    seeds of run i, the masses, and plain(seeds): the sweep's plain
+    version on the same inputs."""
+    import torch
+
+    from dust_tpu_torch.ops.particle_sweep_episode import (
+        plain_particle_sweep_groups,
+    )
+    from dust_tpu_torch.parallel import MegakernelGroupSweep
+    from dust_tpu_torch.simulation import megakernel_particle_sweep_fn
+
+    cfg, stack = _particle_stack(dev)
+    sweep = megakernel_particle_sweep_fn(stack, cfg["exp_params"],
+                                         steps=steps, n_sc=PSWEEP_SC,
+                                         n_chains=PSWEEP_CHAINS)
+    masses = torch.linspace(1.6, 2.4, PSWEEP_SC, device=dev).expand(
+        PSWEEP_GROUPS, PSWEEP_SC)
+
+    def seeds(i):   # bench/bench_all.py:479-483
+        return torch.stack([
+            torch.full((PSWEEP_GROUPS,), i, dtype=torch.int64, device=dev),
+            torch.arange(PSWEEP_GROUPS, device=dev) * 1000], dim=1)
+
+    def plain(seed_rows):
+        return _psweep_call(plain_particle_sweep_groups, cfg, stack,
+                            seed_rows, masses, steps, PSWEEP_SC,
+                            PSWEEP_CHAINS)
+
+    return MegakernelGroupSweep(sweep), seeds, masses, plain
+
+
+def _psweep_outcome(out):
+    """Per episode: crashed, success, the minimum distance to the target
+    (9, 9) over the steps, and the MPF updates run (steps before the done
+    flag was set; warm_up 0)."""
+    import torch
+
+    crashed = out["crashed"][..., -1, :] > 0.5
+    done = out["done"][..., -1, :] > 0.5
+    dist = torch.hypot(out["px"] - 9.0, out["py"] - 9.0).amin(dim=-2)
+    updates = out["done"].shape[-2] - (out["done"][..., :-1, :] > 0.5).sum(
+        dim=-2)
+    return (crashed.reshape(-1), (done & ~crashed).reshape(-1),
+            dist.reshape(-1), int(updates.sum()))
+
+
+def phase_particle_sweep_path(dev):
+    """Path 8: bench_all.py's particle sweep, 256 episodes = 8 groups x 8
+    scenarios x 4 chains x MAIN_STEPS steps, in one K10 launch through
+    MegakernelGroupSweep; before it, the layout against the plain version
+    after 1 and 2 steps and against per-group launches; after it, the
+    plain sweep on the same draws."""
+    import torch
+
+    label = "path 8 (K10 sweep)"
+    worst = 0.0
+    for steps in (1, 2):
+        groups, seeds, masses, plain = _bench_particle_sweep(dev, steps)
+        got = groups.run(seeds(1), masses)
+        torch.cuda.synchronize()
+        worst = max(worst, _check_psweep(
+            f"K10 path-8 layout {PSWEEP_GROUPS}x{PSWEEP_SC}x{PSWEEP_CHAINS} "
+            f"device RNG {steps} steps", got, plain(seeds(1))))
+    mismatches = 0
+    for g in range(PSWEEP_GROUPS):
+        one = groups.sweep_fn(seeds(1)[g], masses[g])
+        mismatches += sum(not torch.equal(got[k][g], one[k]) for k in got)
+    print(f"K10 path-8 layout vs {PSWEEP_GROUPS} launches of one group each "
+          f"(2 steps): {mismatches} fields differ in any bit")
+    if mismatches:
+        raise AssertionError("K10 at G > 1 differs from per-group launches")
+
+    groups, seeds, masses, plain = _bench_particle_sweep(dev, MAIN_STEPS)
+    groups.run(seeds(0), masses)  # warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = groups.run(seeds(1), masses)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _counts()
+    _check_counts(label, launches, {"particle_sweep_episode": 1})
+    episodes = PSWEEP_GROUPS * PSWEEP_SC * PSWEEP_CHAINS
+    shape = (PSWEEP_GROUPS, PSWEEP_CHAINS, MAIN_STEPS, PSWEEP_SC)
+    if tuple(out["px"].shape) != shape:
+        raise AssertionError(f"{label}: px shape {tuple(out['px'].shape)}")
+    for k, v in out.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"{label}: non-finite values in {k}")
+    crashed, success, dist, updates = _psweep_outcome(out)
+
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain(seeds(1))
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    p_crashed, p_success, p_dist, _ = _psweep_outcome(want)
+    apart = (out["px"] - want["px"]).abs() > 1e-3   # [G, C, steps, n_sc]
+    first = torch.where(apart.any(2), apart.int().argmax(2),
+                        MAIN_STEPS).reshape(-1)
+    result = {
+        "episodes": episodes, "steps": MAIN_STEPS, "seconds": elapsed,
+        "solves_per_s": episodes * MAIN_STEPS / elapsed,
+        "launches": launches, "mpf_updates": updates,
+        "crash_share": float(crashed.float().mean()),
+        "success_share": float(success.float().mean()),
+        "mean_min_distance_m": float(dist.mean()),
+        "median_min_distance_m": float(dist.median()),
+        "plain_ms": plain_ms,
+        "plain_crash_share": float(p_crashed.float().mean()),
+        "plain_success_share": float(p_success.float().mean()),
+        "plain_mean_min_distance_m": float(p_dist.mean()),
+        "first_step_apart_min": int(first.min()),
+        "first_step_apart_median": float(first.float().median()),
+        "layout_max_abs_err": worst,
+    }
+    print(f"{label}: {episodes} episodes = {PSWEEP_GROUPS} groups x "
+          f"{PSWEEP_SC} scenarios x {PSWEEP_CHAINS} chains x {MAIN_STEPS} "
+          f"steps in one launch, {elapsed:.4f} s, "
+          f"{result['solves_per_s']:.1f} solves/s; crash share "
+          f"{result['crash_share']:.4f}, success share "
+          f"{result['success_share']:.4f}, mean minimum distance to the "
+          f"target {result['mean_min_distance_m']:.3f} m (start "
+          f"{START_DIST:.2f} m); launches {launches}")
+    print(f"{label} against the plain sweep on the same draws "
+          f"({plain_ms:.1f} ms): crash share plain "
+          f"{result['plain_crash_share']:.4f}, success share plain "
+          f"{result['plain_success_share']:.4f}, mean minimum distance "
+          f"plain {result['plain_mean_min_distance_m']:.3f} m; px drifts "
+          f"apart by > 1e-3 first at step {result['first_step_apart_min']} "
+          f"(median {result['first_step_apart_median']})")
+    if not START_DIST - result["median_min_distance_m"] >= MIN_ADVANCE_M:
+        raise AssertionError(f"{label}: the median episode did not get "
+                             f"{MIN_ADVANCE_M} m nearer the target")
+    if int(crashed.sum()) > int(p_crashed.sum()) + PSWEEP_MAX_EXTRA_CRASHES:
+        raise AssertionError(f"{label}: {int(crashed.sum())} crashes, plain "
+                             f"{int(p_crashed.sum())}")
+    return result
+
+
+def phase_particle_scenario_path(dev):
+    """Path 9: ParticleScenarioSweep over `particle_episode_fn` with the
+    K6 hook and FusedParticleMPF (K7), 8 scenarios, true masses
+    linspace(1.5, 3.0, 8) (bench/bench_all.py:307-357), MAIN_STEPS
+    steps; every scenario against `run_particle_episode` on the same
+    generator seed."""
+    import torch
+
+    from dust_tpu_torch.inference import FusedParticleMPF
+    from dust_tpu_torch.parallel import (
+        ParticleScenarioSweep,
+        broadcast_scenarios,
+    )
+    from dust_tpu_torch.simulation import (
+        particle_episode_fn,
+        run_particle_episode,
+    )
+
+    label = "path 9 (ParticleScenarioSweep, K6 + K7)"
+    cfg, stack = _particle_stack(dev, fused_rollout=True)
+    stack.mpf = FusedParticleMPF.from_mpf(stack.mpf)
+    kw = dict(load=stack.load, steps=MAIN_STEPS, warm_up=0,
+              mpf_bw=stack.mpf_bw, mpf_steps=stack.mpf_steps)
+    episode = particle_episode_fn(stack.model, stack.controller,
+                                  svmpc=stack.svmpc, mpf=stack.mpf,
+                                  dyn_dist=stack.dynamics_prior, **kw)
+    n = 8
+    masses = torch.linspace(1.5, 3.0, n, device=dev)
+    seeds = [SEED + 300 + i for i in range(n)]
+    svstate = stack.svmpc.init_state(stack.init_policies,
+                                     stack.policies_prior)
+    mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 2,
+                                  bw=stack.mpf_init_bw)
+    args = (seeds, stack.init_state.expand(n, 4),
+            broadcast_scenarios(stack.controller.init_state(), n),
+            broadcast_scenarios(svstate, n), broadcast_scenarios(mstate, n),
+            masses)
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = ParticleScenarioSweep(episode).run(*args)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _counts()
+    k7 = launches["particle_mpf_optimize"]
+    any_done = bool((out["success"] | out["crashed"]).any())
+    k7_ok = (n <= k7 <= n * MAIN_STEPS) if any_done else k7 == n * MAIN_STEPS
+    _check_counts(label, launches, {"particle_rollout_costs": n * MAIN_STEPS,
+                                    "particle_mpf_optimize": k7})
+    if not k7_ok:
+        raise AssertionError(f"{label}: K7 launched {k7} times")
+    final = out["final_state"]
+    if not torch.isfinite(final).all():
+        raise AssertionError(f"{label}: non-finite final states")
+    crashed = out["crashed"]
+    inf_rule = bool(torch.equal(torch.isinf(out["cum_cost"]), crashed))
+    differ = not torch.equal(final[0], final[-1])
+    singles = []
+    for i in range(n):
+        saved = stack.model.params_dict["mass"]
+        stack.model.params_dict["mass"] = float(masses[i])
+        try:
+            one = run_particle_episode(
+                torch.Generator(device=dev).manual_seed(seeds[i]),
+                stack.model, stack.controller, stack.svmpc, svstate,
+                stack.mpf, mstate, stack.dynamics_prior,
+                init_state=stack.init_state, **kw)
+        finally:
+            stack.model.params_dict["mass"] = saved
+        got = final[i].cpu().numpy()
+        singles.append({
+            "scenario": i, "bit_equal": bool(np.array_equal(
+                got, one["final_state"])),
+            "max_abs_diff": float(np.abs(got - one["final_state"]).max()),
+            "cum_cost": float(out["cum_cost"][i]),
+            "single_cum_cost": one["cum_cost"]})
+    dist = torch.hypot(final[:, 0] - 9.0, final[:, 1] - 9.0)
+    result = {"scenarios": n, "steps": MAIN_STEPS, "seconds": elapsed,
+              "solves_per_s": n * MAIN_STEPS / elapsed,
+              "launches": launches,
+              "crash_rate": float(out["crash_rate"]),
+              "success_rate": float(out["success_rate"]),
+              "final_distance_m": dist.tolist(),
+              "crashed_iff_inf_cost": inf_rule,
+              "trajectories_differ": differ, "vs_single": singles}
+    print(f"{label}: {n} scenarios x {MAIN_STEPS} steps in {elapsed:.3f} s "
+          f"({result['solves_per_s']:.1f} solves/s); crash rate "
+          f"{result['crash_rate']}, success rate {result['success_rate']}; "
+          f"final distance to the target "
+          f"{_fmt(result['final_distance_m'])} m; crashed <=> inf cost "
+          f"{inf_rule}; masses move the trajectory {differ}; final states "
+          f"bit-equal to run_particle_episode on the same seed in "
+          f"{sum(o['bit_equal'] for o in singles)} of {n} scenarios (max "
+          f"difference {max(o['max_abs_diff'] for o in singles):.3e}); "
+          f"launches {launches}")
+    if not inf_rule or not differ:
+        raise AssertionError(f"{label}: crash rule {inf_rule}, masses move "
+                             f"the trajectory {differ}")
+    for one in singles:
+        if one["max_abs_diff"] > RUN_TOL["atol"]:
+            raise AssertionError(f"{label}: scenario {one['scenario']} "
+                                 f"differs from run_particle_episode")
+    return result
+
+
+def _stream_inputs(m, d, gen, dev):
+    """MPF-like inputs: particles uniform(0.6, 1.3), likelihood scores
+    ~50 (sigma 0.1), prior centers 0.02 from the particles."""
+    import torch
+
+    x = 0.6 + 0.7 * torch.rand((m, d), generator=gen, device=dev)
+    score = 50.0 * torch.randn((m, d), generator=gen, device=dev)
+    centers = x + 0.02 * torch.randn((m, d), generator=gen, device=dev)
+    return x, score, centers
+
+
+def _chunks(m):
+    """Four 1024-row slices spread over m rows."""
+    return [slice(r, r + 1024) for r in (0, m // 3, 2 * m // 3, m - 1024)]
+
+
+def phase_stream_kernels(dev):
+    """K11a-c, K12a-b and K13 against their plain versions: m = 2048
+    (d = 1, 2) and 8192 (d = 2); the JAX tests' odd shapes; far from the
+    origin; bf16; m = 32768 in four 1024-row chunks of the plain formula
+    against all columns."""
+    import torch
+
+    from dust_tpu_torch.ops import gmm, mpf_stream, svgd
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 70)
+    errs = dict.fromkeys(STREAM_KERNELS, 0.0)
+    dt = lambda v: torch.tensor(v, device=dev)
+    bw, pbw, lr = dt(0.3), dt(0.2), dt(1e-3)
+
+    def chk(name, label, got, want, tol):
+        errs[name] = max(errs[name], _check_close(
+            f"{name} {label}", got, want, **tol))
+
+    def bf16_chk(name, kernel, plain, jax_atol, f32_atol):
+        """use_bf16 against the bf16 plain version, within the smaller of
+        the JAX test's bf16 tolerance (jax_atol x the largest value) and
+        the rounding's own effect on the plain version (bf16 against f32
+        plain); and the rounding must move the kernel's output by more
+        than the f32 check's atol, so a kernel that ignores use_bf16
+        fails."""
+        got, f32_got = kernel(True), kernel(False)
+        want, f32_want = plain(True), plain(False)
+        effect = (want - f32_want).abs().max().item()
+        atol = min(jax_atol * want.abs().max().item(), effect)
+        chk(name, f"bf16 m={STREAM_M}", got, want, dict(rtol=0, atol=atol))
+        moved = (got - f32_got).abs().max().item()
+        print(f"{name} bf16 m={STREAM_M}: the rounding moves the kernel's "
+              f"output by {moved:.3e}, the plain version's by {effect:.3e} "
+              f"(must exceed {f32_atol})")
+        if not moved > f32_atol:
+            raise AssertionError(f"{name}: use_bf16 leaves the kernel's "
+                                 f"output within f32 noise")
+
+    def normal(m, d, scale=1.0, offset=0.0):
+        return offset + scale * torch.randn((m, d), generator=gen,
+                                            device=dev)
+
+    fns = {"svgd_phi": svgd.svgd_phi_streamed,
+           "svgd_phi_packed": svgd.svgd_phi_streamed_packed,
+           "svgd_phi_symm": svgd.svgd_phi_streamed_symm}
+    for name, m, d in (("svgd_phi", 2048, 1), ("svgd_phi", 2048, 2),
+                       ("svgd_phi", STREAM_M, 2),
+                       ("svgd_phi_packed", STREAM_M, 2),
+                       ("svgd_phi_symm", STREAM_M, 2)):
+        x, s, _ = _stream_inputs(m, d, gen, dev)
+        got = fns[name](x, s, bw)
+        torch.cuda.synchronize()
+        chk(name, f"m={m} d={d}", got, svgd.svgd_phi_plain(x, s, bw),
+            K11_TOL)
+    # tests/test_pallas.py's shapes and inputs
+    for name, m, d, b in (("svgd_phi", 137, 5, 1.3), ("svgd_phi", 300, 60, 0.7),
+                          ("svgd_phi_packed", 137, 5, 0.7),
+                          ("svgd_phi_symm", 700, 2, 0.7)):
+        x, s = normal(m, d, offset=1.5), normal(m, d, 5.0)
+        chk(name, f"m={m} d={d}", fns[name](x, s, dt(b)),
+            svgd.svgd_phi_plain(x, s, dt(b)), K11_TOL)
+    # the dispatcher launches the kernel on the card below JAX's m = 512
+    before = svgd.svgd_phi_streamed.launches
+    x, s = normal(100, 2, offset=1.5), normal(100, 2, 5.0)
+    got = svgd.fused_svgd_phi(x, s, dt(0.7))
+    if svgd.svgd_phi_streamed.launches != before + 1:
+        raise AssertionError("fused_svgd_phi did not launch svgd_phi")
+    chk("svgd_phi", "fused_svgd_phi m=100", got,
+        svgd.svgd_phi_plain(x, s, dt(0.7)), K11_TOL)
+    x, s = normal(256, 3, 0.2), normal(256, 3)
+    near = svgd.svgd_phi_streamed(x, s, dt(0.5))
+    far = svgd.svgd_phi_streamed(x + 2000.0, s, dt(0.5))
+    chk("svgd_phi", "far from the origin", far,
+        svgd.svgd_phi_plain(x + 2000.0, s, dt(0.5)), K11_TOL)
+    # tests/test_pallas.py:37-52: the inputs' float32 quantization at 2000
+    # bounds this, not the kernel, so it stays out of the kernel's error
+    _check_close("svgd_phi far against near", far, near, rtol=0, atol=2e-3)
+    x, s, c = _stream_inputs(STREAM_M, 2, gen, dev)
+    bf16_chk("svgd_phi_packed",
+             lambda b: svgd.svgd_phi_streamed_packed(x, s, bw, use_bf16=b),
+             lambda b: svgd.svgd_phi_plain(x, s, bw, use_bf16=b),
+             K11_BF16_ATOL, K11_TOL["atol"])
+
+    gfns = {"gmm_prior_score": gmm.gmm_prior_score_streamed,
+            "gmm_prior_score_packed": gmm.gmm_prior_score_streamed_packed}
+    for name, m, d in (("gmm_prior_score", 2048, 1),
+                       ("gmm_prior_score", 2048, 2),
+                       ("gmm_prior_score", STREAM_M, 2),
+                       ("gmm_prior_score_packed", STREAM_M, 2)):
+        x, _, c = _stream_inputs(m, d, gen, dev)
+        got = gfns[name](x, c, pbw)
+        torch.cuda.synchronize()
+        chk(name, f"m={m} d={d}", got, gmm.gmm_prior_score_plain(x, c, pbw),
+            K12_TOL)
+    # tests/test_pallas_gmm.py's shapes and inputs
+    for name, m, k, d in (("gmm_prior_score", 200, 130, 3),
+                          ("gmm_prior_score", 300, 300, 5),
+                          ("gmm_prior_score_packed", 300, 300, 1)):
+        x, c = normal(m, d, offset=0.8), normal(k, d)
+        chk(name, f"m={m} k={k} d={d}", gfns[name](x, c, dt(0.4)),
+            gmm.gmm_prior_score_plain(x, c, dt(0.4)), K12_TOL)
+    x, c = normal(192, 2, 0.3), normal(192, 2, 0.3)
+    near = gmm.gmm_prior_score_streamed(x, c, dt(0.4))
+    far = gmm.gmm_prior_score_streamed(x + 3000.0, c + 3000.0, dt(0.4))
+    chk("gmm_prior_score", "far from the origin", far,
+        gmm.gmm_prior_score_plain(x + 3000.0, c + 3000.0, dt(0.4)), K12_TOL)
+    _check_close("gmm_prior_score far against near", far, near, rtol=0,
+                 atol=5e-3)
+    x, _, c = _stream_inputs(STREAM_M, 2, gen, dev)
+    bf16_chk("gmm_prior_score_packed",
+             lambda b: gmm.gmm_prior_score_streamed_packed(x, c, pbw,
+                                                           use_bf16=b),
+             lambda b: gmm.gmm_prior_score_plain(x, c, pbw, use_bf16=b),
+             K12_BF16_ATOL, K12_TOL["atol"])
+
+    for m in (200, STREAM_M):
+        x, s, c = _stream_inputs(m, 2, gen, dev)
+        gx, gg = mpf_stream.fused_mpf_stream_step(x, s, c, bw, pbw, lr)
+        torch.cuda.synchronize()
+        wx, wg = mpf_stream.mpf_stream_step_plain(x, s, c, bw, pbw, lr)
+        chk("mpf_stream_step", f"x_new m={m}", gx, wx, K13_X_TOL)
+        chk("mpf_stream_step", f"gp_new m={m}", gg, wg, K12_TOL)
+
+    # m = 32768: the plain [m, m] matrices would take 4 GB each
+    m = STREAM_LARGE_M
+    x, s, c = _stream_inputs(m, 2, gen, dev)
+    phi = svgd.svgd_phi_streamed_packed(x, s, bw)
+    score = gmm.gmm_prior_score_streamed_packed(x, c, pbw)
+    gx, gg = mpf_stream.fused_mpf_stream_step(x, s, c, bw, pbw, lr)
+    torch.cuda.synchronize()
+    for rows in _chunks(m):
+        label = f"m={m} rows {rows.start}-{rows.stop - 1}"
+        want_phi = svgd.svgd_phi_plain(x, s, bw, rows=rows)
+        chk("svgd_phi_packed", label, phi[rows], want_phi, K11_TOL)
+        chk("gmm_prior_score_packed", label, score[rows],
+            gmm.gmm_prior_score_plain(x[rows], c, pbw), K12_TOL)
+        want_x = x[rows] + lr * want_phi
+        chk("mpf_stream_step", f"x_new {label}", gx[rows], want_x,
+            K13_X_TOL)
+        chk("mpf_stream_step", f"gp_new {label}", gg[rows],
+            gmm.gmm_prior_score_plain(want_x, c, pbw), K12_TOL)
+    return errs
+
+
+def phase_particle_large_path(dev):
+    """Path 10: bench/bench_all.py:209-245's particle_large stack (16
+    policies x 512 samples x 8 mass draws, 2048 MPF particles x 20 steps)
+    with FusedMPF at the demo's fixed MPF bandwidth (K11a + K12a, the gram
+    entries at m = 2048), rollouts by the plain MultiDisco, PATH10_STEPS
+    steps of run_particle_episode; then the generic MPF on the same
+    generator seed."""
+    import torch
+
+    from dust_tpu_torch.inference import FusedMPF
+    from dust_tpu_torch.simulation import run_particle_episode
+
+    label = "path 10 (particle_large, FusedMPF K11a + K12a)"
+    cfg, stack = _particle_stack(dev, n_particles=16, action_samples=512,
+                                 params_samples=8, mpf_n_particles=2048,
+                                 mpf_steps=20)
+    exp = cfg["exp_params"]
+    fused = FusedMPF(stack.mpf.likelihood, lr=exp["mpf_learning_rate"],
+                     n_steps=20)
+
+    def run(mpf, seed, steps=PATH10_STEPS):
+        return run_particle_episode(
+            torch.Generator(device=dev).manual_seed(seed), stack.model,
+            stack.controller, stack.svmpc,
+            stack.svmpc.init_state(stack.init_policies,
+                                   stack.policies_prior),
+            mpf, mpf.init_state(stack.mpf_init, stack.init_state, 2,
+                                bw=stack.mpf_init_bw),
+            stack.dynamics_prior, load=stack.load, steps=steps, warm_up=0,
+            mpf_bw=stack.mpf_bw, mpf_steps=20)
+
+    run(fused, SEED + 99, 2)  # warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(fused, SEED + 400)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _counts()
+    n = out["steps"]
+    _check_counts(label, launches, {"svgd_phi": 20 * n,
+                                    "gmm_prior_score": 20 * n})
+    load_step = PATH10_STEPS // 4
+    dyn = out["dyn_particles"]
+    result = {"steps": PATH10_STEPS, "seconds": elapsed,
+              "solves_per_s": PATH10_STEPS / elapsed,
+              "ms_per_step": 1e3 * elapsed / PATH10_STEPS,
+              "launches": launches}
+    print(f"{label}: {PATH10_STEPS} MPC steps (8 mass draws x 512 samples x "
+          f"16 policies, H 40; 2048 MPF particles x 20 steps) in "
+          f"{elapsed:.3f} s, {result['ms_per_step']:.3f} ms per step; "
+          f"launches {launches}")
+    result["outcome"] = _particle_outcome(
+        label, out["trajectory"], dyn, out["crashed"], out["success"], n,
+        _mass_estimate(dyn[min(load_step - 1, n - 1)]),
+        _mass_estimate(dyn[-1]), load_step=load_step,
+        min_advance=PATH10_MIN_ADVANCE_M)
+    t0 = time.perf_counter()
+    ref = run(stack.mpf, SEED + 400)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    rdyn = ref["dyn_particles"]
+    result["generic_mpf"] = {
+        "seconds": plain_s, "crashed": ref["crashed"],
+        "success": ref["success"], "steps_run": ref["steps"],
+        "min_distance_m": float(np.hypot(ref["trajectory"][:, 0] - 9.0,
+                                         ref["trajectory"][:, 1] - 9.0).min()),
+        "mpf_mass_before_load": _mass_estimate(
+            rdyn[min(load_step - 1, ref["steps"] - 1)]),
+        "mpf_mass_after_load": _mass_estimate(rdyn[-1])}
+    # the two posteriors differ only by the streamed kernels' reassociation:
+    # the MPF particles after the first update, the mass estimate of every
+    # step and the first steps' trajectory are held within PATH10_DRIFT
+    n_both = min(n, ref["steps"])
+    drift = {
+        "mpf_particles_step0": float(np.abs(dyn[0] - rdyn[0]).max()),
+        "mass_estimate_rel": float(np.max(np.abs(
+            np.exp(dyn[:n_both].astype(np.float64)).mean(axis=(1, 2))
+            / np.exp(rdyn[:n_both].astype(np.float64)).mean(axis=(1, 2))
+            - 1.0))),
+        "trajectory_m": float(np.abs(
+            out["trajectory"][:PATH10_DRIFT_STEPS]
+            - ref["trajectory"][:PATH10_DRIFT_STEPS]).max())}
+    result["generic_mpf"]["drift"] = drift
+    print(f"{label}, the generic MPF on the same seed: {plain_s:.3f} s, "
+          f"{result['generic_mpf']} (limits {PATH10_DRIFT})")
+    if (ref["crashed"], ref["success"]) != (out["crashed"], out["success"]):
+        raise AssertionError(f"{label}: the generic MPF's outcome differs")
+    for key, limit in PATH10_DRIFT.items():
+        if not drift[key] <= limit:
+            raise AssertionError(f"{label}: {key} drift {drift[key]:.3e} "
+                                 f"from the generic MPF exceeds {limit}")
+    return result
+
+
+def phase_fused_mpf_path(dev):
+    """Path 11: FusedMPF.optimize as bench/bench_all.py:169-206 runs it:
+    the pendulum GaussianLikelihood(obs_std=0.1) over (length, mass),
+    particles uniform(0.6, 1.3), obs0 (3, 0), initial bandwidth 0.2,
+    conditioned updates (a random action and a noisy observation) at
+    bw 0.3 x 20 SVGD steps; m = 2048 (gram), 8192 and 32768 (packed),
+    and fuse_streams at 8192 and 32768."""
+    import torch
+
+    from dust_tpu_torch.inference import FusedMPF, GaussianLikelihood
+    from dust_tpu_torch.models import PendulumModel
+
+    lik = GaussianLikelihood(
+        obs_std=0.1, model=PendulumModel(uncertain_params=("length",
+                                                           "mass")))
+    obs0 = torch.tensor([3.0, 0.0], device=dev)
+    out = {}
+    for label, m, updates, kw, kernels in PATH11_CASES:
+        gen = torch.Generator(device=dev).manual_seed(SEED + 500)
+        mpf = FusedMPF(lik, **kw)
+        x0 = 0.6 + 0.7 * torch.rand((m, 2), generator=gen, device=dev)
+        ms0 = mpf.init_state(x0, obs0, dim_a=1, bw=0.2)
+        acts = -2.0 + 4.0 * torch.rand((updates + 1, 1), generator=gen,
+                                       device=dev)
+        obs = obs0 + 0.1 * torch.randn((updates + 1, 2), generator=gen,
+                                       device=dev)
+
+        def run(ms, rows):
+            for i in rows:
+                ms, _, _ = mpf.optimize(ms, acts[i], obs[i], bw=0.3,
+                                        n_steps=20)
+            return ms
+
+        run(ms0, [updates])  # warm-up
+        _reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ms = run(ms0, range(updates))
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = _counts()
+        first, per_step = kernels
+        want = {first: updates * (1 if "fuse" in label else 20),
+                per_step: 20 * updates}
+        _check_counts(f"path 11 {label}", launches, want)
+        if not torch.isfinite(ms.x).all() or \
+                (ms.x - x0).abs().max().item() < 1e-4:
+            raise AssertionError(f"path 11 {label}: non-finite or unmoved "
+                                 f"particles")
+        out[label] = {"m": m, "updates": updates, "seconds": elapsed,
+                      "updates_per_s": updates / elapsed,
+                      "launches": launches,
+                      "posterior_mean": ms.x.mean(0).tolist()}
+        print(f"path 11 (FusedMPF {label}): {updates} conditioned updates x "
+              f"20 SVGD steps in {elapsed:.4f} s, "
+              f"{out[label]['updates_per_s']:.2f} updates/s; posterior mean "
+              f"(length, mass) {_fmt(out[label]['posterior_mean'])}; "
+              f"launches {launches}")
+    return out
+
+
+def _k11_bound(m, d):
+    """Per particle pair 7d + 3 float32 operations (the distance 3d, the
+    scale, exp, the row sum, two multiply-adds per dimension); x and
+    score read once, phi written once."""
+    return _bound(4 * (3 * m * d + 1), m * m * (7 * d + 3))
+
+
+def _k12_ops(m, k, d):
+    """Per (row, center) pair 5d + 4 (the distance 3d, the scale, the max
+    test, exp, the normalizer, a multiply-add per dimension)."""
+    return m * k * (5 * d + 4)
+
+
+def _k12_bound(m, k, d):
+    return _bound(4 * (2 * m * d + k * d + 1), _k12_ops(m, k, d))
+
+
+def _k13_bound(m, d):
+    """K11's and K12's operations at k == m and the SGD step; x, score and
+    centers read once, x_new and gp_new written once."""
+    return _bound(4 * (5 * m * d + 3),
+                  m * m * (7 * d + 3) + _k12_ops(m, m, d) + 2 * m * d)
+
+
+def phase_timing_slice4(dev, path8):
+    """K10: path 8's 200-step sweep between CUDA events (median of 3), its
+    plain version the one call path 8 timed; K11-K13 as phase 6 times
+    K1/K2, at path 10's shape (K11a, K12a: m = 2048, d = 1) and path 11's
+    (K11b, K11c, K12b, K13: m = 8192, d = 2)."""
+    import torch
+
+    from dust_tpu_torch.ops import gmm, mpf_stream, svgd
+
+    out = {}
+    groups, seeds, masses, _ = _bench_particle_sweep(dev, MAIN_STEPS)
+    bound = _k9_bound(MAIN_STEPS, path8["mpf_updates"], 4, 6, 64, 40, 50, 20,
+                      _n_model(dev), episodes=path8["episodes"],
+                      log_mix=True)
+    out["particle_sweep_episode"] = {
+        "ms": statistics.median(_event_ms(
+            lambda: groups.run(seeds(1), masses), 3)),
+        "plain_ms": path8["plain_ms"], "bound_ms": bound[0],
+        "bound_by": bound[1], "bound_bytes": bound[2], "bound_ops": bound[3],
+        "timed_as": "one call between CUDA events"}
+    gen = torch.Generator(device=dev).manual_seed(SEED + 80)
+    dt = lambda v: torch.tensor(v, device=dev)
+    bw, pbw, lr = dt(0.3), dt(0.2), dt(1e-3)
+    x1, s1, c1 = _stream_inputs(2048, 1, gen, dev)
+    x2, s2, c2 = _stream_inputs(STREAM_M, 2, gen, dev)
+    for name, kern, plain, bound in (
+            ("svgd_phi", lambda: svgd.svgd_phi_streamed(x1, s1, bw),
+             lambda: svgd.svgd_phi_plain(x1, s1, bw), _k11_bound(2048, 1)),
+            ("gmm_prior_score",
+             lambda: gmm.gmm_prior_score_streamed(x1, c1, pbw),
+             lambda: gmm.gmm_prior_score_plain(x1, c1, pbw),
+             _k12_bound(2048, 2048, 1)),
+            ("svgd_phi_packed",
+             lambda: svgd.svgd_phi_streamed_packed(x2, s2, bw),
+             lambda: svgd.svgd_phi_plain(x2, s2, bw),
+             _k11_bound(STREAM_M, 2)),
+            ("svgd_phi_symm",
+             lambda: svgd.svgd_phi_streamed_symm(x2, s2, bw),
+             lambda: svgd.svgd_phi_plain(x2, s2, bw),
+             _k11_bound(STREAM_M, 2)),
+            ("gmm_prior_score_packed",
+             lambda: gmm.gmm_prior_score_streamed_packed(x2, c2, pbw),
+             lambda: gmm.gmm_prior_score_plain(x2, c2, pbw),
+             _k12_bound(STREAM_M, STREAM_M, 2)),
+            ("mpf_stream_step",
+             lambda: mpf_stream.fused_mpf_stream_step(x2, s2, c2, bw, pbw,
+                                                      lr),
+             lambda: mpf_stream.mpf_stream_step_plain(x2, s2, c2, bw, pbw,
+                                                      lr),
+             _k13_bound(STREAM_M, 2))):
+        runs = {"plain": [], "kernel": []}
+        for which in ("plain", "kernel", "kernel", "plain"):
+            fn = kern if which == "kernel" else plain
+            runs[which].append({"device_ms": _device_ms(fn),
+                                "call_ms": _call_ms(fn, reps=30)})
+        out[name] = {
+            "ms": min(r["device_ms"] for r in runs["kernel"]),
+            "plain_ms": min(r["device_ms"] for r in runs["plain"]),
+            "runs": runs, "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_bytes": bound[2], "bound_ops": bound[3],
+            "timed_as": "device time per call, 20 calls in one CUDA graph"}
+    for name, t in out.items():
+        print(f"time {name}: kernel {t['ms']:.4f} ms, plain "
+              f"{t['plain_ms']:.4f} ms ({t['timed_as']}); bound "
+              f"{t['bound_ms']:.2e} ms ({t['bound_by']})")
+    return out
+
+
+def _n_model(dev):
+    """Floats of the demo model array the particle kernels read."""
+    from dust_tpu_torch.ops import particle_rollout as pr
+
+    _, stack = _particle_stack(dev)
+    model = stack.model
+    return pr.model_tensor(_pkw(model), model.dt, model.max_acc,
+                           model.max_speed, dev).numel()
+
+
 def main():
     import torch
 
@@ -2091,6 +3029,15 @@ def main():
     path7 = phase_particle_episode_path(dev)
     times.update(phase_timing_slice3(dev, path7))
 
+    k10_err = phase_k10(dev)
+    path8 = phase_particle_sweep_path(dev)
+    k10_err = max(k10_err, path8["layout_max_abs_err"])
+    path9 = phase_particle_scenario_path(dev)
+    stream_errs = phase_stream_kernels(dev)
+    path10 = phase_particle_large_path(dev)
+    path11 = phase_fused_mpf_path(dev)
+    times.update(phase_timing_slice4(dev, path8))
+
     kernels = []
     for name, source, replaces, err, path in (
             ("pendulum_rollout_costs", "dust_tpu_torch/csrc/pendulum_rollout.cu",
@@ -2113,7 +3060,32 @@ def main():
              "dust_tpu/ops/pallas_solve.py:538", k8_err, path6),
             ("particle_episode", "dust_tpu_torch/csrc/particle_episode.cu",
              "dust_tpu/ops/pallas_particle_episode.py:620", k9_err,
-             path7)):
+             path7),
+            ("particle_sweep_episode",
+             "dust_tpu_torch/csrc/particle_episode.cu",
+             "dust_tpu/ops/pallas_particle_sweep_episode.py:1148", k10_err,
+             path8),
+            ("svgd_phi", "dust_tpu_torch/csrc/svgd_phi.cu",
+             "dust_tpu/ops/pallas_svgd.py:100", stream_errs["svgd_phi"],
+             path10),
+            ("svgd_phi_packed", "dust_tpu_torch/csrc/svgd_phi.cu",
+             "dust_tpu/ops/pallas_svgd.py:197",
+             stream_errs["svgd_phi_packed"], path11["m=8192"]),
+            # K11c is a kernel of no path (no FusedMPF layout calls it): its
+            # launches are read from path 11's packed run, where they stay 0
+            ("svgd_phi_symm", "dust_tpu_torch/csrc/svgd_phi.cu",
+             "dust_tpu/ops/pallas_svgd.py:310", stream_errs["svgd_phi_symm"],
+             path11["m=8192"]),
+            ("gmm_prior_score", "dust_tpu_torch/csrc/gmm_score.cu",
+             "dust_tpu/ops/pallas_gmm.py:97", stream_errs["gmm_prior_score"],
+             path10),
+            ("gmm_prior_score_packed", "dust_tpu_torch/csrc/gmm_score.cu",
+             "dust_tpu/ops/pallas_gmm.py:201",
+             stream_errs["gmm_prior_score_packed"], path11["m=8192"]),
+            ("mpf_stream_step", "dust_tpu_torch/csrc/mpf_stream.cu",
+             "dust_tpu/ops/pallas_mpf_stream.py:155",
+             stream_errs["mpf_stream_step"],
+             path11["m=8192 fuse_streams"])):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -2135,8 +3107,10 @@ def main():
         "k6_path_vs_plain_path_max_abs_err": loop5_err,
         "path6_k8_k7": path6,
         "k8_path_vs_plain_path_max_abs_err": loop6_err,
-        "path7_k9_episode": path7,
-        "kernels": kernels,
+        "path7_k9_episode": path7, "path8_k10_sweep": path8,
+        "path9_particle_scenario_sweep": path9,
+        "path10_particle_large_fused_mpf": path10,
+        "path11_fused_mpf": path11, "kernels": kernels,
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -8,16 +8,19 @@ module's counterpart is found under the same path:
                            episode harnesses (+ the whole-episode and
                            sweep kernel adapters)
     experiments.py         config -> stack builders (pendulum, particle)
-    parallel/              MegakernelGroupSweep (sweep groups, one launch)
+    parallel/              MegakernelGroupSweep (sweep groups, one
+                           launch), ParticleScenarioSweep
       inference/           likelihoods, SVMPC (+ FusedPendulumSVMPC,
                            FusedParticleSVMPC), MPF (+ FusedPendulumMPF,
-                           FusedParticleMPF)
+                           FusedParticleMPF, the large-m FusedMPF)
         controllers/       MultiDisco rollout and update engine
           models/          batched pendulum and point-mass dynamics, the
                            obstacle map
       ops/                 distances, bandwidth rules, RBF kernels, the
                            rollout-cost, MPF-loop, whole-solve, episode and
-                           sweep kernels of both tasks (csrc/*.cu)
+                           sweep kernels of both tasks, the streamed SVGD,
+                           GMM-score and fused MPF-step kernels
+                           (csrc/*.cu)
       distributions.py     MVN / Normal / Uniform / GMM on tensors
     convert.py             state carried across from numpy arrays
 
@@ -41,6 +44,7 @@ from .inference import (
     CostLikelihood,
     ExpectedCost,
     ExponentiatedUtility,
+    FusedMPF,
     FusedParticleMPF,
     FusedParticleSVMPC,
     FusedPendulumMPF,
@@ -58,13 +62,18 @@ from .experiments import (
 from .simulation import (
     PendulumSimulation,
     megakernel_particle_episode_fn,
+    megakernel_particle_sweep_fn,
     megakernel_pendulum_episode_fn,
     megakernel_pendulum_sweep_fn,
     particle_episode_fn,
     run_particle_episode,
     to_dataframe,
 )
-from .parallel import MegakernelGroupSweep
+from .parallel import (
+    MegakernelGroupSweep,
+    ParticleScenarioSweep,
+    broadcast_scenarios,
+)
 
 __all__ = [
     "Box", "GMM", "MVN", "Normal", "Uniform",
@@ -72,13 +81,14 @@ __all__ = [
     "DiscoState", "MultiDisco",
     "MPF", "MPFState", "SVMPC", "SVMPCState",
     "CostLikelihood", "ExpectedCost", "ExponentiatedUtility",
-    "FusedParticleMPF", "FusedParticleSVMPC",
+    "FusedMPF", "FusedParticleMPF", "FusedParticleSVMPC",
     "FusedPendulumMPF", "FusedPendulumSVMPC", "FusedSVMPCState",
     "GaussianLikelihood", "LikelihoodState",
     "PARTICLE_DEMO_CONFIG", "PENDULUM_DEMO_CONFIG", "build_particle_stack",
     "build_pendulum_stack",
     "PendulumSimulation", "megakernel_pendulum_episode_fn",
     "megakernel_pendulum_sweep_fn", "megakernel_particle_episode_fn",
-    "particle_episode_fn", "run_particle_episode", "to_dataframe",
-    "MegakernelGroupSweep",
+    "megakernel_particle_sweep_fn", "particle_episode_fn",
+    "run_particle_episode", "to_dataframe",
+    "MegakernelGroupSweep", "ParticleScenarioSweep", "broadcast_scenarios",
 ]

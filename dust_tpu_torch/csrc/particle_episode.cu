@@ -64,6 +64,7 @@ struct EpisodeArgs {
   float* locs_out;
   float* amat_out;         // [B, m, hz * 2]
   float* mpfx_out;         // [B, m_mpf]
+  float* logmix_out;       // [B, m] final prior log-weights, or null
   int steps, warm_up, hz, m, n_params, n_act, m_mpf, mpf_steps, change_at;
   float success_dist2, log_n_act;
   int exp_util, weighted_prior, log_space, fixed_bw;
@@ -356,35 +357,40 @@ __global__ void __launch_bounds__(kThreads)
     a.amat_out[b * mh + e] = amat[e];
   }
   for (int i = tid; i < m_mpf; i += nt) a.mpfx_out[b * m_mpf + i] = sx[i];
+  if (a.logmix_out != nullptr && tid < m)
+    a.logmix_out[b * m + tid] = logmix[tid];
 }
 
 }  // namespace
 
-// B episodes, one block each (K9 launches B = 1). Arguments: see
+// B episodes, one block each (K9 launches B = 1; K10, the particle
+// scenario sweep, one block per (group, chain, scenario)). Arguments: see
 // EpisodeArgs. Device pointers, float32 (ep_i int32), contiguous; pdz and
-// pdu may be null (device-RNG mode). success_dist2 = success_dist^2 and
-// log_n_act = log(n_act), folded by the caller.
+// pdu may be null (device-RNG mode), logmix_out null where the caller does
+// not read the final prior log-weights (K9). success_dist2 =
+// success_dist^2 and log_n_act = log(n_act), folded by the caller.
 extern "C" int dust_particle_episodes(
     const float* model, const float* scal, const float* base_mass,
     const int* ep_i, const float* logmix0, const float* theta0,
     const float* locs0, const float* amat0, const float* aseq,
     const float* mpfx0, float* eps, const float* pdz, const float* pdu,
     float* log, float* theta_out, float* locs_out, float* amat_out,
-    float* mpfx_out, int B, int steps, int warm_up, int hz, int m,
-    int n_params, int n_act, int m_mpf, int mpf_steps, int change_at,
-    float success_dist2, float log_n_act, int exp_util, int weighted_prior,
-    int log_space, int fixed_bw, float mpf_bw_scale, int host_noise,
-    void* stream) {
+    float* mpfx_out, float* logmix_out, int B, int steps, int warm_up,
+    int hz, int m, int n_params, int n_act, int m_mpf, int mpf_steps,
+    int change_at, float success_dist2, float log_n_act, int exp_util,
+    int weighted_prior, int log_space, int fixed_bw, float mpf_bw_scale,
+    int host_noise, void* stream) {
   if (B < 1 || m < 1 || m > kMaxM || n_params < 1 ||
       n_params > kMaxParams || m_mpf < 1 || m_mpf > kThreads || hz < 1 ||
       n_act < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const EpisodeArgs a{model, scal, base_mass, ep_i, logmix0, theta0, locs0,
                       amat0, aseq, mpfx0, eps, pdz, pdu, log, theta_out,
-                      locs_out, amat_out, mpfx_out, steps, warm_up, hz, m,
-                      n_params, n_act, m_mpf, mpf_steps, change_at,
-                      success_dist2, log_n_act, exp_util, weighted_prior,
-                      log_space, fixed_bw, mpf_bw_scale, host_noise};
+                      locs_out, amat_out, mpfx_out, logmix_out, steps,
+                      warm_up, hz, m, n_params, n_act, m_mpf, mpf_steps,
+                      change_at, success_dist2, log_n_act, exp_util,
+                      weighted_prior, log_space, fixed_bw, mpf_bw_scale,
+                      host_noise};
   const size_t bytes =
       episode_smem_floats(m, 2 * hz, n_act, m_mpf) * sizeof(float);
   if (bytes > 48 * 1024) {

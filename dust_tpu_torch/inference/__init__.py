@@ -12,7 +12,7 @@ from .svmpc import (
     FusedSVMPCState,
     SVMPCState,
 )
-from .mpf import MPF, FusedParticleMPF, FusedPendulumMPF, MPFState
+from .mpf import MPF, FusedMPF, FusedParticleMPF, FusedPendulumMPF, MPFState
 
 __all__ = [
     "CostLikelihood",
@@ -26,6 +26,7 @@ __all__ = [
     "FusedPendulumSVMPC",
     "FusedSVMPCState",
     "MPF",
+    "FusedMPF",
     "FusedParticleMPF",
     "FusedPendulumMPF",
     "MPFState",

@@ -1,6 +1,6 @@
 """MPF — Stein particle filter over dynamics parameters (counterpart of
-`dust_tpu/inference/mpf.py`: `MPF`, `FusedPendulumMPF` and
-`FusedParticleMPF`).
+`dust_tpu/inference/mpf.py`: `MPF`, `FusedPendulumMPF`,
+`FusedParticleMPF` and `FusedMPF`).
 
 SVGD over parameter particles [n, dim], conditioned online on each new
 observation. The score is the gradient of (GMM prior around the particles)
@@ -21,9 +21,15 @@ import torch
 
 from ..distributions import GMM
 from ..ops.bandwidth import bw_silverman, silvermans_rule
+from ..ops.gmm import (
+    gmm_prior_score_streamed,
+    gmm_prior_score_streamed_packed,
+)
 from ..ops.kernels import rbf_gram_and_grad
 from ..ops.mpf import fused_pendulum_mpf_optimize
+from ..ops.mpf_stream import fused_mpf_stream_step
 from ..ops.particle_mpf import fused_particle_mpf_optimize
+from ..ops.svgd import svgd_phi_streamed, svgd_phi_streamed_packed
 from .likelihoods import GaussianLikelihood, LikelihoodState
 
 
@@ -239,3 +245,101 @@ class FusedParticleMPF(MPF):
         )
         return (self._refresh_prior(mstate, x, bw),
                 torch.zeros((n,), device=x.device), bw)
+
+
+class FusedMPF(MPF):
+    """MPF whose two O(m^2) objects, the RBF Stein direction and the GMM
+    prior score, run as streamed kernels that never store an [m, m]
+    matrix (K11 `ops/svgd.py`, K12 `ops/gmm.py`): for large particle
+    counts. Semantics = `MPF(reference_compat=False)` with the prior score
+    taken at the isotropic `prior_bw`.
+
+    `packed="auto"` takes the packed entries (K11b, K12b) for m >= 4096
+    and d <= 8, the gram entries (K11a, K12a) otherwise (True/False force
+    them, d > 8 always takes the gram entries); on the card both launch
+    the same kernels. `use_bf16` rounds the packed entries' products to
+    bf16. `fuse_streams=True` runs each SVGD iteration as one launch (K13,
+    `ops/mpf_stream.py`) that also returns the next iteration's prior
+    score; it applies the SGD step inside the kernel, so it needs
+    `fused_lr`, and an `lr` other than `fused_lr` raises; it ignores
+    `use_bf16`, as JAX's does. The `optimize` of `fuse_streams` returns
+    the norms of (x_new - x) / lr, as JAX's does."""
+
+    def __init__(self, likelihood, packed="auto", use_bf16=False,
+                 fuse_streams=False, fused_lr=None, **kwargs):
+        if kwargs.pop("reference_compat", False):
+            raise ValueError("FusedMPF has no reference_compat mode")
+        self._fuse_streams = bool(fuse_streams)
+        if self._fuse_streams:
+            if fused_lr is None:
+                raise ValueError(
+                    "FusedMPF(fuse_streams=True) applies the SGD update "
+                    "inside the fused kernel; pass fused_lr=<sgd lr>")
+            if "lr" in kwargs and float(kwargs["lr"]) != float(fused_lr):
+                raise ValueError(
+                    f"FusedMPF(fuse_streams=True) steps at fused_lr="
+                    f"{fused_lr}; lr={kwargs['lr']} would not be applied")
+            kwargs["lr"] = fused_lr
+        super().__init__(likelihood, reference_compat=False, **kwargs)
+        if packed != "auto" and not isinstance(packed, bool):
+            raise ValueError("packed must be 'auto', True or False")
+        self._packed = packed
+        self._use_bf16 = bool(use_bf16)
+
+    @staticmethod
+    def _blk_j(m):
+        """The TPU stream-block size JAX picks for m (its tile sizes; no
+        effect on the card)."""
+        return min(8192, max(1024, -(-m // 1024) * 1024))
+
+    def _use_packed(self, m, d):
+        if d > 8:
+            return False
+        if self._packed == "auto":
+            return m >= 4096
+        return self._packed
+
+    def phi(self, mstate: MPFState, bw):
+        x = mstate.x
+        m = x.shape[0]
+        blk_j = self._blk_j(m)
+        if self._use_packed(m, x.shape[1]):
+            gp = gmm_prior_score_streamed_packed(
+                x, mstate.prior.locs, mstate.prior_bw, block_k=blk_j,
+                use_bf16=self._use_bf16)
+            score = self._grad_lik(mstate, x) + gp
+            return svgd_phi_streamed_packed(x, score, bw, block_j=blk_j,
+                                            use_bf16=self._use_bf16)
+        gp = gmm_prior_score_streamed(x, mstate.prior.locs, mstate.prior_bw)
+        score = self._grad_lik(mstate, x) + gp
+        return svgd_phi_streamed(x, score, bw)
+
+    def optimize(self, mstate: MPFState, action, new_obs, bw=None,
+                 n_steps=None):
+        if not self._fuse_streams:
+            return super().optimize(mstate, action, new_obs, bw=bw,
+                                    n_steps=n_steps)
+        mstate = self._condition(mstate, action, new_obs)
+        if bw is None:
+            bw = silvermans_rule(mstate.x) * self.bw_scale
+        n = self.n_steps if n_steps is None else n_steps
+        x = mstate.x
+        m, d = x.shape
+        if d > 8:
+            raise ValueError("fuse_streams requires d <= 8 (the packed "
+                             "operand lane layout)")
+        centers, pbw, lr = mstate.prior.locs, mstate.prior_bw, self.lr
+        blk_j = self._blk_j(m)
+        # iteration 0's prior score comes from the standalone kernel;
+        # every later one from the previous fused step
+        gp = gmm_prior_score_streamed_packed(x, centers, pbw, block_k=blk_j)
+        norms = []
+        for _ in range(n):
+            score = self._grad_lik(mstate, x) + gp
+            x_new, gp = fused_mpf_stream_step(x, score, centers, bw, pbw, lr,
+                                              block_j=blk_j)
+            norms.append(torch.linalg.norm((x_new - x) * (1.0 / lr)))
+            x = x_new
+        grads = (torch.stack(norms) if norms
+                 else torch.zeros((0,), device=x.device))
+        return self._refresh_prior(mstate, x, bw), grads, bw

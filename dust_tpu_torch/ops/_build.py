@@ -96,14 +96,31 @@ _SIGNATURES = {
         + [_FLOAT, _INT, _VOID_P]                      # log_n_act exp_util stream
     ),
     "dust_particle_episodes": (
-        [_VOID_P] * 18                # model scal base_mass ep_i logmix0 theta0 locs0
+        [_VOID_P] * 19                # model scal base_mass ep_i logmix0 theta0 locs0
                                       # amat0 aseq mpfx0 eps pdz pdu log theta locs amat mpfx
+                                      # logmix (null on the K9 path)
         + [_INT] * 10                 # B steps warm_up hz m n_params n_act m_mpf
                                       # mpf_steps change_at
         + [_FLOAT] * 2                # success_dist2 log_n_act
         + [_INT] * 4                  # exp_util weighted_prior log_space fixed_bw
         + [_FLOAT, _INT, _VOID_P]     # mpf_bw_scale host_noise stream
     ),
+    "dust_svgd_phi": [
+        _VOID_P, _VOID_P, _VOID_P, _VOID_P,            # x score bw phi
+        _INT, _INT, _INT,                              # m d bf16
+        _VOID_P,                                       # stream
+    ],
+    "dust_gmm_score": [
+        _VOID_P, _VOID_P, _VOID_P, _VOID_P,            # x centers bw out
+        _INT, _INT, _INT, _INT,                        # m k d bf16
+        _VOID_P,                                       # stream
+    ],
+    "dust_mpf_stream_step": [
+        _VOID_P, _VOID_P, _VOID_P, _VOID_P,            # x score centers scal
+        _VOID_P, _VOID_P,                              # x_new gp_new
+        _INT, _INT,                                    # m d
+        _VOID_P,                                       # stream
+    ],
     "dust_cuda_error_string": [_INT],
 }
 

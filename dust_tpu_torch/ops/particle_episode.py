@@ -96,7 +96,7 @@ def particle_episode_plain(scal, base_mass, seeds, scenario, log_mix0,
     (`particle_rollout.rollout_costs`). Host-noise mode passes eps
     [B, steps, 2, hz, m, n_act], pdz/pdu [B, steps, n_params]. Returns
     (log [B, steps, 12], theta, locs, a_mat [B, m, hz * 2], mpf_x
-    [B, m_mpf])."""
+    [B, m_mpf], the final prior log-weights [B, m])."""
     from .particle_mpf import particle_mpf_optimize_plain
     from .particle_rollout import occupancy
     from .solve import disco_weights, particle_rollout_mcost, stein_forward
@@ -223,7 +223,7 @@ def particle_episode_plain(scal, base_mass, seeds, scenario, log_mix0,
         logs.append(torch.stack([npx, npy, nvx, nvy, a_x, a_y, cost_t, done,
                                  crashed, cum, bw_sv, bw_mpf], dim=-1))
         s = [npx, npy, nvx, nvy]
-    return torch.stack(logs, dim=1), theta, locs, amat, x
+    return torch.stack(logs, dim=1), theta, locs, amat, x, logmix
 
 
 # -- launch -------------------------------------------------------------------
@@ -237,14 +237,16 @@ def episode_plain(inputs, sp):
                      if k not in ("m", "hz", "m_mpf")})
 
 
-def run_particle_episodes(wrapper, inputs, sp):
+def run_particle_episodes(wrapper, inputs, sp, log_mix=False):
     """Run B episodes from canonical inputs: the plain version on CPU
     tensors, the kernel (C entry `dust_particle_episodes`) on CUDA tensors
     (one launch, counted in `wrapper.launches`). inputs: scal, base_mass
     [B], seeds [B, 2], scenario [B], log_mix0 [m], theta0/locs0/amat0
     [B, m, hz * 2], a_seq [hz * 2], mpfx0 [B, m_mpf], eps/pdz/pdu
     (host-noise mode) or None. sp: the statics of `particle_episode_plain`
-    plus m, hz, m_mpf. Returns the plain version's 5 outputs."""
+    plus m, hz, m_mpf. Returns the plain version's 6 outputs; the kernel
+    writes the last (the final prior log-weights) only when `log_mix`,
+    else it is None."""
     dev = inputs["theta0"].device
     if dev.type == "cpu":
         return episode_plain(inputs, sp)
@@ -271,13 +273,15 @@ def run_particle_episodes(wrapper, inputs, sp):
     theta, locs, amat = (torch.empty((B, m, 2 * hz), dtype=torch.float32,
                                      device=dev) for _ in range(3))
     mpf_x = torch.empty((B, m_mpf), dtype=torch.float32, device=dev)
+    logmix = torch.empty((B, m), dtype=torch.float32, device=dev) \
+        if log_mix else None
     # every tensor stays referenced here until the launch is queued: a
     # temporary's memory could be handed to the next allocation
     tensors = [model, c(inputs["scal"]), c(inputs["base_mass"]), ep_i,
                c(inputs["log_mix0"]), c(inputs["theta0"]),
                c(inputs["locs0"]), c(inputs["amat0"]), c(inputs["a_seq"]),
                c(inputs["mpfx0"]), eps, c(inputs["pdz"]), c(inputs["pdu"]),
-               log, theta, locs, amat, mpf_x]
+               log, theta, locs, amat, mpf_x, logmix]
     rc = load_library().dust_particle_episodes(
         *(None if t is None else t.data_ptr() for t in tensors),
         B, sp["steps"], sp["warm_up"], hz, m, sp["n_params"], n_act, m_mpf,
@@ -290,7 +294,7 @@ def run_particle_episodes(wrapper, inputs, sp):
     )
     wrapper.launches += 1
     check(rc, "dust_particle_episodes")
-    return log, theta, locs, amat, mpf_x
+    return log, theta, locs, amat, mpf_x, logmix
 
 
 def split_log(log):
@@ -301,16 +305,13 @@ def split_log(log):
             **{k: log[..., i] for i, k in enumerate(LOG_FIELDS) if i >= 6}}
 
 
-def _episode(runner, seed, state0, theta0, locs0, log_mix0, a_mat0, a_seq0,
-             mpfx0, prior_bw0, base_mass, load, ctrl_sigma, lr, alpha, temp,
-             prior_sigma, mpf_lr, mpf_sigma, mpf_fixed_bw_val, *, steps,
-             warm_up=0, hz, m, n_params, n_act, m_mpf, mpf_steps, dt,
-             max_acc, max_speed, weights, target, rects, grid, crash,
-             success_dist=1.0, change_at, exp_util=True, weighted_prior=True,
-             mpf_log_space=True, use_fixed_mpf_bw=True, mpf_bw_scale=1.0,
-             host_eps=None, host_pdz=None, host_pdu=None):
-    """`fused_particle_episode`, with the runner of the canonical inputs
-    (the kernel or the plain version) first."""
+def episode_statics(*, steps, warm_up=0, hz, m, n_params, n_act, m_mpf,
+                    mpf_steps, dt, max_acc, max_speed, weights, target, rects,
+                    grid, crash, success_dist=1.0, change_at, exp_util=True,
+                    weighted_prior=True, mpf_log_space=True,
+                    use_fixed_mpf_bw=True, mpf_bw_scale=1.0):
+    """The kernel's limits, checked, and its statics as
+    `run_particle_episodes` takes them."""
     from .particle_rollout import _statics
 
     if hz * 2 > 128 or n_act > 128 or m > 8:
@@ -320,19 +321,30 @@ def _episode(runner, seed, state0, theta0, locs0, log_mix0, a_mat0, a_seq0,
         raise ValueError("particle episode kernel: m_mpf <= 64")
     if n_params > 8:
         raise ValueError("particle episode kernel: n_params <= 8")
+    st = _statics(hz, dt, max_acc, max_speed, weights, target, rects, grid,
+                  crash)
+    return dict(st=st, steps=int(steps), warm_up=int(warm_up), hz=int(hz),
+                m=int(m), m_mpf=int(m_mpf), n_params=int(n_params),
+                n_act=int(n_act), mpf_steps=int(mpf_steps),
+                change_at=int(change_at), success_dist=float(success_dist),
+                exp_util=bool(exp_util), weighted_prior=bool(weighted_prior),
+                mpf_log_space=bool(mpf_log_space),
+                use_fixed_mpf_bw=bool(use_fixed_mpf_bw),
+                mpf_bw_scale=float(mpf_bw_scale))
+
+
+def _episode(runner, seed, state0, theta0, locs0, log_mix0, a_mat0, a_seq0,
+             mpfx0, prior_bw0, base_mass, load, ctrl_sigma, lr, alpha, temp,
+             prior_sigma, mpf_lr, mpf_sigma, mpf_fixed_bw_val, *,
+             host_eps=None, host_pdz=None, host_pdu=None, **statics):
+    """`fused_particle_episode`, with the runner of the canonical inputs
+    (the kernel or the plain version) first."""
+    sp = episode_statics(**statics)
+    m, hz, m_mpf = sp["m"], sp["hz"], sp["m_mpf"]
+    n_params, n_act = sp["n_params"], sp["n_act"]
     dev = torch.as_tensor(theta0).device
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
     ev = 2 * hz
-    st = _statics(hz, dt, max_acc, max_speed, weights, target, rects, grid,
-                  crash)
-    sp = dict(st=st, steps=int(steps), warm_up=int(warm_up), hz=int(hz),
-              m=int(m), m_mpf=int(m_mpf), n_params=int(n_params),
-              n_act=int(n_act), mpf_steps=int(mpf_steps),
-              change_at=int(change_at), success_dist=float(success_dist),
-              exp_util=bool(exp_util), weighted_prior=bool(weighted_prior),
-              mpf_log_space=bool(mpf_log_space),
-              use_fixed_mpf_bw=bool(use_fixed_mpf_bw),
-              mpf_bw_scale=float(mpf_bw_scale))
     inputs = dict(
         scal=episode_scal(state0, ctrl_sigma, lr, alpha, temp, prior_sigma,
                           load, mpf_lr, mpf_sigma, prior_bw0,
@@ -353,7 +365,7 @@ def _episode(runner, seed, state0, theta0, locs0, log_mix0, a_mat0, a_seq0,
         inputs["eps"] = f32(host_eps)[:, :, :, :m, :n_act][None]
         inputs["pdz"] = f32(host_pdz)[:, :n_params, 0][None]
         inputs["pdu"] = f32(host_pdu)[:, :n_params, 0][None]
-    log, theta, locs, amat, mpf_x = runner(inputs, sp)
+    log, theta, locs, amat, mpf_x, _ = runner(inputs, sp)
     out = split_log(log[0])
     out.update(theta=theta[0].reshape(m, hz, 2),
                locs=locs[0].reshape(m, hz, 2),

@@ -1,3 +1,8 @@
-from .sweep import MegakernelGroupSweep
+from .sweep import (
+    MegakernelGroupSweep,
+    ParticleScenarioSweep,
+    broadcast_scenarios,
+)
 
-__all__ = ["MegakernelGroupSweep"]
+__all__ = ["MegakernelGroupSweep", "ParticleScenarioSweep",
+           "broadcast_scenarios"]

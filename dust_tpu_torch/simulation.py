@@ -1,7 +1,7 @@
 """Closed-loop MPC episode harnesses (counterpart of
 `dust_tpu/simulation.py`): `PendulumSimulation`, the particle-navigation
 `particle_episode_fn` / `run_particle_episode`, and the whole-episode and
-sweep kernel adapters.
+sweep kernel adapters of both tasks.
 
 One MPC step: SVMPC optimize -> (after warm-up) forward and select ->
 simulator step -> MPF optimize, logged per step. The simulator is the
@@ -513,3 +513,70 @@ def megakernel_particle_episode_fn(stack, exp_params, steps, warm_up=0,
         )
 
     return episode
+
+
+def megakernel_particle_sweep_fn(stack, exp_params, steps, n_sc, warm_up=0,
+                                 success_dist=1.0, probe_skip=(),
+                                 n_chains=1):
+    """Scenario-sweep kernel adapter of the particle task (K10,
+    `ops/particle_sweep_episode.py`): n_sc <= 16 independent
+    obstacle-navigation DuSt episodes (per-scenario seeds, true simulator
+    masses, crash/goal termination, weighted priors and MPF mass
+    posteriors) times `n_chains` chains in one launch. Returns
+    sweep(seed [2] int, true_masses [n_sc], host_eps=None, host_pdz=None,
+    host_pdu=None) -> per-scenario logs; `sweep.groups(seeds [G, 2],
+    true_masses, ...)` runs G groups in one launch (the
+    `parallel.MegakernelGroupSweep` path).
+
+    Rejected, as the kernel does not model them: a nonzero controller
+    a_seq, and an MPF bandwidth that is not fixed (the demo config sets
+    `mpf_bandwidth` 0.5)."""
+    from .ops.particle_rollout import particle_kernel_statics
+    from .ops.particle_sweep_episode import fused_particle_sweep_groups
+
+    exp = exp_params
+    if stack.mpf_bw is None:
+        raise ValueError("particle sweep megakernel expects a fixed "
+                         "mpf_bandwidth (the demo config sets 0.5)")
+    statics = particle_kernel_statics(stack.model)
+    mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 2,
+                                  bw=stack.mpf_init_bw)
+    dstate = stack.controller.init_state()
+    if bool(torch.any(dstate.a_seq != 0)):
+        raise ValueError("particle sweep megakernel requires a zero "
+                         "controller a_seq (SVMPC demo semantics)")
+    log_mix0 = torch.log_softmax(stack.policies_prior.logits, dim=0)
+    model = stack.model
+
+    def groups(seeds, true_masses, host_eps=None, host_pdz=None,
+               host_pdu=None):
+        return fused_particle_sweep_groups(
+            seeds, stack.init_state, stack.init_policies,
+            stack.policies_prior.locs, log_mix0, dstate.a_mat,
+            stack.mpf_init, mstate.prior_bw, true_masses, stack.load,
+            exp["ctrl_sigma"], exp["learning_rate"], exp["alpha"],
+            1.0 / exp["alpha"], exp["prior_sigma"],
+            exp["mpf_learning_rate"], exp["mpf_obs_std"], stack.mpf_bw,
+            n_sc=n_sc, steps=steps, warm_up=warm_up, hz=exp["horizon"],
+            m=exp["n_particles"], n_params=exp["params_samples"],
+            n_act=exp["action_samples"], m_mpf=exp["mpf_n_particles"],
+            mpf_steps=exp["mpf_steps"], dt=float(model.dt),
+            max_acc=float(model.max_acc), max_speed=float(model.max_speed),
+            change_at=steps // 4, success_dist=success_dist,
+            exp_util=_exp_util(exp),
+            weighted_prior=exp.get("weighted_prior", False),
+            mpf_log_space=exp["mpf_log_space"], use_fixed_mpf_bw=True,
+            mpf_bw_scale=exp["mpf_bandwidth_scaling"], host_eps=host_eps,
+            host_pdz=host_pdz, host_pdu=host_pdu, probe_skip=probe_skip,
+            n_chains=n_chains, **statics,
+        )
+
+    def sweep(seed, true_masses, host_eps=None, host_pdz=None,
+              host_pdu=None):
+        lead = lambda v: None if v is None else torch.as_tensor(v)[None]
+        out = groups(lead(seed), lead(true_masses), lead(host_eps),
+                     lead(host_pdz), lead(host_pdu))
+        return {k: v[0] for k, v in out.items()}
+
+    sweep.groups = groups
+    return sweep

@@ -46,7 +46,8 @@ def test_package_imports_without_jax_or_dust_tpu():
                  "ops.sweep_episode", "parallel", "parallel.sweep",
                  "models.obstacle_map", "models.particle",
                  "ops.particle_rollout", "ops.particle_mpf",
-                 "ops.particle_episode"):
+                 "ops.particle_episode", "ops.particle_sweep_episode",
+                 "ops.svgd", "ops.gmm", "ops.mpf_stream"):
         assert f"dust_tpu_torch.{name}" in _modules()
 
 
@@ -61,7 +62,8 @@ def test_every_c_entry_has_a_signature_and_a_source():
                    if re.search(rf'extern "C" [\w\s*]*\b{name}\(', text)]
         assert len(defined) == 1, (name, defined)
     for name in ("particle_rollout.cu", "particle_mpf.cu", "particle_solve.cu",
-                 "particle_episode.cu"):
+                 "particle_episode.cu", "svgd_phi.cu", "gmm_score.cu",
+                 "mpf_stream.cu"):
         assert name in sources
     calls = set()
     for path in sorted(PKG_DIR.rglob("*.py")):
@@ -69,7 +71,20 @@ def test_every_c_entry_has_a_signature_and_a_source():
                                 path.read_text()))
     assert calls <= set(_build._SIGNATURES), calls - set(_build._SIGNATURES)
     assert {"dust_particle_rollout_costs", "dust_particle_mpf_optimize",
-            "dust_particle_solve", "dust_particle_episodes"} <= calls
+            "dust_particle_solve", "dust_particle_episodes", "dust_svgd_phi",
+            "dust_gmm_score", "dust_mpf_stream_step"} <= calls
+
+
+def test_signatures_match_the_c_entries():
+    """Each `_SIGNATURES` entry has as many arguments as its C entry
+    point (ctypes would pass a missing pointer as garbage)."""
+    from dust_tpu_torch.ops import _build
+
+    text = "\n".join(p.read_text() for p in _build.SRC_DIR.glob("*.cu"))
+    for name, argtypes in _build._SIGNATURES.items():
+        decl = re.search(rf'extern "C" [\w\s*]*\b{name}\(([^)]*)\)', text)
+        assert decl is not None, name
+        assert len(decl.group(1).split(",")) == len(argtypes), name
 
 
 def test_sources_name_no_jax_or_dust_tpu():
