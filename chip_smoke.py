@@ -98,7 +98,8 @@ Phases (any failure raises and exits non-zero):
  27. K11a-c (streamed SVGD direction), K12a-b (streamed GMM prior score)
      and K13 (the fused SVGD step) against their plain versions at m =
      2048 and 8192, the JAX tests' odd shapes, far from the origin, bf16,
-     and m = 32768 in four 1024-row chunks;
+     m = 1, 33, 2049 and 8191 at d = 1, 2, 3 and 8 (K12 with k != m; two
+     calls bit-equal), and m = 32768 in four 1024-row chunks;
  28. path 10: bench_all.py's particle_large stack (16 x 512 x 8 rollouts,
      2048 MPF particles) with FusedMPF (K11a + K12a, 20 launches each per
      step), 50 steps of run_particle_episode; the generic MPF on the same
@@ -106,7 +107,9 @@ Phases (any failure raises and exits non-zero):
  29. path 11: FusedMPF.optimize in bench_mpf_large's form at m = 2048,
      8192, 32768 and with fuse_streams at 8192 and 32768: conditioned
      updates per second and the launches of each layout;
- 30. K10-K13 times beside their bounds, as phases 6 and 14.
+ 30. K10-K13 times beside their bounds, as phases 6 and 14; K12b and K13
+     also at m = 32768; K12's yardstick, one scaled_dot_product_attention
+     call (held once against the plain version), as its library time.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. The line before the last is the kernels' JSON summary;
@@ -2137,8 +2140,10 @@ PATH10_DRIFT = {"mpf_particles_step0": 1e-4, "mass_estimate_rel": 1e-3,
                 "trajectory_m": 1e-2}
 PATH10_DRIFT_STEPS = 10
 # phase 27's particle counts: the packed threshold's side and the largest
-# count bench_mpf_large runs (plain versions there in 1024-row chunks)
+# count bench_mpf_large runs (plain versions there in 1024-row chunks); and
+# counts on no row-tile, slice or cluster boundary of K12/K13's split walk
 STREAM_M, STREAM_LARGE_M = 8192, 32768
+STREAM_RAGGED_M = (1, 33, 2049, 8191)
 # path 11 (bench/bench_all.py:169-206): label, m, conditioned updates,
 # FusedMPF options, the kernels launched once per update (or per SVGD
 # step) and once per SVGD step
@@ -2574,6 +2579,11 @@ def _stream_inputs(m, d, gen, dev):
     return x, score, centers
 
 
+def _ragged_k(m):
+    """K12's center count beside m rows in phase 27's ragged checks."""
+    return 2 * m // 3 + 5
+
+
 def _chunks(m):
     """Four 1024-row slices spread over m rows."""
     return [slice(r, r + 1024) for r in (0, m // 3, 2 * m // 3, m - 1024)]
@@ -2582,8 +2592,9 @@ def _chunks(m):
 def phase_stream_kernels(dev):
     """K11a-c, K12a-b and K13 against their plain versions: m = 2048
     (d = 1, 2) and 8192 (d = 2); the JAX tests' odd shapes; far from the
-    origin; bf16; m = 32768 in four 1024-row chunks of the plain formula
-    against all columns."""
+    origin; bf16; K12 and K13 at STREAM_RAGGED_M and d = 1, 2, 3, 8, each
+    twice with the same bits; m = 32768 in four 1024-row chunks of the
+    plain formula against all columns."""
     import torch
 
     from dust_tpu_torch.ops import gmm, mpf_stream, svgd
@@ -2616,6 +2627,17 @@ def phase_stream_kernels(dev):
         if not moved > f32_atol:
             raise AssertionError(f"{name}: use_bf16 leaves the kernel's "
                                  f"output within f32 noise")
+
+    def same_bits(name, label, fn):
+        """fn's result, after a second call gave the same bits."""
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        pairs = zip(first, second) if isinstance(first, tuple) else \
+            [(first, second)]
+        if not all(torch.equal(a, b) for a, b in pairs):
+            raise AssertionError(f"{name} {label}: two calls with the same "
+                                 f"inputs differ")
+        return first
 
     def normal(m, d, scale=1.0, offset=0.0):
         return offset + scale * torch.randn((m, d), generator=gen,
@@ -2701,6 +2723,27 @@ def phase_stream_kernels(dev):
         wx, wg = mpf_stream.mpf_stream_step_plain(x, s, c, bw, pbw, lr)
         chk("mpf_stream_step", f"x_new m={m}", gx, wx, K13_X_TOL)
         chk("mpf_stream_step", f"gp_new m={m}", gg, wg, K12_TOL)
+
+    # the split walk's edges: m on no tile, slice or cluster boundary (K12
+    # with k != m), d = 1, 2, 3 and 8; two calls give the same bits (the
+    # merge order is fixed)
+    for m in STREAM_RAGGED_M:
+        for d in (1, 2, 3, 8):
+            x, s, c = _stream_inputs(m, d, gen, dev)
+            ck = _stream_inputs(_ragged_k(m), d, gen, dev)[2]
+            label = f"m={m} k={ck.shape[0]} d={d}"
+            for name in ("gmm_prior_score", "gmm_prior_score_packed"):
+                chk(name, label, same_bits(name, label,
+                                           lambda: gfns[name](x, ck, pbw)),
+                    gmm.gmm_prior_score_plain(x, ck, pbw), K12_TOL)
+            gx, gg = same_bits("mpf_stream_step", f"m={m} d={d}",
+                               lambda: mpf_stream.fused_mpf_stream_step(
+                                   x, s, c, bw, pbw, lr))
+            wx, wg = mpf_stream.mpf_stream_step_plain(x, s, c, bw, pbw, lr)
+            chk("mpf_stream_step", f"x_new m={m} d={d}", gx, wx, K13_X_TOL)
+            chk("mpf_stream_step", f"gp_new m={m} d={d}", gg, wg, K12_TOL)
+    print(f"K12a, K12b and K13 at m = {STREAM_RAGGED_M}, d = 1, 2, 3, 8: "
+          f"two calls bit-equal")
 
     # m = 32768: the plain [m, m] matrices would take 4 GB each
     m = STREAM_LARGE_M
@@ -2903,11 +2946,52 @@ def _k13_bound(m, d):
                   m * m * (7 * d + 3) + _k12_ops(m, m, d) + 2 * m * d)
 
 
+SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
+                 "FLASH_ATTENTION", "MATH")
+
+
+def _sdpa_k12(x, centers, bw):
+    """K12's function as one scaled_dot_product_attention call, the
+    yardstick of `library_ms` (the port never calls it): softmax over k of
+    q.k_k / bw^2 - |k_k|^2 / (2 bw^2), queries x - c_0, keys and values
+    c - c_0 (the row term |x - c_0|^2 / (2 bw^2) cancels in the softmax),
+    the head dimension zero-padded to 8; then (out - (x - c_0)) / bw^2.
+    Returns the call and the name of the first backend of SDPA_BACKENDS
+    that runs it."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    m, d = x.shape
+    b2 = float(bw) ** 2
+    q = x - centers[0]
+    kv = centers - centers[0]
+    qp = F.pad(q, (0, 8 - d))[None, None]
+    kp = F.pad(kv, (0, 8 - d))[None, None]
+    bias = (-(kv * kv).sum(dim=1) * (0.5 / b2)).view(1, 1, 1, -1)
+    mask = bias.expand(1, 1, m, kv.shape[0])
+    for name in SDPA_BACKENDS:
+        def call(backend=getattr(SDPBackend, name)):
+            with sdpa_kernel(backend):
+                out = F.scaled_dot_product_attention(qp, kp, kp,
+                                                     attn_mask=mask,
+                                                     scale=1.0 / b2)
+            return (out[0, 0, :, :d] - q) / b2
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return call, name
+    raise RuntimeError("no scaled_dot_product_attention backend runs K12")
+
+
 def phase_timing_slice4(dev, path8):
     """K10: path 8's 200-step sweep between CUDA events (median of 3), its
     plain version the one call path 8 timed; K11-K13 as phase 6 times
     K1/K2, at path 10's shape (K11a, K12a: m = 2048, d = 1) and path 11's
-    (K11b, K11c, K12b, K13: m = 8192, d = 2)."""
+    (K11b, K11c, K12b, K13: m = 8192, d = 2); K12b and K13 also at
+    m = 32768; K12's SDPA yardstick at K12a's and K12b's shapes."""
     import torch
 
     from dust_tpu_torch.ops import gmm, mpf_stream, svgd
@@ -2964,10 +3048,40 @@ def phase_timing_slice4(dev, path8):
             "runs": runs, "bound_ms": bound[0], "bound_by": bound[1],
             "bound_bytes": bound[2], "bound_ops": bound[3],
             "timed_as": "device time per call, 20 calls in one CUDA graph"}
+    # K12's yardstick: one SDPA call at K12a's and K12b's shapes, held once
+    # against the plain version
+    for name, x, c in (("gmm_prior_score", x1, c1),
+                       ("gmm_prior_score_packed", x2, c2)):
+        call, backend = _sdpa_k12(x, c, pbw)
+        _check_close(f"{name} SDPA yardstick ({backend})", call(),
+                     gmm.gmm_prior_score_plain(x, c, pbw), **K12_TOL)
+        out[name]["library_ms"] = _device_ms(call)
+        out[name]["library"] = f"scaled_dot_product_attention, {backend}"
+    # path 11's m = 32768 (fuse_streams spends most of its update in K13
+    # there): the kernels alone, the plain [m, m] versions not timed
+    x3, s3, c3 = _stream_inputs(STREAM_LARGE_M, 2, gen, dev)
+    for name, fn, bound in (
+            ("gmm_prior_score_packed",
+             lambda: gmm.gmm_prior_score_streamed_packed(x3, c3, pbw),
+             _k12_bound(STREAM_LARGE_M, STREAM_LARGE_M, 2)),
+            ("mpf_stream_step",
+             lambda: mpf_stream.fused_mpf_stream_step(x3, s3, c3, bw, pbw,
+                                                      lr),
+             _k13_bound(STREAM_LARGE_M, 2))):
+        out[name]["m32768"] = {
+            "ms": min(_device_ms(fn) for _ in range(2)),
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "bound_bytes": bound[2], "bound_ops": bound[3]}
     for name, t in out.items():
+        lib = (f", library {t['library_ms']:.4f} ms ({t['library']})"
+               if "library_ms" in t else "")
         print(f"time {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms ({t['timed_as']}); bound "
-              f"{t['bound_ms']:.2e} ms ({t['bound_by']})")
+              f"{t['bound_ms']:.2e} ms ({t['bound_by']}){lib}")
+        if "m32768" in t:
+            big = t["m32768"]
+            print(f"time {name} m={STREAM_LARGE_M}: kernel {big['ms']:.4f} "
+                  f"ms; bound {big['bound_ms']:.2e} ms ({big['bound_by']})")
     return out
 
 
@@ -3093,7 +3207,7 @@ def main():
             "launches": path["launches"][name],
             "max_abs_err": err, "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-            "library_ms": None,
+            "library_ms": t.get("library_ms"),
         })
 
     report = {

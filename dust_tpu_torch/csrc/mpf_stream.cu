@@ -7,92 +7,203 @@
 // Replaces the TPU kernel `fused_mpf_stream_step`
 // (dust_tpu/ops/pallas_mpf_stream.py, `_stream_step_kernel`). The TPU
 // kernel pipelines the two streams one row block apart on its sequential
-// grid, carrying the finished x_new block in scratch. On a GPU no
-// pipeline is needed: gp_new of a row depends only on that row's x_new and
-// on the fixed centers, so each block finishes phi for its rows, keeps
-// x_new in registers, writes it, and then streams the centers against it.
-// No block waits on another.
+// grid, carrying the finished x_new block in scratch. Here no pipeline is
+// needed: gp_new of a row depends only on that row's x_new and on the
+// fixed centers.
 //
 // Bound on this card: the sum of K11's and K12's operation counts at
-// k == m (chip_smoke.py:_k13_bound), operations bound.
-// Design: svgd_phi.cu's then gmm_score.cu's loop in one block of 128 rows,
-// d <= 8 in registers, float32 only.
+// k == m (chip_smoke.py:_k13_bound), operations bound; the exp unit's 16
+// ex2 per clock per SM bounds it about as tightly (~32 us at m = 8192).
+//
+// Design (stream_split.cuh): a cluster of up to 8 blocks of 8 warps owns a
+// tile of 32 or 64 rows, and every warp walks its own slice of the
+// particles for phi, then the same slice of the centers for the prior
+// score, each staged once with cp.async. phi_i = (sum_j K_ij score_j +
+// sum_j K_ij (x_i - x_j) / bw^2) / m takes the differences it already
+// forms for the distance, so no shift is needed and no row sum; K_ij is
+// one ex2 (log2 e folded into the scale), the sums explicit fmas. The
+// warps' phi sums merge over the block, then over the cluster: every block
+// reads the cluster's partial sums through distributed shared memory in
+// rank order, so all of them hold the same x_new of the tile, and each
+// writes its share of it once. The prior-score stream then runs as in
+// gmm_score.cu against those rows: one launch, no grid-wide barrier, no
+// atomics, the same bits every call. Float32 only (no bf16 option).
 
 #include <math.h>
 
 #include <cuda_runtime.h>
 
-#include "stream_tiles.cuh"
+#include "stream_split.cuh"
 
 namespace {
 
-using namespace dust_stream;
+namespace cg = cooperative_groups;
+using namespace dust_split;
 
+// floats per row of the merge areas: the larger of phi's 2d sums and the
+// softmax state's d + 2
 template <int D>
-__global__ void __launch_bounds__(kRows)
+__host__ __device__ constexpr int merge_width() {
+  return 2 * D > D + 2 ? 2 * D : D + 2;
+}
+
+template <int D, int RPT>
+__global__ void __launch_bounds__(kThreads, 2)
     mpf_stream_kernel(const float* __restrict__ x,
                       const float* __restrict__ score,
                       const float* __restrict__ centers,
                       const float* __restrict__ scal,
                       float* __restrict__ x_new, float* __restrict__ gp_new,
-                      int m) {
+                      int m, int width, int qe, int nbuf) {
+  constexpr int R = 32 * RPT;
+  constexpr int F = merge_width<D>();
   extern __shared__ float sh[];
-  const Tiles t = carve<D>(sh, D);
-  RowVecs<D> v = begin_rows<D>(x, m, D, t, x, centers);
+  cg::cluster_group cluster = cg::this_cluster();
+  const Place pl = place<RPT>(cluster, m, width);
+  float* stage = sh + pl.warp * nbuf * 2 * qe * D;
+  float* part = sh + kWarps * nbuf * 2 * qe * D;   // [kWarps][R][F]
+  float* blk_phi = part + kWarps * R * F;           // [R][2D]
+  float* blk_gmm = blk_phi + R * 2 * D;             // [R][D + 2]
+  float* xn = blk_gmm + R * (D + 2);                // [R][D]
   const float bw = scal[0], pbw = scal[1], lr = scal[2];
   const float inv2 = 0.5f / (bw * bw);
+  const float s2 = inv2 * kLog2e;
   const float pinv2 = 0.5f / (pbw * pbw);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  const float ps2 = pinv2 * kLog2e;
 
-  // ---- phi for this block's rows, then the SGD step ----
-  float rows = 0.0f;
-  svgd_sums<D>(x, score, m, D, inv2, false, t, v, rows);
+  // ---- phi: this warp's slice of the particles ----
+  float xr[RPT][D], ss[RPT][D], sx[RPT][D];
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    const int i = pl.row0 + q * 32 + pl.lane;
+#pragma unroll
+    for (int dd = 0; dd < D; ++dd) {
+      xr[q][dd] = i < m ? x[static_cast<size_t>(i) * D + dd] : 0.0f;
+      ss[q][dd] = 0.0f;
+      sx[q][dd] = 0.0f;
+    }
+  }
+  const float* src_phi[2] = {x, score};
+  walk_slice<D, 2>(
+      src_phi, pl.j0, pl.j1, stage, 2, qe, pl.lane, [](float*, int) {},
+      [&](const float* buf, int n) {
+        const float* sc = buf + qe * D;
+#pragma unroll 4
+        for (int j = 0; j < n; ++j) {
+#pragma unroll
+          for (int q = 0; q < RPT; ++q) {
+            float df[D];
+            float d2 = 0.0f;
+#pragma unroll
+            for (int dd = 0; dd < D; ++dd) {
+              df[dd] = xr[q][dd] - buf[j * D + dd];
+              d2 = __fmaf_rn(df[dd], df[dd], d2);
+            }
+            const float k = ex2(d2 * -s2);
+#pragma unroll
+            for (int dd = 0; dd < D; ++dd) {
+              ss[q][dd] = __fmaf_rn(k, sc[j * D + dd], ss[q][dd]);
+              sx[q][dd] = __fmaf_rn(k, df[dd], sx[q][dd]);
+            }
+          }
+        }
+      });
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    float* p = part + (pl.warp * R + q * 32 + pl.lane) * F;
+#pragma unroll
+    for (int dd = 0; dd < D; ++dd) {
+      p[dd] = ss[q][dd];
+      p[D + dd] = sx[q][dd];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < R) {
+    float acc[2 * D];
+#pragma unroll
+    for (int e = 0; e < 2 * D; ++e) acc[e] = 0.0f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float* p = part + (w * R + threadIdx.x) * F;
+#pragma unroll
+      for (int e = 0; e < 2 * D; ++e) acc[e] = acc[e] + p[e];
+    }
+#pragma unroll
+    for (int e = 0; e < 2 * D; ++e) blk_phi[threadIdx.x * 2 * D + e] = acc[e];
+  }
+  cluster.sync();
+
+  // ---- x_new of the whole tile in every block, its share written once ----
   const float inv_m = 1.0f / static_cast<float>(m);
+  if (threadIdx.x < R) {
+    const int r = threadIdx.x;
+    float acc[2 * D];
 #pragma unroll
-  for (int dd = 0; dd < D; ++dd) {
-    const float repel =
-        (rows * (v.at(0, dd) - t.shift_a[dd]) - v.at(2, dd)) * (2.0f * inv2);
-    const float phi = (v.at(1, dd) + repel) * inv_m;
-    v.at(0, dd) = v.at(0, dd) + lr * phi;
-    v.at(1, dd) = 0.0f;
-    if (i < m) x_new[static_cast<size_t>(i) * D + dd] = v.at(0, dd);
+    for (int e = 0; e < 2 * D; ++e) acc[e] = 0.0f;
+    for (int b = 0; b < pl.cluster; ++b) {
+      const float* p = cluster.map_shared_rank(blk_phi, b) + r * 2 * D;
+#pragma unroll
+      for (int e = 0; e < 2 * D; ++e) acc[e] = acc[e] + p[e];
+    }
+    const int i = pl.row0 + r;
+    const int per = R / pl.cluster;
+#pragma unroll
+    for (int dd = 0; dd < D; ++dd) {
+      const float xi = i < m ? x[static_cast<size_t>(i) * D + dd] : 0.0f;
+      const float phi = (acc[dd] + acc[D + dd] * (2.0f * inv2)) * inv_m;
+      const float v = xi + lr * phi;
+      xn[r * D + dd] = v;
+      if (i < m && r / per == pl.rank) x_new[static_cast<size_t>(i) * D + dd] = v;
+    }
   }
+  __syncthreads();
 
-  // ---- the prior score at the new rows ----
-  float mx = -INFINITY, l = 0.0f;
-  gmm_sums<D>(centers, m, D, pinv2, false, t, v, mx, l);
-  if (i >= m) return;
+  // ---- the prior score at the new rows: the same slice of the centers ----
+  float c0[D];
 #pragma unroll
-  for (int dd = 0; dd < D; ++dd) {
-    const float mean_c = v.at(1, dd) / l;
-    gp_new[static_cast<size_t>(i) * D + dd] =
-        (mean_c - (v.at(0, dd) - t.shift_b[dd])) * (2.0f * pinv2);
+  for (int dd = 0; dd < D; ++dd) c0[dd] = centers[dd];
+  Soft<D> st[RPT];
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+#pragma unroll
+    for (int dd = 0; dd < D; ++dd)
+      xr[q][dd] = xn[(q * 32 + pl.lane) * D + dd] - c0[dd];
+    soft_clear(st[q]);
   }
+  const float* src_gmm[1] = {centers};
+  walk_slice<D, 1>(
+      src_gmm, pl.j0, pl.j1, stage, 2, qe, pl.lane,
+      [&](float* buf, int col) {
+#pragma unroll
+        for (int dd = 0; dd < D; ++dd) buf[col * D + dd] -= c0[dd];
+      },
+      [&](const float* buf, int n) {
+        soft_walk<D, RPT>(buf, buf, n, xr, ps2, false, st);
+      });
+  Soft<D> fin;
+  int i;
+  if (soft_reduce<D, RPT>(cluster, pl, st, part, blk_gmm, ps2, fin, i) &&
+      i < m) {
+    const int r = i - pl.row0;
+#pragma unroll
+    for (int dd = 0; dd < D; ++dd)
+      gp_new[static_cast<size_t>(i) * D + dd] =
+          (fin.acc[dd] / fin.l - (xn[r * D + dd] - c0[dd])) * (2.0f * pinv2);
+  }
+  cluster.sync();  // the other blocks have read this block's sums
 }
 
 template <int D>
-struct StreamLaunch {
-  static int run(int m, int d, cudaStream_t stream, const float* x,
-                 const float* score, const float* centers, const float* scal,
-                 float* x_new, float* gp_new) {
-    dim3 grid, block;
-    size_t bytes;
-    const int rc = configure<D>(mpf_stream_kernel<D>, m, d, &grid, &block,
-                                &bytes);
-    if (rc != 0) return rc;
-    mpf_stream_kernel<D><<<grid, block, bytes, stream>>>(
-        x, score, centers, scal, x_new, gp_new, m);
-    return static_cast<int>(cudaGetLastError());
-  }
-};
-
-template <>
-struct StreamLaunch<0> {
-  static int run(int, int, cudaStream_t, const float*, const float*,
-                 const float*, const float*, float*, float*) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-};
+int launch_step(const float* x, const float* score, const float* centers,
+                const float* scal, float* x_new, float* gp_new, int m,
+                cudaStream_t stream) {
+  const Geometry g = geometry<D>(
+      m, m, 2, (kWarps * merge_width<D>() + 2 * D + (D + 2) + D));
+  if (g.rpt == 2)
+    return launch(mpf_stream_kernel<D, 2>, g, stream, x, score, centers,
+                  scal, x_new, gp_new, m, g.width, g.qe, g.nbuf);
+  return launch(mpf_stream_kernel<D, 1>, g, stream, x, score, centers, scal,
+                x_new, gp_new, m, g.width, g.qe, g.nbuf);
+}
 
 }  // namespace
 
@@ -103,7 +214,16 @@ extern "C" int dust_mpf_stream_step(const float* x, const float* score,
                                     const float* centers, const float* scal,
                                     float* x_new, float* gp_new, int m,
                                     int d, void* stream) {
-  if (m < 1 || d < 1 || d > 8) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_for_d<StreamLaunch>(m, d, static_cast<cudaStream_t>(stream),
-                                    x, score, centers, scal, x_new, gp_new);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (m < 1 ? 0 : d) {
+    case 1: return launch_step<1>(x, score, centers, scal, x_new, gp_new, m, s);
+    case 2: return launch_step<2>(x, score, centers, scal, x_new, gp_new, m, s);
+    case 3: return launch_step<3>(x, score, centers, scal, x_new, gp_new, m, s);
+    case 4: return launch_step<4>(x, score, centers, scal, x_new, gp_new, m, s);
+    case 5: return launch_step<5>(x, score, centers, scal, x_new, gp_new, m, s);
+    case 6: return launch_step<6>(x, score, centers, scal, x_new, gp_new, m, s);
+    case 7: return launch_step<7>(x, score, centers, scal, x_new, gp_new, m, s);
+    case 8: return launch_step<8>(x, score, centers, scal, x_new, gp_new, m, s);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

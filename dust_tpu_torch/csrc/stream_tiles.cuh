@@ -1,6 +1,6 @@
-// Device code shared by the streamed large-m MPF kernels: the SVGD
-// direction (K11, svgd_phi.cu), the GMM prior score (K12, gmm_score.cu)
-// and the fused SVGD step (K13, mpf_stream.cu).
+// Device code of the streamed SVGD direction (K11, svgd_phi.cu) and of the
+// GMM prior score's general path (K12 at 8 < d <= 128, gmm_score.cu); K12
+// at d <= 8 and the fused SVGD step (K13) walk stream_split.cuh's split.
 //
 // One thread owns one particle row i and walks every column j (a particle
 // or a prior center) itself, so no [m, m] matrix is ever stored; a block

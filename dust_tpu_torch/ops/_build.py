@@ -23,6 +23,8 @@ import tempfile
 import time
 from pathlib import Path
 
+from . import stream_split
+
 _PKG = Path(__file__).resolve().parent.parent
 SRC_DIR = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
@@ -36,6 +38,8 @@ NVCC_FLAGS = [
     "--fmad=false",
     "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
+    # the column split of K12/K13 (ops/stream_split.py)
+    *stream_split.nvcc_defines(),
 ]
 
 _VOID_P = ctypes.c_void_p
@@ -146,7 +150,8 @@ def is_stale() -> bool:
     if not LIB_PATH.exists():
         return True
     built = LIB_PATH.stat().st_mtime
-    deps = _sources() + sorted(SRC_DIR.glob("*.cuh"))
+    deps = _sources() + sorted(SRC_DIR.glob("*.cuh")) + [
+        Path(stream_split.__file__)]
     return any(src.stat().st_mtime > built for src in deps)
 
 

@@ -10,17 +10,22 @@ storing the [m, k] responsibilities.
 * On CUDA tensors `gmm_prior_score_streamed` and
   `gmm_prior_score_streamed_packed` launch one hand-written kernel,
   `csrc/gmm_score.cu` (which replaces both TPU kernels of
-  `dust_tpu/ops/pallas_gmm.py`): one thread per row, an online softmax over
-  all centers (running max, normalizer and weighted sum), each entry
+  `dust_tpu/ops/pallas_gmm.py`): for d <= 8 a thread-block cluster per row
+  tile, every warp walking its own slice of the centers
+  (`ops/stream_split.py`) with an online softmax rescaled once per tile of
+  TILE_COLS centers, the warps' states merged in a fixed order; each entry
   counted in its own `.launches`.
 * On CPU tensors they run `gmm_prior_score_plain`, the same function in
   plain PyTorch: explicit per-dimension distances, a softmax, and the
   centers shifted by the first one (shift-invariant, exact far from the
-  origin); `use_bf16` rounds the unnormalized weights (against the running
-  max, as the online softmax forms them) and the shifted centers to bf16
-  before the products, with f32 sums, as the TPU packed kernel does.
+  origin); `use_bf16` rounds the unnormalized weights and the shifted
+  centers to bf16 before the products, with f32 sums, as the TPU packed
+  kernel does, each weight against the max the kernel forms it against
+  (`_bf16_weights`).
 
 `gmm_prior_score_reference` is the oracle (`pallas_gmm.py:37`).
+`TILE_COLS` and `column_split` (from `ops/stream_split.py`) are the slice
+and tile sizes that the kernel and the bf16 rule share.
 """
 
 from __future__ import annotations
@@ -28,6 +33,7 @@ from __future__ import annotations
 import torch
 
 from .distance import squared_distance
+from .stream_split import TILE_COLS, column_split
 from .svgd import MAX_D, MAX_PACKED_D, _bf16, _check_blocks
 
 
@@ -50,15 +56,33 @@ def gmm_prior_score_plain(x, centers, bw, use_bf16=False):
     logits = -d2 * inv2
     cc = centers - centers[0]
     if use_bf16:
-        # the kernel rounds each weight against the running max of the
-        # centers walked so far, then rescales the sums to the final max
-        run = torch.cummax(logits, dim=1).values
-        p = _bf16(torch.exp(logits - run)) * torch.exp(run - run[:, -1:])
+        p = _bf16_weights(logits)
         cc = _bf16(cc)
     else:
         p = torch.exp(logits - logits.amax(dim=1, keepdim=True))
     mean_c = (p @ cc) / p.sum(dim=1, keepdim=True)
     return (mean_c - (x - centers[0])) * (2.0 * inv2)
+
+
+def _bf16_weights(logits):
+    """The kernel's bf16 weights [m, k], rescaled to the row's max: the
+    warp that walks center j (`column_split`'s slice of it) rounds
+    exp(logit_j - M) to bf16, M the running max of its slice's logits up to
+    the end of j's tile of TILE_COLS centers (the state is rescaled once per
+    tile, before the tile's weights), and the merges rescale the f32 sums by
+    exp(M - max)."""
+    m, k = logits.shape
+    width = column_split(k)[1]
+    n_tiles = -(-k // TILE_COLS)
+    per_slice = width // TILE_COLS
+    n_slices = -(-n_tiles // per_slice)
+    pad = n_slices * per_slice * TILE_COLS - k
+    tiles = torch.nn.functional.pad(logits, (0, pad), value=-torch.inf)
+    tmax = tiles.view(m, n_slices, per_slice, TILE_COLS).amax(dim=3)
+    run = torch.cummax(tmax, dim=2).values.view(m, -1)
+    run = run.repeat_interleave(TILE_COLS, dim=1)[:, :k]
+    top = logits.amax(dim=1, keepdim=True)
+    return _bf16(torch.exp(logits - run)) * torch.exp(run - top)
 
 
 def _launch(wrapper, x, centers, bw, use_bf16, what, max_d):

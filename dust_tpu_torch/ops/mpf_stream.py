@@ -6,10 +6,12 @@ launch (K13): counterpart of `dust_tpu/ops/pallas_mpf_stream.py`.
 
 * On CUDA tensors `fused_mpf_stream_step` launches the hand-written
   kernel `csrc/mpf_stream.cu` (which replaces the TPU kernel
-  `fused_mpf_stream_step`): each block finishes phi and x_new for its rows,
-  then streams the centers against its own new rows; the TPU kernel's row
-  pipeline (one row block's prior stream during the next block's phi) has
-  no counterpart because no block waits on another.
+  `fused_mpf_stream_step`): a thread-block cluster per row tile, every
+  warp walking its own slice of the particles (`ops/stream_split.py`);
+  the cluster merges phi, so each of its blocks holds the tile's x_new,
+  and the same slices of the centers then give the prior score there.
+  The TPU kernel's row pipeline (one row block's prior stream during the
+  next block's phi) has no counterpart: no cluster waits on another.
 * On CPU tensors it runs `mpf_stream_step_plain`: `svgd_phi_plain`, the
   SGD step, then `gmm_prior_score_plain`.
 """

@@ -98,6 +98,27 @@ def test_fused_mpf_matches_jax_fused_mpf(packed):
     assert np.abs(t[0] - init).max() > 1e-4
 
 
+@pytest.mark.parametrize("m", [64, 333])
+def test_fused_mpf_bf16_matches_jax(m):
+    """use_bf16 on the packed entries: the port's bf16 rule (K12b's weights
+    rounded per warp slice and tile, `gmm._bf16_weights`) against JAX's
+    (per center block), over 4 SVGD steps. The particles are held at the
+    FusedMPF tolerance; the gradients, which carry the prior score, at
+    1.4e-2 times their largest value (JAX's bf16 prior-score error); and
+    the rounding must move the particles by more than f32 noise."""
+    init = _init(m, seed=2)
+    jl, tl = _liks()
+    j = _jax_optimize(JFusedMPF(likelihood=jl, optimizer=optax.sgd(1e-3),
+                                interpret=True, packed=True, use_bf16=True),
+                      init)
+    t = _port_optimize(FusedMPF(tl, lr=1e-3, packed=True, use_bf16=True),
+                       init)
+    f32 = _port_optimize(FusedMPF(tl, lr=1e-3, packed=True), init)
+    np.testing.assert_allclose(t[0], j[0], **MPF_TOL)
+    np.testing.assert_allclose(t[1], j[1], atol=1.4e-2 * np.abs(j[1]).max())
+    assert np.abs(t[0] - f32[0]).max() > 1e-5
+
+
 def test_fuse_streams_matches_jax_and_plain_mpf():
     """fuse_streams (K12b for the first prior score, then one K13 per
     iteration) at m = 200, against JAX's fused path with small blocks (a
@@ -130,6 +151,8 @@ def test_fuse_streams_matches_jax_and_plain_mpf():
     (200, 128, 128),      # ragged padding + 2x2-block grid
     (512, 128, 256),      # multi-j online softmax in the gp stream
     (64, 128, 128),       # single-block degenerate grid
+    (1, 128, 128),        # one particle
+    (33, 128, 128),       # a row count on no tile or slice boundary
 ])
 def test_stream_step_matches_jax_kernel(m, block_i, block_j):
     rng = np.random.default_rng(m)

@@ -21,7 +21,8 @@ from dust_tpu.ops.pallas_gmm import (
     gmm_prior_score_reference,
 )
 from dust_tpu_torch.distributions import GMM
-from dust_tpu_torch.ops import gmm
+from dust_tpu_torch.ops import _build, gmm
+from dust_tpu_torch.ops.gmm import TILE_COLS, column_split
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -112,6 +113,95 @@ def test_streamed_score_packed_bf16():
     np.testing.assert_allclose(kernel, oracle, atol=1.4e-2 * scale)
     f32 = gmm.gmm_prior_score_streamed_packed(_t(x), _t(c), 0.4).numpy()
     assert np.abs(got - f32).max() > 1e-5
+
+
+@pytest.mark.parametrize("m,k,d", [(512, 512, 2), (33, 70, 2),
+                                   (300, 2100, 1), (200, 600, 8)])
+def test_bf16_plain_matches_packed_kernel(m, k, d):
+    """The bf16 plain version (the kernel's rounding rule: per warp slice,
+    per tile of centers) against JAX's packed kernel with bf16 products, at
+    one and at several slices per cluster and several clusters' worth of
+    centers."""
+    x, c = _inputs(m, k, d, seed=m + k, offset=0.8)
+    oracle = np.asarray(gmm_prior_score_reference(jnp.asarray(x),
+                                                  jnp.asarray(c), 0.4))
+    scale = float(np.abs(oracle).max())
+    got = gmm.gmm_prior_score_plain(_t(x), _t(c), 0.4, use_bf16=True)
+    kernel = np.asarray(gmm_prior_score_pallas_packed(
+        x, c, 0.4, block_i=128, block_k=128, use_bf16=True, interpret=True))
+    np.testing.assert_allclose(got.numpy(), kernel, atol=1.4e-2 * scale)
+
+
+def _walk_bf16(logits, cc):
+    """The kernel's walk written out: each warp slice of `column_split`'s
+    width, its centers in tiles of TILE_COLS, one rescale per tile before
+    the tile's bf16 weights, then the slices' states merged in order."""
+    m, k = logits.shape
+    width = column_split(k)[1]
+    out = torch.empty(m, cc.shape[1])
+    for i in range(m):
+        states = []
+        for j0 in range(0, k, width):
+            mx, l, acc = -np.inf, torch.tensor(0.0), torch.zeros(cc.shape[1])
+            for t0 in range(j0, min(k, j0 + width), TILE_COLS):
+                t1 = min(k, j0 + width, t0 + TILE_COLS)
+                new = max(mx, float(logits[i, t0:t1].max()))
+                scale = torch.exp(torch.tensor(mx - new))
+                l, acc, mx = l * scale, acc * scale, new
+                p = gmm._bf16(torch.exp(logits[i, t0:t1] - mx))
+                l, acc = l + p.sum(), acc + p @ cc[t0:t1]
+            states.append((mx, l, acc))
+        top = max(s[0] for s in states)
+        l = sum(s[1] * np.exp(s[0] - top) for s in states)
+        acc = sum(s[2] * np.exp(s[0] - top) for s in states)
+        out[i] = acc / l
+    return out
+
+
+def test_bf16_rule_is_the_kernels_walk():
+    """`gmm_prior_score_plain(use_bf16=True)` against the kernel's walk
+    written out with the wrapper's slice and tile constants (the same ones
+    `ops/_build.py` hands `nvcc`); k spans several slices with a ragged
+    last tile, and the centers' order makes the running max grow from tile
+    to tile, so a rule with other slices or tiles rounds differently."""
+    assert column_split(2048) == (8, 32) and column_split(8192) == (8, 128)
+    assert column_split(32768) == (8, 512) and column_split(200) == (1, 32)
+    assert column_split(1) == (1, TILE_COLS)
+    for k in (1, 33, 200, 2049, 8191, 32768):
+        cluster, width = column_split(k)
+        assert width % TILE_COLS == 0 and cluster * 8 * width >= k
+    assert f"-DDUST_TILE_COLS={TILE_COLS}" in _build.NVCC_FLAGS
+    x, c = _inputs(4, 403, 2, seed=7)
+    c = c[np.argsort(-np.abs(c - x[0]).sum(axis=1))]    # nearest last
+    bw = 0.3
+    xt, ct = _t(x), _t(c)
+    logits = -((xt[:, None, :] - ct[None]) ** 2).sum(-1) * (0.5 / bw ** 2)
+    cc = gmm._bf16(ct - ct[0])
+    want = (_walk_bf16(logits, cc) - (xt - ct[0])) / bw ** 2
+    got = gmm.gmm_prior_score_plain(xt, ct, bw, use_bf16=True)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    # against one running max over all centers (the previous rule) the
+    # rounding differs
+    run = torch.cummax(logits, dim=1).values
+    p = gmm._bf16(torch.exp(logits - run)) * torch.exp(run - run[:, -1:])
+    other = ((p @ cc) / p.sum(1, keepdim=True) - (xt - ct[0])) / bw ** 2
+    assert (got - other).abs().max() > 1e-5
+
+
+@pytest.mark.parametrize("m,k", [(1, 5), (33, 27), (1, 1), (130, 1371)])
+def test_ragged_counts(m, k):
+    """Both wrappers at m and k on no tile, slice or cluster boundary, and
+    k != m, against the oracle and JAX's kernels."""
+    x, c = _inputs(m, k, 2, seed=11 * m + k, offset=0.5)
+    oracle = np.asarray(gmm_prior_score_reference(jnp.asarray(x),
+                                                  jnp.asarray(c), 0.4))
+    for got in (gmm.gmm_prior_score_streamed(_t(x), _t(c), 0.4),
+                gmm.gmm_prior_score_streamed_packed(_t(x), _t(c), 0.4)):
+        assert got.shape == (m, 2)
+        np.testing.assert_allclose(got.numpy(), oracle, **TOL)
+    kernel = np.asarray(gmm_prior_score_pallas_packed(
+        x, c, 0.4, block_i=128, block_k=128, interpret=True))
+    np.testing.assert_allclose(kernel, oracle, **TOL)
 
 
 def test_general_d_and_guards():

@@ -47,7 +47,8 @@ def test_package_imports_without_jax_or_dust_tpu():
                  "models.obstacle_map", "models.particle",
                  "ops.particle_rollout", "ops.particle_mpf",
                  "ops.particle_episode", "ops.particle_sweep_episode",
-                 "ops.svgd", "ops.gmm", "ops.mpf_stream"):
+                 "ops.svgd", "ops.gmm", "ops.mpf_stream",
+                 "ops.stream_split"):
         assert f"dust_tpu_torch.{name}" in _modules()
 
 
