@@ -79,7 +79,11 @@ Phases (any failure raises and exits non-zero):
  22. path 7: one 200-step K9 episode (`megakernel_particle_episode_fn`,
      device RNG): ms per episode, the outcome, the same seed gives the
      same bits, another seed other results;
- 23. K6-K9 times beside their bounds, as phases 6 and 14.
+ 23. K6-K9 times beside their bounds, as phases 6 and 14; then one more
+     K9 episode under the kernel's clocked build: the mean time per step
+     of each phase of the step (noise, Silverman, mass draws, rollouts,
+     DISCO weights, DISCO delta, Stein step, commits and simulator, MPF
+     bandwidth, MPF loop, cost and log);
  24. K10 (the particle scenario sweep) against independent K9 launches,
      8 scenarios x 4 chains, bit for bit (host noise: every episode;
      device RNG: scenario 0 of each chain); a NaN true mass or MPF
@@ -97,9 +101,11 @@ Phases (any failure raises and exits non-zero):
      the same generator seed;
  27. K11a-c (streamed SVGD direction), K12a-b (streamed GMM prior score)
      and K13 (the fused SVGD step) against their plain versions at m =
-     2048 and 8192, the JAX tests' odd shapes, far from the origin, bf16,
-     m = 1, 33, 2049 and 8191 at d = 1, 2, 3 and 8 (K12 with k != m; two
-     calls bit-equal), and m = 32768 in four 1024-row chunks;
+     2048 and 8192, the JAX tests' odd shapes (K11 and K12 at d = 60 on
+     their general paths, K12 with m = k = 300 and m = 300, k = 130), far
+     from the origin, bf16, m = 1, 33, 2049 and 8191 at d = 1, 2, 3 and 8
+     (K12 with k != m; two calls bit-equal), and m = 32768 in four
+     1024-row chunks;
  28. path 10: bench_all.py's particle_large stack (16 x 512 x 8 rollouts,
      2048 MPF particles) with FusedMPF (K11a + K12a, 20 launches each per
      step), 50 steps of run_particle_episode; the generic MPF on the same
@@ -107,9 +113,10 @@ Phases (any failure raises and exits non-zero):
  29. path 11: FusedMPF.optimize in bench_mpf_large's form at m = 2048,
      8192, 32768 and with fuse_streams at 8192 and 32768: conditioned
      updates per second and the launches of each layout;
- 30. K10-K13 times beside their bounds, as phases 6 and 14; K12b and K13
-     also at m = 32768; K12's yardstick, one scaled_dot_product_attention
-     call (held once against the plain version), as its library time.
+ 30. K10-K13 times beside their bounds, as phases 6 and 14, and K10's
+     per-phase clock as phase 23 takes K9's; K12b and K13 also at
+     m = 32768; K12's yardstick, one scaled_dot_product_attention call
+     (held once against the plain version), as its library time.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. The line before the last is the kernels' JSON summary;
@@ -2015,6 +2022,38 @@ def phase_particle_episode_path(dev):
     return result
 
 
+def _phase_clock(label, fn, steps=MAIN_STEPS):
+    """One more call of fn (a K9 or K10 launch) under the episode kernel's
+    clocked build (`ops/particle_episode.py:phase_clock`): thread 0 of
+    every block stamps clock64 at the block barriers that close the phases
+    of a step. Prints, on one line, each phase's mean time per step over
+    the blocks (cycles at the block's own cycles-to-%globaltimer rate) and
+    its share of the step loop; returns them."""
+    import torch
+
+    from dust_tpu_torch.ops import particle_episode as pe
+
+    with pe.phase_clock() as rows:
+        fn()
+    torch.cuda.synchronize()
+    clk = torch.cat(rows).double().cpu()        # [B, phases + 2]
+    n = len(pe.CLOCK_PHASES)
+    ns_per_cycle = clk[:, n + 1] / clk[:, n]    # per block
+    us = (clk[:, :n] * ns_per_cycle[:, None]).mean(0) / (1e3 * steps)
+    loop_us = float(clk[:, n + 1].mean()) / (1e3 * steps)
+    phases = {k: {"us_per_step": float(v),
+                  "share": float(clk[:, i].sum() / clk[:, :n].sum())}
+              for i, (k, v) in enumerate(zip(pe.CLOCK_PHASES, us))}
+    print(f"{label} per-phase clock, us per step (mean of {clk.shape[0]} "
+          f"blocks; share): " + ", ".join(
+              f"{k} {v['us_per_step']:.2f} ({100 * v['share']:.1f}%)"
+              for k, v in phases.items())
+          + f"; the loop {loop_us:.2f} us per step, "
+          f"{float(ns_per_cycle.mean()):.4f} ns per cycle")
+    return {"blocks": int(clk.shape[0]), "loop_us_per_step": loop_us,
+            "ns_per_cycle": float(ns_per_cycle.mean()), "phases": phases}
+
+
 def phase_timing_slice3(dev, path7):
     """K6, K7 and K8 as phase 6 times K1/K2 (device time per call, 20
     calls in one CUDA graph; plain, kernel, kernel, plain); K9 one 200-step
@@ -2083,7 +2122,8 @@ def phase_timing_slice3(dev, path7):
         "ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
         "runs": runs, "bound_ms": bound[0], "bound_by": bound[1],
         "bound_bytes": bound[2], "bound_ops": bound[3],
-        "timed_as": "one call between CUDA events"}
+        "timed_as": "one call between CUDA events",
+        "phase_clock": _phase_clock("K9 (path 7)", ep_kern)}
     for name, t in out.items():
         print(f"time {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms ({t['timed_as']}); bound "
@@ -2695,12 +2735,17 @@ def phase_stream_kernels(dev):
         torch.cuda.synchronize()
         chk(name, f"m={m} d={d}", got, gmm.gmm_prior_score_plain(x, c, pbw),
             K12_TOL)
-    # tests/test_pallas_gmm.py's shapes and inputs
+    # tests/test_pallas_gmm.py's shapes and inputs; d = 60 takes the
+    # general path (stream_tiles.cuh:gmm_sums), two calls bit-equal
     for name, m, k, d in (("gmm_prior_score", 200, 130, 3),
                           ("gmm_prior_score", 300, 300, 5),
-                          ("gmm_prior_score_packed", 300, 300, 1)):
+                          ("gmm_prior_score_packed", 300, 300, 1),
+                          ("gmm_prior_score", 300, 300, 60),
+                          ("gmm_prior_score", 300, 130, 60)):
         x, c = normal(m, d, offset=0.8), normal(k, d)
-        chk(name, f"m={m} k={k} d={d}", gfns[name](x, c, dt(0.4)),
+        label = f"m={m} k={k} d={d}"
+        chk(name, label, same_bits(name, label,
+                                   lambda: gfns[name](x, c, dt(0.4))),
             gmm.gmm_prior_score_plain(x, c, dt(0.4)), K12_TOL)
     x, c = normal(192, 2, 0.3), normal(192, 2, 0.3)
     near = gmm.gmm_prior_score_streamed(x, c, dt(0.4))
@@ -2732,6 +2777,11 @@ def phase_stream_kernels(dev):
             x, s, c = _stream_inputs(m, d, gen, dev)
             ck = _stream_inputs(_ragged_k(m), d, gen, dev)[2]
             label = f"m={m} k={ck.shape[0]} d={d}"
+            want = svgd.svgd_phi_plain(x, s, bw)
+            for name in ("svgd_phi", "svgd_phi_packed", "svgd_phi_symm"):
+                chk(name, f"m={m} d={d}", same_bits(
+                    name, f"m={m} d={d}", lambda: fns[name](x, s, bw)),
+                    want, K11_TOL)
             for name in ("gmm_prior_score", "gmm_prior_score_packed"):
                 chk(name, label, same_bits(name, label,
                                            lambda: gfns[name](x, ck, pbw)),
@@ -2742,8 +2792,8 @@ def phase_stream_kernels(dev):
             wx, wg = mpf_stream.mpf_stream_step_plain(x, s, c, bw, pbw, lr)
             chk("mpf_stream_step", f"x_new m={m} d={d}", gx, wx, K13_X_TOL)
             chk("mpf_stream_step", f"gp_new m={m} d={d}", gg, wg, K12_TOL)
-    print(f"K12a, K12b and K13 at m = {STREAM_RAGGED_M}, d = 1, 2, 3, 8: "
-          f"two calls bit-equal")
+    print(f"K11a-c, K12a, K12b and K13 at m = {STREAM_RAGGED_M}, d = 1, 2, "
+          f"3, 8: two calls bit-equal")
 
     # m = 32768: the plain [m, m] matrices would take 4 GB each
     m = STREAM_LARGE_M
@@ -2923,10 +2973,10 @@ def phase_fused_mpf_path(dev):
 
 
 def _k11_bound(m, d):
-    """Per particle pair 7d + 3 float32 operations (the distance 3d, the
-    scale, exp, the row sum, two multiply-adds per dimension); x and
+    """Per particle pair 7d + 2 float32 operations of the float32 form (the
+    distance 3d, the scale, exp, two multiply-adds per dimension); x and
     score read once, phi written once."""
-    return _bound(4 * (3 * m * d + 1), m * m * (7 * d + 3))
+    return _bound(4 * (3 * m * d + 1), m * m * (7 * d + 2))
 
 
 def _k12_ops(m, k, d):
@@ -3006,7 +3056,9 @@ def phase_timing_slice4(dev, path8):
             lambda: groups.run(seeds(1), masses), 3)),
         "plain_ms": path8["plain_ms"], "bound_ms": bound[0],
         "bound_by": bound[1], "bound_bytes": bound[2], "bound_ops": bound[3],
-        "timed_as": "one call between CUDA events"}
+        "timed_as": "one call between CUDA events",
+        "phase_clock": _phase_clock("K10 (path 8)",
+                                    lambda: groups.run(seeds(1), masses))}
     gen = torch.Generator(device=dev).manual_seed(SEED + 80)
     dt = lambda v: torch.tensor(v, device=dev)
     bw, pbw, lr = dt(0.3), dt(0.2), dt(1e-3)

@@ -122,12 +122,12 @@ __global__ void __launch_bounds__(dust_stream::kRowsWide)
                     int m, int kc, int d) {
   using namespace dust_stream;
   extern __shared__ float sh[];
-  const Tiles t = carve<0>(sh, d);
-  RowVecs<0> v = begin_rows<0>(x, m, d, t, nullptr, centers);
+  const Tiles t = carve(sh, d);
+  RowVecs v = begin_rows(x, m, d, t, nullptr, centers);
   const float b = bw[0];
   const float inv2 = 0.5f / (b * b);
   float mx = -INFINITY, l = 0.0f;
-  gmm_sums<0>(centers, kc, d, inv2, false, t, v, mx, l);
+  gmm_sums(centers, kc, d, inv2, t, v, mx, l);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= m) return;
   for (int dd = 0; dd < d; ++dd) {
@@ -141,8 +141,8 @@ int launch_wide(const float* x, const float* centers, const float* bw,
                 float* out, int m, int kc, int d, cudaStream_t stream) {
   dim3 grid, block;
   size_t bytes;
-  const int rc = dust_stream::configure<0>(gmm_wide_kernel, m, d, &grid,
-                                           &block, &bytes);
+  const int rc = dust_stream::configure(gmm_wide_kernel, m, d, &grid,
+                                        &block, &bytes);
   if (rc != 0) return rc;
   gmm_wide_kernel<<<grid, block, bytes, stream>>>(x, centers, bw, out, m,
                                                   kc, d);

@@ -17,8 +17,9 @@
 //
 // Design (stream_split.cuh): a cluster of up to 8 blocks of 8 warps owns a
 // tile of 32 or 64 rows, and every warp walks its own slice of the
-// particles for phi, then the same slice of the centers for the prior
-// score, each staged once with cp.async. phi_i = (sum_j K_ij score_j +
+// particles for phi (phi_sums, the walk K11 runs too), then the same slice
+// of the centers for the prior score, each staged once with cp.async.
+// phi_i = (sum_j K_ij score_j +
 // sum_j K_ij (x_i - x_j) / bw^2) / m takes the differences it already
 // forms for the distance, so no shift is needed and no row sum; K_ij is
 // one ex2 (log2 e folded into the scale), the sums explicit fmas. The
@@ -71,79 +72,15 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float pinv2 = 0.5f / (pbw * pbw);
   const float ps2 = pinv2 * kLog2e;
 
-  // ---- phi: this warp's slice of the particles ----
-  float xr[RPT][D], ss[RPT][D], sx[RPT][D];
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    const int i = pl.row0 + q * 32 + pl.lane;
-#pragma unroll
-    for (int dd = 0; dd < D; ++dd) {
-      xr[q][dd] = i < m ? x[static_cast<size_t>(i) * D + dd] : 0.0f;
-      ss[q][dd] = 0.0f;
-      sx[q][dd] = 0.0f;
-    }
-  }
-  const float* src_phi[2] = {x, score};
-  walk_slice<D, 2>(
-      src_phi, pl.j0, pl.j1, stage, 2, qe, pl.lane, [](float*, int) {},
-      [&](const float* buf, int n) {
-        const float* sc = buf + qe * D;
-#pragma unroll 4
-        for (int j = 0; j < n; ++j) {
-#pragma unroll
-          for (int q = 0; q < RPT; ++q) {
-            float df[D];
-            float d2 = 0.0f;
-#pragma unroll
-            for (int dd = 0; dd < D; ++dd) {
-              df[dd] = xr[q][dd] - buf[j * D + dd];
-              d2 = __fmaf_rn(df[dd], df[dd], d2);
-            }
-            const float k = ex2(d2 * -s2);
-#pragma unroll
-            for (int dd = 0; dd < D; ++dd) {
-              ss[q][dd] = __fmaf_rn(k, sc[j * D + dd], ss[q][dd]);
-              sx[q][dd] = __fmaf_rn(k, df[dd], sx[q][dd]);
-            }
-          }
-        }
-      });
-#pragma unroll
-  for (int q = 0; q < RPT; ++q) {
-    float* p = part + (pl.warp * R + q * 32 + pl.lane) * F;
-#pragma unroll
-    for (int dd = 0; dd < D; ++dd) {
-      p[dd] = ss[q][dd];
-      p[D + dd] = sx[q][dd];
-    }
-  }
-  __syncthreads();
-  if (threadIdx.x < R) {
-    float acc[2 * D];
-#pragma unroll
-    for (int e = 0; e < 2 * D; ++e) acc[e] = 0.0f;
-    for (int w = 0; w < kWarps; ++w) {
-      const float* p = part + (w * R + threadIdx.x) * F;
-#pragma unroll
-      for (int e = 0; e < 2 * D; ++e) acc[e] = acc[e] + p[e];
-    }
-#pragma unroll
-    for (int e = 0; e < 2 * D; ++e) blk_phi[threadIdx.x * 2 * D + e] = acc[e];
-  }
-  cluster.sync();
+  // ---- phi: this warp's slice of the particles, merged over the cluster
+  float acc[2 * D];
+  phi_sums<D, RPT, false>(cluster, pl, x, score, m, s2, stage, qe, part, F,
+                          blk_phi, acc);
 
   // ---- x_new of the whole tile in every block, its share written once ----
   const float inv_m = 1.0f / static_cast<float>(m);
   if (threadIdx.x < R) {
     const int r = threadIdx.x;
-    float acc[2 * D];
-#pragma unroll
-    for (int e = 0; e < 2 * D; ++e) acc[e] = 0.0f;
-    for (int b = 0; b < pl.cluster; ++b) {
-      const float* p = cluster.map_shared_rank(blk_phi, b) + r * 2 * D;
-#pragma unroll
-      for (int e = 0; e < 2 * D; ++e) acc[e] = acc[e] + p[e];
-    }
     const int i = pl.row0 + r;
     const int per = R / pl.cluster;
 #pragma unroll
@@ -161,6 +98,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   float c0[D];
 #pragma unroll
   for (int dd = 0; dd < D; ++dd) c0[dd] = centers[dd];
+  float xr[RPT][D];
   Soft<D> st[RPT];
 #pragma unroll
   for (int q = 0; q < RPT; ++q) {

@@ -16,10 +16,10 @@
 // (chip_smoke.py:_k7_bound), far below a microsecond of either; it is
 // bound by the latency of its 20 dependent iterations, each a pass over m
 // centers and m particles plus three block barriers.
-// Design: K2's (pendulum_mpf.cu) in one dimension: one block of
-// ceil(m/32)*32 threads (m <= 1024), one thread per particle; particles,
-// centers and drive terms live in shared memory for the whole loop; the
-// rows past m enter no reduction.
+// Design: one block of up to 1024 threads, a quad of lanes per particle
+// row (particle_mpf.cuh), so each lane walks a quarter of the centers and
+// particles and the quad meets in two shuffles; particles, centers, drive
+// terms and the new particles live in shared memory for the whole loop.
 
 #include <cuda_runtime.h>
 
@@ -37,8 +37,8 @@ __global__ void particle_mpf_kernel(const float* __restrict__ x_in,
   float* sx = sh;          // particles
   float* sc = sh + m;      // prior centers
   float* st = sh + 2 * m;  // drive terms s_j - x_j / bw^2
-  const int i = threadIdx.x;
-  if (i < m) {
+  float* sn = sh + 3 * m;  // the new particles
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
     sx[i] = x_in[i];
     sc[i] = centers[i];
   }
@@ -46,9 +46,9 @@ __global__ void particle_mpf_kernel(const float* __restrict__ x_in,
   const dust_particle::MassMpf k{scal[0], scal[1], scal[2], scal[3],
                                  scal[4], scal[5], scal[6], scal[7],
                                  scal[8], scal[9], scal[10]};
-  dust_particle::mass_stein_loop(sx, sc, st, m, n_steps, k, max_acc,
+  dust_particle::mass_stein_loop(sx, sc, st, sn, m, n_steps, k, max_acc,
                                  max_speed, log_space);
-  if (i < m) x_out[i] = sx[i];
+  for (int i = threadIdx.x; i < m; i += blockDim.x) x_out[i] = sx[i];
 }
 
 }  // namespace
@@ -61,8 +61,10 @@ extern "C" int dust_particle_mpf_optimize(const float* x,
                                           int m, int n_steps, float max_acc,
                                           float max_speed, int log_space,
                                           void* stream) {
-  const int threads = ((m + 31) / 32) * 32;
-  const size_t shmem = 3 * static_cast<size_t>(m) * sizeof(float);
+  // a quad of lanes per particle row, up to 1024 threads
+  const int threads =
+      min(1024, ((dust_particle::kRowLanes * m + 31) / 32) * 32);
+  const size_t shmem = 4 * static_cast<size_t>(m) * sizeof(float);
   particle_mpf_kernel<<<1, threads, shmem,
                         static_cast<cudaStream_t>(stream)>>>(
       x, centers, scal, x_out, m, n_steps, max_acc, max_speed, log_space);

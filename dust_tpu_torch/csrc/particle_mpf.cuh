@@ -3,9 +3,9 @@
 // particle_mpf.cu) and the whole-episode kernel (K9, particle_episode.cu).
 // K2's loop (pendulum_mpf.cuh) reduced to one dimension.
 //
-// n_steps SVGD iterations on m particles held in shared memory, one
-// thread per particle row (threadIdx.x < m; the block may be wider, and
-// its other threads enter no sum). Each iteration, for every row i:
+// n_steps SVGD iterations on m particles held in shared memory, a quad of
+// lanes per particle row (kRowLanes; the block's quads take the rows in
+// turn). Each iteration, for every row i:
 //   * the gradient of the Gaussian observation likelihood through one
 //     acceleration-control Particle.step: the mass enters only the
 //     velocity prediction v = clip(v0 + clip(a / mass, +-max_acc) *
@@ -17,7 +17,10 @@
 //     phi_i = (sum_j k_ij (s_j - x_j/bw^2) + (sum_j k_ij) x_i/bw^2) / m;
 //   * SGD: x_i += lr * phi_i.
 // The arithmetic follows ops/particle_mpf.py:particle_mpf_optimize_plain
-// operation by operation; only the order of the sums over j differs.
+// operation by operation, the order of the sums over j too (the quad's
+// lanes' partial sums, then the butterfly), except the pairs' exps: one
+// ex2.approx each with log2 e folded into the scale, which agree with the
+// plain version's exp to ~1e-6 relative.
 // Every thread of the block must call it (it synchronises the block).
 
 #pragma once
@@ -50,22 +53,43 @@ __device__ __forceinline__ float vel_grad_term(float a, float v0, float loc,
   return -(pred - loc) * inv_s2 * dpred;
 }
 
+// Lanes per particle row: a quad of neighbouring lanes shares a row, lane
+// l of the quad walks the columns j = l, l + 4, ... in order, and the
+// quad's partial sums meet in a fixed butterfly, (p0 + p1) + (p2 + p3)
+// (ops/particle_mpf.py:ROW_LANES, lane_sum).
+constexpr int kRowLanes = 4;
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
 // sx: particles (updated in place); sc: prior centers; st: scratch for
-// the drive terms; all shared, m floats each.
+// the drive terms; sn: scratch for the new particles; all shared, m floats
+// each. Rows i = g, g + G, ... belong to quad g of the block's G =
+// blockDim.x / 4 quads (blockDim.x a multiple of 32).
 __device__ inline void mass_stein_loop(float* sx, const float* sc, float* st,
-                                       int m, int n_steps, const MassMpf& k,
-                                       float ma, float ms, int log_space) {
-  const int i = threadIdx.x;
-  const bool row = i < m;
+                                       float* sn, int m, int n_steps,
+                                       const MassMpf& k, float ma, float ms,
+                                       int log_space) {
+  const int g = threadIdx.x / kRowLanes;
+  const int l = threadIdx.x % kRowLanes;
+  const int groups = blockDim.x / kRowLanes;
+  const unsigned mask = dust_solve::lane_group_mask(kRowLanes);
   const float inv_pbw2 = 1.0f / (k.pbw * k.pbw);
   const float inv_bw2 = 1.0f / (k.bw * k.bw);
   const float inv_s2 = 1.0f / (k.sigma * k.sigma);
   const float fm = static_cast<float>(m);
+  // the exponents in base 2, log2 e folded in: p_j = 2^(d_j^2 cp - max),
+  // k_j = 2^(d_j^2 ck), each one ex2.approx
+  const float cp = -0.5f * inv_pbw2 * kLog2e;
+  const float ck = -0.5f * inv_bw2 * kLog2e;
 
   for (int it = 0; it < n_steps; ++it) {
-    float x0 = 0.0f;
-    if (row) {
-      x0 = sx[i];
+    for (int i = g; i < m; i += groups) {
+      const float x0 = sx[i];
       const float mass = log_space ? expf(x0) : x0;
       const float invm = 1.0f / mass;
       // ---- likelihood gradient (hand-derived particle physics) ----
@@ -76,37 +100,45 @@ __device__ inline void mass_stein_loop(float* sx, const float* sc, float* st,
       if (log_space) gl = gl * mass;
       // ---- GMM prior score over the fixed centers ----
       float mx = -INFINITY;
-      for (int j = 0; j < m; ++j) {
+#pragma unroll 4
+      for (int j = l; j < m; j += kRowLanes) {
         const float d = x0 - sc[j];
-        mx = dust_solve::maxp(mx, -0.5f * (d * d) * inv_pbw2);
+        mx = dust_solve::maxp(mx, (d * d) * cp);
       }
+      mx = dust_solve::lane_group_max<kRowLanes>(mx, mask);
       float psum = 0.0f, pc = 0.0f;
-      for (int j = 0; j < m; ++j) {
+#pragma unroll 4
+      for (int j = l; j < m; j += kRowLanes) {
         const float d = x0 - sc[j];
-        const float p = expf(-0.5f * (d * d) * inv_pbw2 - mx);
+        const float p = ex2((d * d) * cp - mx);
         psum = psum + p;
         pc = pc + p * sc[j];
       }
+      psum = dust_solve::lane_group_sum<kRowLanes>(psum, mask);
+      pc = dust_solve::lane_group_sum<kRowLanes>(pc, mask);
       const float gp = (pc / psum - x0) * inv_pbw2;
-      st[i] = (gl + gp) - x0 * inv_bw2;
+      if (l == 0) st[i] = (gl + gp) - x0 * inv_bw2;
     }
     __syncthreads();
 
-    float nx = 0.0f;
-    if (row) {
+    for (int i = g; i < m; i += groups) {
       // ---- RBF Stein direction, repulsion folded into the drive ----
+      const float x0 = sx[i];
       float rows = 0.0f, drive = 0.0f;
-      for (int j = 0; j < m; ++j) {
+#pragma unroll 4
+      for (int j = l; j < m; j += kRowLanes) {
         const float d = x0 - sx[j];
-        const float kk = expf(-0.5f * (d * d) * inv_bw2);
+        const float kk = ex2((d * d) * ck);
         rows = rows + kk;
         drive = drive + kk * st[j];
       }
+      rows = dust_solve::lane_group_sum<kRowLanes>(rows, mask);
+      drive = dust_solve::lane_group_sum<kRowLanes>(drive, mask);
       const float phi = (drive + rows * x0 * inv_bw2) / fm;
-      nx = x0 + k.lr * phi;
+      if (l == 0) sn[i] = x0 + k.lr * phi;
     }
     __syncthreads();  // every row has read sx before any row writes it
-    if (row) sx[i] = nx;
+    for (int i = threadIdx.x; i < m; i += blockDim.x) sx[i] = sn[i];
     __syncthreads();
   }
 }

@@ -50,6 +50,31 @@ __device__ __forceinline__ float warp_min(float v) {
   return v;
 }
 
+// The mask of the aligned group of `lanes` lanes (a power of two <= 32) of
+// this thread's warp.
+__device__ __forceinline__ unsigned lane_group_mask(int lanes) {
+  const unsigned ones = lanes == 32 ? 0xffffffffu : (1u << lanes) - 1u;
+  return ones << ((threadIdx.x & 31) & ~(lanes - 1));
+}
+
+// The sum and max of v over an aligned group of L lanes, as a xor
+// butterfly from the nearest lane out: every lane ends with the same bits,
+// for L = 4 (p0 + p1) + (p2 + p3) (ops/particle_mpf.py:lane_sum repeats
+// the order).
+template <int L>
+__device__ __forceinline__ float lane_group_sum(float v, unsigned mask) {
+#pragma unroll
+  for (int o = 1; o < L; o <<= 1) v = v + __shfl_xor_sync(mask, v, o);
+  return v;
+}
+template <int L>
+__device__ __forceinline__ float lane_group_max(float v, unsigned mask) {
+#pragma unroll
+  for (int o = 1; o < L; o <<= 1)
+    v = maxp(v, __shfl_xor_sync(mask, v, o));
+  return v;
+}
+
 // Block min of v[0..n) into *out (exact; order-free). red: >= kWarps.
 __device__ inline void block_min(const float* v, int n, float* red,
                                  float* out) {
@@ -243,21 +268,40 @@ __device__ inline void stein_forward(const float* theta, const float* locs,
   __syncthreads();
 }
 
-// KDEpy-convention Silverman bandwidth of v[0..n) from exact order
-// statistics (ops/episode.py:silverman_rows): a rank count gives each
-// value its sorted positions (#smaller + 1 .. #smaller-or-equal), exact
-// under duplicates. red: >= 2 * kWarps + 4 scratch. Returns the bandwidth
-// to every thread.
-__device__ inline float silverman(const float* v, int n, float* red) {
-  float* os = red + 2 * kWarps;  // the 4 order statistics
+// The constants of a Silverman bandwidth over n values
+// (ops/episode.py:silverman_rows): the 1-based ranks of the four order
+// statistics, the quartiles' interpolation weights and the scale
+// (3n/4)^(-1/5), folded in double precision and rounded to float.
+struct SilvermanN {
+  int n, ks[4];
+  float w25, f25, w75, f75, scale;
+};
+
+__device__ inline SilvermanN silverman_n(int n) {
   const double pos25 = 25.0 / 100.0 * (n - 1);
   const double pos75 = 75.0 / 100.0 * (n - 1);
   const int lo25 = static_cast<int>(floor(pos25));
   const int lo75 = static_cast<int>(floor(pos75));
   const double f25 = pos25 - lo25;
   const double f75 = pos75 - lo75;
-  const int ks[4] = {lo25 + 1, min(lo25 + 2, n), lo75 + 1, min(lo75 + 2, n)};
-  if (threadIdx.x < 4) os[threadIdx.x] = NAN;
+  SilvermanN c;
+  c.n = n;
+  c.ks[0] = lo25 + 1;
+  c.ks[1] = min(lo25 + 2, n);
+  c.ks[2] = lo75 + 1;
+  c.ks[3] = min(lo75 + 2, n);
+  c.w25 = static_cast<float>(1.0 - f25);
+  c.f25 = static_cast<float>(f25);
+  c.w75 = static_cast<float>(1.0 - f75);
+  c.f75 = static_cast<float>(f75);
+  c.scale = static_cast<float>(pow(n * 3.0 / 4.0, -0.2));
+  return c;
+}
+
+// The warps' partial sums of v and v^2 into red[0..kWarps) and
+// red[kWarps..2 kWarps) (read after the caller's next barrier).
+__device__ __forceinline__ void silverman_sums(const float* v, int n,
+                                               float* red) {
   float a = 0.0f, b = 0.0f;
   for (int e = threadIdx.x; e < n; e += blockDim.x) {
     a = a + v[e];
@@ -269,17 +313,69 @@ __device__ inline float silverman(const float* v, int n, float* red) {
     red[threadIdx.x >> 5] = a;
     red[kWarps + (threadIdx.x >> 5)] = b;
   }
+}
+
+// Thread 0's end of the bandwidth, from the sums in red and the order
+// statistics os[0..4): the std, the IQR, sigma, the scaled bandwidth.
+__device__ __forceinline__ float silverman_bw(const float* red,
+                                              const float* os,
+                                              const SilvermanN& c) {
+  float s1 = red[0], s2 = red[kWarps];
+  for (int w = 1; w < kWarps; ++w) {
+    s1 = s1 + red[w];
+    s2 = s2 + red[kWarps + w];
+  }
+  const float fn = static_cast<float>(c.n);
+  const float mean = s1 / fn;
+  const float var = (s2 - fn * mean * mean) / static_cast<float>(c.n - 1);
+  const float std = sqrtf(maxp(var, 0.0f));
+  const float q25 = os[0] * c.w25 + os[1] * c.f25;
+  const float q75 = os[2] * c.w75 + os[3] * c.f75;
+  const float iqr =
+      (q75 - q25) * static_cast<float>(1.0 / 1.3489795003921634);
+  const float sigma = iqr > 0.0f ? minp(std, iqr) : std;
+  return maxp(sigma * c.scale, 1e-6f);
+}
+
+// KDEpy-convention Silverman bandwidth of v[0..n) from exact order
+// statistics (ops/episode.py:silverman_rows): a rank count gives each
+// value its sorted positions (#smaller + 1 .. #smaller-or-equal), exact
+// under duplicates. red: >= 2 * kWarps + 5 scratch. Returns the bandwidth
+// to every thread. (It keeps its own copy of silverman_n and silverman_bw:
+// built from them, the pendulum episode kernel spilled and ran slower.)
+__device__ inline float silverman(const float* v, int n, float* red) {
+  float* os = red + 2 * kWarps;  // the 4 order statistics
+  const double pos25 = 25.0 / 100.0 * (n - 1);
+  const double pos75 = 75.0 / 100.0 * (n - 1);
+  const int lo25 = static_cast<int>(floor(pos25));
+  const int lo75 = static_cast<int>(floor(pos75));
+  const double f25 = pos25 - lo25;
+  const double f75 = pos75 - lo75;
+  const int ks[4] = {lo25 + 1, min(lo25 + 2, n), lo75 + 1, min(lo75 + 2, n)};
+  if (threadIdx.x < 4) os[threadIdx.x] = NAN;
+  silverman_sums(v, n, red);
   __syncthreads();
-  for (int e = threadIdx.x; e < n; e += blockDim.x) {
-    const float ve = v[e];
-    int lt = 0, le = 0;
+  // the rank count: each thread counts for two values, e and e +
+  // blockDim.x, in one pass over v (independent counters, unrolled, so the
+  // shared-memory reads pipeline)
+  for (int e = threadIdx.x; e < n; e += 2 * blockDim.x) {
+    const int e2 = e + blockDim.x;
+    const float v1 = v[e];
+    const float v2 = e2 < n ? v[e2] : 0.0f;
+    int lt1 = 0, le1 = 0, lt2 = 0, le2 = 0;
+#pragma unroll 8
     for (int j = 0; j < n; ++j) {
-      lt += v[j] < ve;
-      le += v[j] <= ve;
+      const float vj = v[j];
+      lt1 += vj < v1;
+      le1 += vj <= v1;
+      lt2 += vj < v2;
+      le2 += vj <= v2;
     }
 #pragma unroll
-    for (int k = 0; k < 4; ++k)
-      if (lt < ks[k] && ks[k] <= le) os[k] = ve;
+    for (int k = 0; k < 4; ++k) {
+      if (lt1 < ks[k] && ks[k] <= le1) os[k] = v1;
+      if (e2 < n && lt2 < ks[k] && ks[k] <= le2) os[k] = v2;
+    }
   }
   __syncthreads();
   float bw = 0.0f;
@@ -305,6 +401,45 @@ __device__ inline float silverman(const float* v, int n, float* red) {
   }
   __syncthreads();
   bw = red[2 * kWarps + 4];
+  __syncthreads();
+  return bw;
+}
+
+// silverman() with the order statistics read from a sort: v[0..n) is
+// copied into srt[0..N) (N a power of two >= n, padded with +inf) and
+// bitonic-sorted by the block, log2(N) (log2(N) + 1) / 2 short stages in
+// place of the O(n^2) rank count; c = silverman_n(n), made once per
+// kernel. The same bandwidth as silverman() wherever v holds no NaN; with
+// a NaN both return NaN (through the std).
+__device__ inline float silverman_sorted(const float* v, const SilvermanN& c,
+                                         int N, float* srt, float* red) {
+  silverman_sums(v, c.n, red);
+  for (int e = threadIdx.x; e < N; e += blockDim.x)
+    srt[e] = e < c.n ? v[e] : INFINITY;
+  __syncthreads();
+  for (int k = 2; k <= N; k <<= 1) {
+    for (int j = k >> 1; j > 0; j >>= 1) {
+      for (int i = threadIdx.x; i < N; i += blockDim.x) {
+        const int l = i ^ j;
+        if (l > i) {
+          const float x = srt[i], y = srt[l];
+          if ((i & k) == 0 ? x > y : x < y) {
+            srt[i] = y;
+            srt[l] = x;
+          }
+        }
+      }
+      __syncthreads();
+    }
+  }
+  if (threadIdx.x == 0) {
+    float* os = red + 2 * kWarps;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) os[k] = srt[c.ks[k] - 1];
+    red[2 * kWarps + 4] = silverman_bw(red, os, c);
+  }
+  __syncthreads();
+  const float bw = red[2 * kWarps + 4];
   __syncthreads();
   return bw;
 }

@@ -1,6 +1,7 @@
-// Device code shared by the streamed GMM prior score (K12, gmm_score.cu,
-// d <= 8) and the fused SVGD step (K13, mpf_stream.cu): a column walk
-// split across warps and across a thread-block cluster.
+// Device code shared by the streamed SVGD direction (K11, svgd_phi.cu,
+// d <= 8), the streamed GMM prior score (K12, gmm_score.cu, d <= 8) and the
+// fused SVGD step (K13, mpf_stream.cu): a column walk split across warps
+// and across a thread-block cluster.
 //
 // A row tile of 32 * RPT rows (RPT rows per lane, lane l owning rows
 // l, l + 32, ...) is owned by a cluster of C blocks of kWarps warps. Every
@@ -315,6 +316,146 @@ __device__ __forceinline__ void soft_walk(const float* cc, const float* pc,
         for (int dd = 0; dd < D; ++dd)
           st[q].acc[dd] = __fmaf_rn(p, c[dd], st[q].acc[dd]);
       }
+    }
+  }
+}
+
+// The sums of the SVGD direction (K11, svgd_phi.cu; K13's first half,
+// mpf_stream.cu) of the tile's rows over all m particles. Every warp walks
+// its own slice of the particles and scores; per particle j, K_ij is one
+// ex2 (s2 = inv2 log2 e) and the sums explicit fmas:
+//   f32:  sum_j K_ij score_j and sum_j K_ij (x_i - x_j), the difference the
+//         distance already formed (no shift);
+//   bf16: K_ij, score_j and x_j - x_0 rounded to bf16 before the products:
+//         sum_j K_ij score_j, sum_j K_ij (x_j - x_0) and sum_j K_ij.
+// The warps' sums merge in warp order through `part` (kWarps x 32 RPT rows
+// of pf >= kFloats floats), then the cluster's blocks' in rank order through
+// `blk` (32 RPT x kFloats floats, read by the other blocks until the
+// caller's closing cluster.sync()): thread r < 32 RPT of every block ends
+// with row r's sums in acc. stage: this warp's staging area, nbuf buffers
+// of kArrays arrays of qe columns.
+template <int D, bool BF16>
+struct PhiSums {
+  static constexpr int kArrays = BF16 ? 3 : 2;  // x, score (, x - x_0)
+  static constexpr int kFloats = BF16 ? 2 * D + 1 : 2 * D;
+};
+
+template <int D, int RPT, bool BF16>
+__device__ __forceinline__ void phi_sums(
+    cg::cluster_group& cluster, const Place& pl,
+    const float* __restrict__ x, const float* __restrict__ score, int m,
+    float s2, float* stage, int qe, float* part, int pf, float* blk,
+    float (&acc)[PhiSums<D, BF16>::kFloats]) {
+  constexpr int R = 32 * RPT;
+  constexpr int F = PhiSums<D, BF16>::kFloats;
+  float xr[RPT][D], ss[RPT][D], sx[RPT][D], rs[RPT];
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    const int i = pl.row0 + q * 32 + pl.lane;
+    rs[q] = 0.0f;
+#pragma unroll
+    for (int dd = 0; dd < D; ++dd) {
+      xr[q][dd] = i < m ? x[static_cast<size_t>(i) * D + dd] : 0.0f;
+      ss[q][dd] = 0.0f;
+      sx[q][dd] = 0.0f;
+    }
+  }
+  if constexpr (BF16) {
+    float c0[D];
+#pragma unroll
+    for (int dd = 0; dd < D; ++dd) c0[dd] = x[dd];
+    const float* src[3] = {x, score, x};
+    walk_slice<D, 3>(
+        src, pl.j0, pl.j1, stage, 3, qe, pl.lane,
+        [&](float* buf, int col) {
+#pragma unroll
+          for (int dd = 0; dd < D; ++dd) {
+            float* s = buf + qe * D + col * D + dd;
+            float* c = buf + 2 * qe * D + col * D + dd;
+            *s = bf16_round(*s);
+            *c = bf16_round(*c - c0[dd]);
+          }
+        },
+        [&](const float* buf, int n) {
+          const float* sc = buf + qe * D;
+          const float* xc = buf + 2 * qe * D;
+#pragma unroll 4
+          for (int j = 0; j < n; ++j) {
+#pragma unroll
+            for (int q = 0; q < RPT; ++q) {
+              float d2 = 0.0f;
+#pragma unroll
+              for (int dd = 0; dd < D; ++dd) {
+                const float df = xr[q][dd] - buf[j * D + dd];
+                d2 = __fmaf_rn(df, df, d2);
+              }
+              const float k = bf16_round(ex2(d2 * -s2));
+              rs[q] = rs[q] + k;
+#pragma unroll
+              for (int dd = 0; dd < D; ++dd) {
+                ss[q][dd] = __fmaf_rn(k, sc[j * D + dd], ss[q][dd]);
+                sx[q][dd] = __fmaf_rn(k, xc[j * D + dd], sx[q][dd]);
+              }
+            }
+          }
+        });
+  } else {
+    const float* src[2] = {x, score};
+    walk_slice<D, 2>(
+        src, pl.j0, pl.j1, stage, 2, qe, pl.lane, [](float*, int) {},
+        [&](const float* buf, int n) {
+          const float* sc = buf + qe * D;
+#pragma unroll 4
+          for (int j = 0; j < n; ++j) {
+#pragma unroll
+            for (int q = 0; q < RPT; ++q) {
+              float df[D];
+              float d2 = 0.0f;
+#pragma unroll
+              for (int dd = 0; dd < D; ++dd) {
+                df[dd] = xr[q][dd] - buf[j * D + dd];
+                d2 = __fmaf_rn(df[dd], df[dd], d2);
+              }
+              const float k = ex2(d2 * -s2);
+#pragma unroll
+              for (int dd = 0; dd < D; ++dd) {
+                ss[q][dd] = __fmaf_rn(k, sc[j * D + dd], ss[q][dd]);
+                sx[q][dd] = __fmaf_rn(k, df[dd], sx[q][dd]);
+              }
+            }
+          }
+        });
+  }
+#pragma unroll
+  for (int q = 0; q < RPT; ++q) {
+    float* p = part + (pl.warp * R + q * 32 + pl.lane) * pf;
+#pragma unroll
+    for (int dd = 0; dd < D; ++dd) {
+      p[dd] = ss[q][dd];
+      p[D + dd] = sx[q][dd];
+    }
+    if constexpr (BF16) p[2 * D] = rs[q];
+  }
+  __syncthreads();
+  if (threadIdx.x < R) {
+#pragma unroll
+    for (int e = 0; e < F; ++e) acc[e] = 0.0f;
+    for (int w = 0; w < kWarps; ++w) {
+      const float* p = part + (w * R + threadIdx.x) * pf;
+#pragma unroll
+      for (int e = 0; e < F; ++e) acc[e] = acc[e] + p[e];
+    }
+#pragma unroll
+    for (int e = 0; e < F; ++e) blk[threadIdx.x * F + e] = acc[e];
+  }
+  cluster.sync();
+  if (threadIdx.x < R) {
+#pragma unroll
+    for (int e = 0; e < F; ++e) acc[e] = 0.0f;
+    for (int b = 0; b < pl.cluster; ++b) {
+      const float* p = cluster.map_shared_rank(blk, b) + threadIdx.x * F;
+#pragma unroll
+      for (int e = 0; e < F; ++e) acc[e] = acc[e] + p[e];
     }
   }
 }

@@ -100,9 +100,10 @@ _SIGNATURES = {
         + [_FLOAT, _INT, _VOID_P]                      # log_n_act exp_util stream
     ),
     "dust_particle_episodes": (
-        [_VOID_P] * 19                # model scal base_mass ep_i logmix0 theta0 locs0
+        [_VOID_P] * 20                # model scal base_mass ep_i logmix0 theta0 locs0
                                       # amat0 aseq mpfx0 eps pdz pdu log theta locs amat mpfx
-                                      # logmix (null on the K9 path)
+                                      # logmix (null on the K9 path) clock (null but
+                                      # inside particle_episode.phase_clock)
         + [_INT] * 10                 # B steps warm_up hz m n_params n_act m_mpf
                                       # mpf_steps change_at
         + [_FLOAT] * 2                # success_dist2 log_n_act

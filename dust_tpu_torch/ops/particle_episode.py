@@ -39,6 +39,7 @@ Noise has two modes, as in the pendulum episode (`ops/episode.py`):
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
@@ -48,6 +49,31 @@ from .episode import silverman_rows
 
 LOG_FIELDS = ("px", "py", "vx", "vy", "a_x", "a_y", "cost", "done",
               "crashed", "cum", "bw_sv", "bw_mpf")
+# the phases of one step that the kernel's clocked build times, in order
+# (csrc/particle_episode.cu, kClkNoise ... kClkTail); each clock row holds
+# their clock64 cycles summed over the steps, then the loop's cycles and
+# its nanoseconds
+CLOCK_PHASES = ("noise", "silverman", "draws", "rollouts", "disco_weights",
+                "disco_delta", "stein_forward", "commit_simulator",
+                "mpf_bandwidth", "mpf_loop", "cost_log")
+_clock_rows = []
+# lanes that share one entry's sum over the action samples in the kernel's
+# DISCO delta (csrc/particle_episode.cu:kSumLanes)
+SUM_LANES = 8
+
+
+@contextlib.contextmanager
+def phase_clock():
+    """Launches of the kernel inside this context take its clocked build;
+    yields a list that receives each launch's [B, len(CLOCK_PHASES) + 2]
+    int64 clock rows. A measurement aid: the wrappers' results are the
+    same, their time is not the unclocked build's."""
+    rows = []
+    _clock_rows.append(rows)
+    try:
+        yield rows
+    finally:
+        _clock_rows.remove(rows)
 
 
 def particle_device_noise(seeds, scenario, step, hz, m, n_act, n_params):
@@ -97,7 +123,7 @@ def particle_episode_plain(scal, base_mass, seeds, scenario, log_mix0,
     [B, steps, 2, hz, m, n_act], pdz/pdu [B, steps, n_params]. Returns
     (log [B, steps, 12], theta, locs, a_mat [B, m, hz * 2], mpf_x
     [B, m_mpf], the final prior log-weights [B, m])."""
-    from .particle_mpf import particle_mpf_optimize_plain
+    from .particle_mpf import lane_sum, particle_mpf_optimize_plain
     from .particle_rollout import occupancy
     from .solve import disco_weights, particle_rollout_mcost, stein_forward
 
@@ -151,8 +177,11 @@ def particle_episode_plain(scal, base_mass, seeds, scenario, log_mix0,
         # every action as [B, m, n_act, hz * 2]
         acts = theta[:, :, None, :] + sigma_c * eps_t.permute(
             0, 3, 4, 2, 1).reshape(B, m, n_act, ev)
-        delta = (omega[..., None] * (acts - a_seq)).sum(dim=2)
-        wa = (w_lik[..., None] * acts).sum(dim=2)
+        # the sums over the samples in the kernel's order
+        delta = lane_sum((omega[..., None] * (acts - a_seq)).transpose(2, 3),
+                         SUM_LANES)[..., 0]
+        wa = lane_sum((w_lik[..., None] * acts).transpose(2, 3),
+                      SUM_LANES)[..., 0]
         glik = (wa - theta) * inv_s2
         theta_new, theta_fwd, weights, a_sel = stein_forward(
             theta, locs, glik, logmix, bw_sv, lr, inv_ps2, log_l, dim_a=2)
@@ -275,13 +304,15 @@ def run_particle_episodes(wrapper, inputs, sp, log_mix=False):
     mpf_x = torch.empty((B, m_mpf), dtype=torch.float32, device=dev)
     logmix = torch.empty((B, m), dtype=torch.float32, device=dev) \
         if log_mix else None
+    clock = torch.zeros((B, len(CLOCK_PHASES) + 2), dtype=torch.int64,
+                        device=dev) if _clock_rows else None
     # every tensor stays referenced here until the launch is queued: a
     # temporary's memory could be handed to the next allocation
     tensors = [model, c(inputs["scal"]), c(inputs["base_mass"]), ep_i,
                c(inputs["log_mix0"]), c(inputs["theta0"]),
                c(inputs["locs0"]), c(inputs["amat0"]), c(inputs["a_seq"]),
                c(inputs["mpfx0"]), eps, c(inputs["pdz"]), c(inputs["pdu"]),
-               log, theta, locs, amat, mpf_x, logmix]
+               log, theta, locs, amat, mpf_x, logmix, clock]
     rc = load_library().dust_particle_episodes(
         *(None if t is None else t.data_ptr() for t in tensors),
         B, sp["steps"], sp["warm_up"], hz, m, sp["n_params"], n_act, m_mpf,
@@ -294,6 +325,8 @@ def run_particle_episodes(wrapper, inputs, sp, log_mix=False):
     )
     wrapper.launches += 1
     check(rc, "dust_particle_episodes")
+    if clock is not None:
+        _clock_rows[-1].append(clock)
     return log, theta, locs, amat, mpf_x, logmix
 
 

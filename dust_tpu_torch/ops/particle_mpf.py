@@ -18,10 +18,10 @@ pass the gradient on their strict interior only. Semantics =
 * On CUDA tensors `fused_particle_mpf_optimize` launches the hand-written
   kernel `csrc/particle_mpf.cu` (which replaces the TPU kernel
   `dust_tpu/ops/pallas_particle_mpf.py:fused_particle_mpf_optimize`): one
-  block, one thread per particle, the particles in shared memory; bound
-  by the latency of its dependent iterations.
+  block, a quad of lanes per particle, the particles in shared memory;
+  bound by the latency of its dependent iterations.
 * On CPU tensors it runs `particle_mpf_optimize_plain`, the same
-  arithmetic in plain PyTorch.
+  arithmetic in plain PyTorch, its sums over j in the kernel's order.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ import torch
 
 # one CUDA block holds every particle
 MAX_PARTICLES = 1024
+# lanes per particle row in the kernel (csrc/particle_mpf.cuh:kRowLanes)
+ROW_LANES = 4
 
 
 def mpf_scalars(x, past_obs, loc, action, scale, bw, prior_bw, lr,
@@ -59,12 +61,30 @@ def _vel_grad_term(a, v0, loc, invm, scale, inv_s2, max_acc, max_speed):
     return -(pred - loc) * inv_s2 * dpred
 
 
+def lane_sum(t, lanes):
+    """Sums t over its last axis (j) as a group of `lanes` lanes of a
+    kernel does it (csrc/stein.cuh:lane_group_sum): lane l adds the terms
+    j = l, l + lanes, ... in order, starting from 0, then neighbouring
+    lanes' partial sums meet pairwise, for 4 lanes (p0 + p1) + (p2 + p3).
+    Keeps the axis."""
+    t = torch.nn.functional.pad(t, (0, -t.shape[-1] % lanes))
+    t = t.reshape(*t.shape[:-1], -1, lanes)
+    acc = torch.zeros_like(t[..., 0, :])
+    for s in range(t.shape[-2]):
+        acc = acc + t[..., s, :]
+    while acc.shape[-1] > 1:
+        acc = acc[..., 0::2] + acc[..., 1::2]
+    return acc
+
+
 def particle_mpf_optimize_plain(x, prior_locs, scal, n_steps=20,
                                 max_acc=10.0, max_speed=5.0, log_space=True):
     """Plain PyTorch version of the kernel: x, prior_locs [..., m, 1];
     scal [..., 11] as built by `mpf_scalars` (leading dims batch
     independent particle sets). Returns the particles after n_steps
-    updates."""
+    updates. The sums over the particles and centers take the kernel's
+    order (`lane_sum` over ROW_LANES lanes); its exps are one ex2.approx
+    each, which agree with `torch.exp` here to ~1e-6 relative."""
     bw, pbw, lr, sigma, v0x, v0y, ax, ay, loc_vx, loc_vy, scale = (
         v[..., None, None] for v in scal.unbind(-1))
     m = x.shape[-2]
@@ -87,14 +107,12 @@ def particle_mpf_optimize_plain(x, prior_locs, scal, n_steps=20,
         # ---- GMM prior score over the fixed centers ----
         logits = -0.5 * (x0 - c0t) ** 2 * inv_pbw2
         p = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
-        psum = p.sum(dim=-1, keepdim=True)
-        pc0 = (p * c0t).sum(dim=-1, keepdim=True) / psum
-        s0 = gl + (pc0 - x0) * inv_pbw2
+        psum, pc = lane_sum(torch.stack([p, p * c0t]), ROW_LANES)
+        s0 = gl + (pc / psum - x0) * inv_pbw2
         # ---- RBF Stein direction, repulsion folded into the drive ----
         k = torch.exp(-0.5 * (x0 - x0t) ** 2 * inv_bw2)
-        rows = k.sum(dim=-1, keepdim=True)
         t0t = s0.transpose(-1, -2) - x0t * inv_bw2
-        drive0 = (k * t0t).sum(dim=-1, keepdim=True)
+        rows, drive0 = lane_sum(torch.stack([k, k * t0t]), ROW_LANES)
         phi0 = (drive0 + rows * x0 * inv_bw2) / float(m)
         x0 = x0 + lr * phi0
     return x0

@@ -12,14 +12,15 @@ storing K.
   `svgd_phi_streamed_symm` launch one hand-written kernel,
   `csrc/svgd_phi.cu` (which replaces the three TPU kernels of
   `dust_tpu/ops/pallas_svgd.py`; they differ only in their TPU layouts):
-  one thread per particle row walking all columns, each entry counted in
-  its own `.launches`.
+  for d <= 8 a thread-block cluster per row tile, every warp walking its
+  own slice of the particles (`ops/stream_split.py`), the sums merged in a
+  fixed order; each entry counted in its own `.launches`.
 * On CPU tensors they run `svgd_phi_plain`, the kernel's arithmetic in
-  plain PyTorch: explicit per-dimension distances and the products
-  against the particles shifted by the first one (shift-invariant, so far
-  from the origin stays exact), with `use_bf16` rounding K, the scores and
-  the shifted particles to bf16 before the products and f32 sums, as the
-  TPU packed kernel does.
+  plain PyTorch: explicit per-dimension differences, which give both the
+  distances and, in float32, the repulsion sum_j K_ij (x_i - x_j), so far
+  from the origin stays exact; `use_bf16` rounds K, the scores and the
+  particles shifted by the first one to bf16 before the products, with
+  f32 sums and the row sum, as the TPU packed kernel does.
 
 `svgd_phi_reference` is the oracle (the RBF Gram identity of
 `ops/kernels.py`); `fused_svgd_phi` takes the kernel on the card and the
@@ -53,20 +54,25 @@ def svgd_phi_plain(x, score, bw, use_bf16=False, rows=slice(None)):
     """Plain PyTorch version of the kernel. x, score [m, d]; bw scalar
     (number or tensor); `rows` selects the rows of phi to compute (all by
     default; a slice keeps the [rows, m] matrices small at large m).
-    Returns phi [m, d] (or its selected rows)."""
+    Returns phi [m, d] (or its selected rows).
+
+    Float32 takes the kernel's difference form, (K @ score + sum_j K_ij
+    (x_i - x_j) / bw^2) / m; bf16 rounds K, the scores and the particles
+    shifted by the first one before the products and keeps the row sum,
+    (K @ score + (rowsum(K) (x_i - x_0) - K @ (x - x_0)) / bw^2) / m."""
     m, d = x.shape
     bw = torch.as_tensor(bw, dtype=torch.float32, device=x.device)
     inv2 = 0.5 / (bw * bw)
     xi = x[rows]
+    diffs = [xi[:, dd, None] - x[None, :, dd] for dd in range(d)]
     d2 = None
-    for dd in range(d):
-        diff = (xi[:, dd, None] - x[None, :, dd]) ** 2
-        d2 = diff if d2 is None else d2 + diff
+    for diff in diffs:
+        d2 = diff * diff if d2 is None else d2 + diff * diff
     k = torch.exp(-d2 * inv2)
-    xc = x - x[0]
-    s = score
-    if use_bf16:
-        k, xc, s = _bf16(k), _bf16(xc), _bf16(s)
+    if not use_bf16:
+        kx = torch.stack([(k * diff).sum(dim=1) for diff in diffs], dim=1)
+        return (k @ score + kx * (2.0 * inv2)) * (1.0 / m)
+    k, xc, s = _bf16(k), _bf16(x - x[0]), _bf16(score)
     drive, kx, rowsum = k @ s, k @ xc, k.sum(dim=1, keepdim=True)
     repel = (rowsum * (xi - x[0]) - kx) * (2.0 * inv2)
     return (drive + repel) * (1.0 / m)

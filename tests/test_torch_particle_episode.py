@@ -260,6 +260,20 @@ def test_episode_plain_matches_jax_and_port_composition(stacks, warm_up):
     assert np.abs(out["action"][-1]).max() > 0.1
 
 
+@pytest.mark.parametrize("seed", [5, 6])
+def test_episode_plain_in_kernel_order_matches_jax(stacks, seed):
+    """The plain version sums the DISCO delta over the samples in the
+    kernel's 8-lane order and the MPF loop's sums in its quad order
+    (`ops/particle_mpf.py:lane_sum`); over 3 steps on other noise it holds
+    JAX's kernel at this file's tolerances."""
+    noise = _noise(3, stacks[0]["exp_params"]["horizon"], seed=seed)
+    out = _run_port(stacks, 3, 0, noise)
+    j = _run_jax(stacks, 3, 0, noise)
+    _assert_close(out, j, f"seed {seed}")
+    for k in ("done", "crashed"):
+        np.testing.assert_array_equal(out[k], j[k], err_msg=k)
+
+
 @pytest.mark.parametrize("option", [
     dict(use_fixed_mpf_bw=False, mpf_bw_scale=1.3),
     dict(weighted_prior=False), dict(exp_util=False)])

@@ -168,3 +168,45 @@ def test_conditioned_past_action_and_guards(rng):
         FusedParticleMPF(TLik(obs_std=0.1, model=vel), lr=1e-2)
     with pytest.raises(ValueError, match="reference_compat"):
         FusedParticleMPF.from_mpf(MPF(lik, reference_compat=True))
+
+
+@pytest.mark.parametrize("m,lanes", [(1, 4), (13, 4), (50, 4), (64, 8),
+                                     (37, 8)])
+def test_lane_sum_is_the_kernels_order(m, lanes):
+    """`lane_sum` against a lane group's order written out in float32
+    scalars: lane l adds j = l, l + lanes, ... in turn from 0, then
+    neighbouring lanes' sums meet pairwise ((p0 + p1) + (p2 + p3) for a
+    quad, the MPF loop's ROW_LANES; 8 lanes for the episode's DISCO delta);
+    bit for bit, over a batch."""
+    rng = np.random.default_rng(m)
+    terms = (rng.normal(size=(3, m)) * 10.0 ** rng.integers(-3, 4, (3, m))
+             ).astype(np.float32)
+    got = tpm.lane_sum(_t(terms), lanes).numpy()[:, 0]
+    for row, want_row in zip(terms, got):
+        acc = []
+        for lane in range(lanes):
+            a = np.float32(0.0)
+            for j in range(lane, m, lanes):
+                a = np.float32(a + row[j])
+            acc.append(a)
+        while len(acc) > 1:
+            acc = [np.float32(x + y) for x, y in zip(acc[0::2], acc[1::2])]
+        assert want_row == acc[0]
+    assert tpm.ROW_LANES == 4
+
+
+def test_plain_loop_in_quad_order_matches_jax_at_odd_width(rng):
+    """The plain loop (sums in the quad order) against JAX's kernel at a
+    particle count on no quad boundary (m = 37), log space."""
+    _, _, init = _setup(rng, True, m=37)
+    centers = init + 0.02 * rng.normal(size=init.shape).astype(np.float32)
+    past = np.array([-9.0, -9.0, 0.4, -0.2], np.float32)
+    loc = past + np.array([0.01, -0.01, 0.1, -0.15], np.float32)
+    args = (init, centers, past, loc, np.array((3.0, -5.0), np.float32))
+    kw = dict(bw=0.5, prior_bw=0.5, lr=1e-2, obs_sigma=0.1, n_steps=20,
+              max_acc=10.0, max_speed=5.0, log_space=True)
+    want = np.asarray(j_mpf(*(jnp.asarray(a) for a in args), 0.015,
+                            interpret=True, **kw))
+    got = tpm.fused_particle_mpf_optimize(*(_t(a) for a in args), 0.015,
+                                          **kw)
+    np.testing.assert_allclose(got.numpy(), want, **K2_TOL)
