@@ -8,11 +8,12 @@ Run from the root of a checkout, on a machine with a card:
 It builds the checkout's kernels, drives path 11 (`chip_smoke.py`'s
 `phase_fused_mpf_path`: FusedMPF.optimize at m = 2048, 8192, 32768 and with
 fuse_streams), times K11a at m = 2048, d = 1, K11b, K12b and K13 at
-m = 8192 and 32768, d = 2 (`chip_smoke._device_ms`), K7 at the particle
-demo's shape, one 200-step K9 episode (path 7's shape) and one 256-episode
-K10 sweep (path 8's) between CUDA events (median of 3), and hashes K13's
-two outputs on fixed seeded inputs, so that two trees can be held bit for
-bit. It prints one line, `RESULT {json}`. To compare a parent and a change,
+m = 8192 and 32768, d = 2, K2, K3, K7 and K8 at the demos' shapes
+(`chip_smoke._device_ms`), one 200-step K4 and K9 episode (paths 3 and 7)
+and one 256-episode K5 and K10 sweep (paths 4 and 8) between CUDA events
+(median of 3), and hashes the outputs of K13, of K8 and of a 20-step K5
+sweep on fixed seeded inputs (host noise), so that two trees can be held
+bit for bit. It prints one line, `RESULT {json}`. To compare a parent and a change,
 unpack both (`git archive`) and run the script once in each, in the order
 parent, change, change, parent, in one call on one card:
 
@@ -21,6 +22,7 @@ parent, change, change, parent, in one call on one card:
 It calls only functions that `chip_smoke.py` has had since its K10-K13
 slice, so it runs in older checkouts too.
 """
+import copy
 import hashlib
 import json
 import os
@@ -31,11 +33,26 @@ sys.path.insert(0, os.getcwd())
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
-from dust_tpu_torch.ops import gmm, mpf_stream, svgd  # noqa: E402
+from dust_tpu_torch.experiments import (  # noqa: E402
+    PENDULUM_DEMO_CONFIG,
+    build_pendulum_stack,
+)
+from dust_tpu_torch.ops import gmm, mpf, mpf_stream, solve, svgd  # noqa: E402
 from dust_tpu_torch.ops import particle_mpf as pm  # noqa: E402
+from dust_tpu_torch.ops import sweep_episode  # noqa: E402
 from dust_tpu_torch.simulation import (  # noqa: E402
     megakernel_particle_episode_fn,
+    megakernel_pendulum_episode_fn,
 )
+
+
+def sha256(tensors):
+    """One hash of the tensors' bytes, in order: equal hashes, equal bits."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.contiguous().cpu().numpy().tobytes())
+    return h.hexdigest()
+
 
 tree = sys.argv[1]
 dev = torch.device("cuda")
@@ -69,12 +86,50 @@ for m, d in ((8192, 2), (2049, 3), (33, 8)):
         digest.update(out.cpu().numpy().tobytes())
 res["k13_sha256"] = digest.hexdigest()
 
+# the pendulum kernels K2-K5 at the demo's shapes
+pgen = torch.Generator(device=dev).manual_seed(cs.SEED + 5)
+k2_in = cs._k2_inputs(50, (2.9, 0.4), (2.95, 0.9), 1.3, pgen, dev)
+res["k2_ms"] = min(cs._device_ms(
+    lambda: mpf.fused_pendulum_mpf_optimize(**k2_in, n_steps=20))
+    for _ in range(2))
+k3_args = cs._k3_inputs(30, 3, 8, 128, (3.0, 0.0), pgen, dev)
+k3_st = dict(hz=30, m=3, n_params=8, n_act=128, exp_util=True)
+res["k3_ms"] = min(cs._device_ms(
+    lambda: solve.fused_pendulum_solve(*k3_args, **k3_st)) for _ in range(2))
+pcfg = copy.deepcopy(PENDULUM_DEMO_CONFIG)
+pstack = build_pendulum_stack(
+    pcfg, torch.Generator(device=dev).manual_seed(cs.SEED), case="dust",
+    device=dev)
+k4 = megakernel_pendulum_episode_fn(pstack, pcfg["exp_params"],
+                                    steps=cs.MAIN_STEPS)
+res["k4_ms_per_episode"] = statistics.median(
+    cs._event_ms(lambda: k4([cs.SEED, 1]), 3))
+pgroups, pseeds, lens, mass, _ = cs._bench_sweep(dev, PENDULUM_DEMO_CONFIG)
+res["k5_ms_per_sweep"] = statistics.median(
+    cs._event_ms(lambda: pgroups.run(pseeds(1), lens, mass), 3))
+# K5's outputs on fixed host-noise inputs, 16 scenarios x 2 chains x 20 steps
+steps = 20
+theta0, mpfx0, noise = cs._episode_setup(steps, cs.SEED + 13, dev,
+                                         cs.SWEEP_SC, cs.SWEEP_CHAINS)
+k5_out = cs._sweep_call(
+    sweep_episode.fused_pendulum_sweep_episode, [1, 2], theta0, mpfx0,
+    torch.linspace(0.8, 1.2, cs.SWEEP_SC, device=dev),
+    torch.linspace(0.9, 1.1, cs.SWEEP_SC, device=dev), dev, steps,
+    cs.SWEEP_SC, cs.SWEEP_CHAINS, noise)
+res["k5_sha256"] = sha256(k5_out[k] for k in sorted(k5_out))
+
 kgen = torch.Generator(device=dev).manual_seed(cs.SEED + 50)
 inp = cs._k7_inputs(kgen, dev, True, (0.4, -0.2), (3.0, -5.0), 0.015)
 res["k7_ms"] = min(cs._device_ms(
     lambda: pm.fused_particle_mpf_optimize(**inp, n_steps=20))
     for _ in range(2))
 cfg, stack = cs._particle_stack(dev)
+k8_args = cs._k8_inputs(torch.Generator(device=dev).manual_seed(cs.SEED + 22),
+                        dev, (-9.0, -9.0))
+k8_st = dict(cs._K8_STATICS, exp_util=True, **cs._pkw(stack.model))
+res["k8_ms"] = min(cs._device_ms(
+    lambda: solve.fused_particle_solve(*k8_args, **k8_st)) for _ in range(2))
+res["k8_sha256"] = sha256(solve.fused_particle_solve(*k8_args, **k8_st))
 episode = megakernel_particle_episode_fn(stack, cfg["exp_params"],
                                          steps=cs.MAIN_STEPS)
 res["k9_ms_per_episode"] = statistics.median(

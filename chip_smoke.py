@@ -51,9 +51,12 @@ Phases (any failure raises and exits non-zero):
      draws over 200 steps: where the episodes drift apart and how many
      fail to swing up on either side;
  14. K3, K4 and K5 times beside their bounds: K3 as in phase 6; K4 and K5
-     (one launch each, 30-70 ms) between CUDA events around single calls,
+     (one launch each, 20-70 ms) between CUDA events around single calls,
      their plain versions likewise (one call each: bound by the host
-     launching their operations).
+     launching their operations); then one more K4 and K5 call under the
+     kernel's clocked build: the mean time per step of each phase of the
+     step (noise, Silverman, parameter draws, rollouts, DISCO weights, DISCO
+     delta, Stein step, commit and simulator, MPF bandwidth, MPF loop, log);
  15. K6 (particle rollout costs) against its plain version at the demo
      shapes (4 x 64 x 6, H 40) from a free start, inside an obstacle and
      inside a wall, and the kernels' occupancy test against occupancy_hit
@@ -68,8 +71,9 @@ Phases (any failure raises and exits non-zero):
      before and after the load at step 50), gated on finiteness and on
      getting 2 m nearer the target;
  18. the K6 path against the plain path for 10 re-synced steps;
- 19. K8 (the whole particle solve) against its plain version at the demo
-     shapes, both likelihoods, free and crashed starts;
+ 19. K8 (the whole particle solve, one thread-block cluster of a block per
+     policy particle) against its plain version at the demo shapes, both
+     likelihoods, free and crashed starts;
  20. path 6: `fused_solve: true` (K8) + K7, 200 steps; K6 stays wired and
      must not launch; then the K8 path against the plain path;
  21. K9 (the whole particle episode) against its plain version in
@@ -79,7 +83,9 @@ Phases (any failure raises and exits non-zero):
  22. path 7: one 200-step K9 episode (`megakernel_particle_episode_fn`,
      device RNG): ms per episode, the outcome, the same seed gives the
      same bits, another seed other results;
- 23. K6-K9 times beside their bounds, as phases 6 and 14; then one more
+ 23. K6-K9 times beside their bounds, as phases 6 and 14; then 20 more K8
+     solves under its clocked build (the mean time per solve of its phases:
+     load, rollouts, DISCO weights, delta, Stein step, outputs) and one more
      K9 episode under the kernel's clocked build: the mean time per step
      of each phase of the step (noise, Silverman, mass draws, rollouts,
      DISCO weights, DISCO delta, Stein step, commits and simulator, MPF
@@ -1305,10 +1311,10 @@ def phase_timing_slice2(dev, config):
     ep_plain = lambda: episode.plain_pendulum_episode(
         [SEED, 1], *ep_args, steps=MAIN_STEPS, **_EP)
     groups, seeds, lens, mass, sw_plain = _bench_sweep(dev, config)
-    for name, kern, plain, bound in (
-            ("pendulum_episode", lambda: ep_kernel([SEED, 1]), ep_plain,
-             _episodes_bound(1, MAIN_STEPS, 8, 3, 128, 30, 50, 20)),
-            ("pendulum_sweep_episode",
+    for name, label, kern, plain, bound in (
+            ("pendulum_episode", "K4 (path 3)", lambda: ep_kernel([SEED, 1]),
+             ep_plain, _episodes_bound(1, MAIN_STEPS, 8, 3, 128, 30, 50, 20)),
+            ("pendulum_sweep_episode", "K5 (path 4)",
              lambda: groups.run(seeds(1), lens, mass),
              lambda: sw_plain(seeds(1)),
              _episodes_bound(SWEEP_GROUPS * SWEEP_SC * SWEEP_CHAINS,
@@ -1323,7 +1329,9 @@ def phase_timing_slice2(dev, config):
                      "plain_ms": min(runs["plain"]), "runs": runs,
                      "bound_ms": bound[0], "bound_by": bound[1],
                      "bound_bytes": bound[2], "bound_ops": bound[3],
-                     "timed_as": "one call between CUDA events"}
+                     "timed_as": "one call between CUDA events",
+                     "phase_clock": _phase_clock(label, kern,
+                                                 episode.phase_clock)}
     for name, t in out.items():
         print(f"time {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms ({t['timed_as']}); bound "
@@ -2022,35 +2030,35 @@ def phase_particle_episode_path(dev):
     return result
 
 
-def _phase_clock(label, fn, steps=MAIN_STEPS):
-    """One more call of fn (a K9 or K10 launch) under the episode kernel's
-    clocked build (`ops/particle_episode.py:phase_clock`): thread 0 of
-    every block stamps clock64 at the block barriers that close the phases
-    of a step. Prints, on one line, each phase's mean time per step over
-    the blocks (cycles at the block's own cycles-to-%globaltimer rate) and
-    its share of the step loop; returns them."""
+def _phase_clock(label, fn, clock, steps=MAIN_STEPS, calls=1, per="step"):
+    """`calls` more calls of fn (a K4/K5, K8 or K9/K10 launch) under the
+    kernel's clocked build (`clock`, an `ops/phase_clock.PhaseClock`):
+    thread 0 of every block stamps clock64 at the block barriers that
+    close the phases of a step. Prints, on one line, each phase's mean time
+    per step (`steps` per call) over the blocks and calls (cycles at the
+    block's own cycles-to-%globaltimer rate) and its share of the loop;
+    returns them."""
     import torch
 
-    from dust_tpu_torch.ops import particle_episode as pe
-
-    with pe.phase_clock() as rows:
-        fn()
+    with clock() as rows:
+        for _ in range(calls):
+            fn()
     torch.cuda.synchronize()
-    clk = torch.cat(rows).double().cpu()        # [B, phases + 2]
-    n = len(pe.CLOCK_PHASES)
+    clk = torch.cat(rows).double().cpu()        # [blocks, phases + 2]
+    n = len(clock.phases)
     ns_per_cycle = clk[:, n + 1] / clk[:, n]    # per block
     us = (clk[:, :n] * ns_per_cycle[:, None]).mean(0) / (1e3 * steps)
     loop_us = float(clk[:, n + 1].mean()) / (1e3 * steps)
-    phases = {k: {"us_per_step": float(v),
+    phases = {k: {f"us_per_{per}": float(v),
                   "share": float(clk[:, i].sum() / clk[:, :n].sum())}
-              for i, (k, v) in enumerate(zip(pe.CLOCK_PHASES, us))}
-    print(f"{label} per-phase clock, us per step (mean of {clk.shape[0]} "
+              for i, (k, v) in enumerate(zip(clock.phases, us))}
+    print(f"{label} per-phase clock, us per {per} (mean of {clk.shape[0]} "
           f"blocks; share): " + ", ".join(
-              f"{k} {v['us_per_step']:.2f} ({100 * v['share']:.1f}%)"
+              f"{k} {v[f'us_per_{per}']:.2f} ({100 * v['share']:.1f}%)"
               for k, v in phases.items())
-          + f"; the loop {loop_us:.2f} us per step, "
+          + f"; the loop {loop_us:.2f} us per {per}, "
           f"{float(ns_per_cycle.mean()):.4f} ns per cycle")
-    return {"blocks": int(clk.shape[0]), "loop_us_per_step": loop_us,
+    return {"blocks": int(clk.shape[0]), f"loop_us_per_{per}": loop_us,
             "ns_per_cycle": float(ns_per_cycle.mean()), "phases": phases}
 
 
@@ -2103,6 +2111,9 @@ def phase_timing_slice3(dev, path7):
             "runs": runs, "bound_ms": bound[0], "bound_by": bound[1],
             "bound_bytes": bound[2], "bound_ops": bound[3],
             "timed_as": "device time per call, 20 calls in one CUDA graph"}
+    out["particle_solve"]["phase_clock"] = _phase_clock(
+        "K8 (path 6)", lambda: solve.fused_particle_solve(*k8_args, **k8_st),
+        solve.phase_clock, steps=1, calls=20, per="solve")
 
     episode = megakernel_particle_episode_fn(stack, cfg["exp_params"],
                                              steps=MAIN_STEPS)
@@ -2123,7 +2134,8 @@ def phase_timing_slice3(dev, path7):
         "runs": runs, "bound_ms": bound[0], "bound_by": bound[1],
         "bound_bytes": bound[2], "bound_ops": bound[3],
         "timed_as": "one call between CUDA events",
-        "phase_clock": _phase_clock("K9 (path 7)", ep_kern)}
+        "phase_clock": _phase_clock("K9 (path 7)", ep_kern,
+                                    pe.phase_clock)}
     for name, t in out.items():
         print(f"time {name}: kernel {t['ms']:.4f} ms, plain "
               f"{t['plain_ms']:.4f} ms ({t['timed_as']}); bound "
@@ -3045,6 +3057,7 @@ def phase_timing_slice4(dev, path8):
     import torch
 
     from dust_tpu_torch.ops import gmm, mpf_stream, svgd
+    from dust_tpu_torch.ops import particle_episode as pe
 
     out = {}
     groups, seeds, masses, _ = _bench_particle_sweep(dev, MAIN_STEPS)
@@ -3058,7 +3071,8 @@ def phase_timing_slice4(dev, path8):
         "bound_by": bound[1], "bound_bytes": bound[2], "bound_ops": bound[3],
         "timed_as": "one call between CUDA events",
         "phase_clock": _phase_clock("K10 (path 8)",
-                                    lambda: groups.run(seeds(1), masses))}
+                                    lambda: groups.run(seeds(1), masses),
+                                    pe.phase_clock)}
     gen = torch.Generator(device=dev).manual_seed(SEED + 80)
     dt = lambda v: torch.tensor(v, device=dev)
     bw, pbw, lr = dt(0.3), dt(0.2), dt(1e-3)

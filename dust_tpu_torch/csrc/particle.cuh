@@ -1,6 +1,6 @@
 // Device code of the particle-navigation task shared by its kernels: the
 // rollout costs (K6, particle_rollout.cu), the whole solve (K8,
-// particle_solve.cu) and the whole episode (K9, particle_episode.cu).
+// particle_solve.cu) and the whole episode (K9/K10, particle_episode.cu).
 //
 // The model (cost weights, target, dt and limits, the map's grid and its
 // occupancy as one bit per cell) arrives as one float array laid out as
@@ -58,6 +58,7 @@ __device__ inline void load_model(const float* src, float* km) {
   const int n = kHeader + static_cast<int>(src[kNWords]);
   const uint32_t* s = reinterpret_cast<const uint32_t*>(src);
   uint32_t* d = reinterpret_cast<uint32_t*>(km);
+#pragma unroll 8
   for (int e = threadIdx.x; e < n; e += blockDim.x) d[e] = s[e];
   __syncthreads();
 }
@@ -126,50 +127,28 @@ __device__ __forceinline__ float terminal_cost(const float* km, float px,
   return state_cost(km, km + kWtPx, px, py, vx, vy, occupancy(km, px, py));
 }
 
-// Param-averaged navigation cost of every (particle q, action sample i)
-// pair into mcost[q * n_act + i] (ops/solve.py:particle_rollout_mcost).
-// One thread per pair carries the states of all n_params draws in
-// registers (independent chains); s0 the start state [4], im 1/mass per
-// draw; act(q, i, t, c) returns action channel c at step t.
-template <class Act>
-__device__ inline void rollout_mcost(const float* km, const float* s0,
-                                     const float* im, int n_params, int m,
-                                     int hz, int n_act, Act act,
-                                     float* mcost) {
-  constexpr int kP = dust_solve::kMaxParams;
-  const float inv_np = static_cast<float>(1.0 / n_params);
-  for (int pair = threadIdx.x; pair < m * n_act; pair += blockDim.x) {
-    const int q = pair / n_act;
-    const int i = pair - q * n_act;
-    float px[kP], py[kP], vx[kP], vy[kP], cost[kP];
-#pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      px[p] = s0[0];
-      py[p] = s0[1];
-      vx[p] = s0[2];
-      vy[p] = s0[3];
-      cost[p] = 0.0f;
-    }
-    for (int t = 0; t < hz; ++t) {
-      const float ax = act(q, i, t, 0);
-      const float ay = act(q, i, t, 1);
-#pragma unroll
-      for (int p = 0; p < kP; ++p)
-        if (p < n_params)
-          cost[p] = cost[p] + step(km, px[p], py[p], vx[p], vy[p], ax, ay,
-                                   im[p]);
-    }
-    float mc = 0.0f;
-#pragma unroll
-    for (int p = 0; p < kP; ++p) {
-      if (p < n_params) {
-        const float cp =
-            cost[p] + terminal_cost(km, px[p], py[p], vx[p], vy[p]);
-        mc = p == 0 ? cp : mc + cp;
-      }
-    }
-    mcost[pair] = mc * inv_np;
+// The navigation cost of one trajectory of one mass draw (1/mass im)
+// from (px, py, vx, vy): the running costs in step order, then the
+// terminal cost (ops/particle_rollout.py:rollout_costs for one draw).
+// ld(t) returns the raw values behind step t's action, act(t, raw, ax, ay)
+// makes the action from them; ld is called one step ahead of the chain,
+// so a read's latency overlaps a step. K8 and K9/K10 give each thread one
+// trajectory in turn and then add each pair's draws in draw order
+// (stein.cuh:sum_draws).
+template <class Load, class Act>
+__device__ __forceinline__ float trajectory_cost(const float* km, float px,
+                                                 float py, float vx,
+                                                 float vy, float im, int hz,
+                                                 Load ld, Act act) {
+  float cost = 0.0f;
+  float2 raw = ld(0);
+  for (int t = 0; t < hz; ++t) {
+    float ax, ay;
+    act(t, raw, ax, ay);
+    if (t + 1 < hz) raw = ld(t + 1);
+    cost = cost + step(km, px, py, vx, vy, ax, ay, im);
   }
+  return cost + terminal_cost(km, px, py, vx, vy);
 }
 
 }  // namespace dust_particle

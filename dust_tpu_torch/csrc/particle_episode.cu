@@ -29,7 +29,7 @@
 // draws x 6 particles x 64 samples) take one thread each in turn, six full
 // rounds of 256 (measured faster than 4 or 2 draws per thread as
 // independent chains), and each pair's draws are summed afterwards in draw
-// order (dp::rollout_mcost's order); the per-step noise (120 KB at the
+// order (stein.cuh:sum_draws); the per-step noise (120 KB at the
 // demo shapes) lives in device memory, read one step ahead of the chain.
 // The DISCO delta takes 8 lanes per entry (neighbouring noise values), the
 // MPF loop a quad of lanes per particle (particle_mpf.cuh), and the
@@ -46,6 +46,7 @@
 #include "counter_rng.cuh"
 #include "particle.cuh"
 #include "particle_mpf.cuh"
+#include "phase_clock.cuh"
 #include "stein.cuh"
 
 namespace {
@@ -87,9 +88,7 @@ constexpr int kLogFields = 12;
 // delta (ops/particle_episode.py:SUM_LANES)
 constexpr int kSumLanes = 8;
 // The phases of one step that the clocked build of the kernel times
-// (ops/particle_episode.py:CLOCK_PHASES): thread 0 adds the clock64
-// cycles between the block barriers that close them, summed over all
-// steps; then the whole loop's cycles and %globaltimer nanoseconds.
+// (ops/particle_episode.py:CLOCK_PHASES, phase_clock.cuh).
 enum : int {
   kClkNoise = 0, kClkSilverman, kClkDraws, kClkRollouts, kClkDisco,
   kClkDelta, kClkStein, kClkCommit, kClkMpfBw, kClkMpf, kClkTail,
@@ -97,11 +96,6 @@ enum : int {
   kClockSlots = kClkPhases + 2
 };
 
-__device__ __forceinline__ long long global_ns() {
-  unsigned long long t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return static_cast<long long>(t);
-}
 // simulator and step scalars in shared memory
 enum : int {
   kPx = 0, kPy, kVx, kVy,           // simulator state
@@ -135,6 +129,7 @@ template <bool kClock>
 __global__ void __launch_bounds__(kThreads, 2)
     particle_episode_kernel(EpisodeArgs a) {
   extern __shared__ float sh[];
+  __shared__ long long clk_acc[kClkPhases];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
@@ -180,7 +175,6 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int n_sort_mpf = pow2_at_least(m_mpf);
   const SilvermanN sv_n = silverman_n(mh);
   const SilvermanN mpf_n = silverman_n(m_mpf);
-  const float inv_np = static_cast<float>(1.0 / n_params);
 
   // scal: [px0, py0, vx0, vy0, ctrl_sigma, lr, alpha, inv_temp, inv_s2,
   //        inv_ps2, load, mpf_lr, mpf_sigma, prior_bw0, mpf_fixed_bw]
@@ -216,23 +210,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   const float max_speed = km[dp::kMaxSpeed];
   const bool crash = km[dp::kCrash] != 0.0f;
 
-  // the clocked build only: phase p ends at mark(p)
-  long long clk[kClkPhases] = {};
-  long long t_last = 0, t0 = 0, ns0 = 0;
-  if constexpr (kClock) {
-    t0 = t_last = clock64();
-    ns0 = global_ns();
-  }
-  auto mark = [&](int phase) {
-    if constexpr (kClock) {
-      __syncthreads();
-      if (tid == 0) {
-        const long long now = clock64();
-        clk[phase] += now - t_last;
-        t_last = now;
-      }
-    }
-  };
+  dust_clock::PhaseClock<kClock, kClkPhases> clk(clk_acc);
 
   for (int step = 0; step < a.steps; ++step) {
     // ---- noise: eps [2, hz, m, n_act], mass draws pdz, pdu [n_params] ----
@@ -255,14 +233,14 @@ __global__ void __launch_bounds__(kThreads, 2)
       eps = ew;
     }
     __syncthreads();
-    mark(kClkNoise);
+    clk.mark(kClkNoise);
     const bool active = step >= a.warm_up;
     // the MPF gate: step >= warm_up and not done before this step
     const bool gate = active && sv[kDone] <= 0.5f;
 
     // ---- Silverman bandwidth of the policy particles ----
     const float bw_sv = silverman_sorted(theta, sv_n, n_sort, srt, red);
-    mark(kClkSilverman);
+    clk.mark(kClkSilverman);
 
     // ---- mass draws from the live MPF prior ----
     const float prior_bw = sv[kPriorBw];
@@ -275,11 +253,11 @@ __global__ void __launch_bounds__(kThreads, 2)
       im[tid] = 1.0f / d;
     }
     __syncthreads();
-    mark(kClkDraws);
+    clk.mark(kClkDraws);
 
     // ---- rollouts + costs: one (draw, particle, sample) trajectory per
-    // thread in turn, a = theta + sigma eps; then each pair's draws summed
-    // in draw order, as dp::rollout_mcost sums them ----
+    // thread in turn, a = theta + sigma eps, the noise read one step ahead
+    // of the chain; then each pair's draws summed in draw order ----
     for (int u = tid; u < n_params * ma; u += nt) {
       const int p = u / ma;
       const int pair = u - p * ma;
@@ -287,33 +265,22 @@ __global__ void __launch_bounds__(kThreads, 2)
       const int i = pair - q * n_act;
       const float* ep = eps + q * n_act + i;
       const float* th = theta + q * ev;
-      const float imp = im[p];
-      float px = sv[kPx], py = sv[kPy], vx = sv[kVx], vy = sv[kVy];
-      float cost = 0.0f;
-      // the noise is read one step ahead of the chain, so the read's
-      // latency overlaps a step
-      float ex = ep[0], ey = ep[hz * ma];
-      for (int t = 0; t < hz; ++t) {
-        const float ax = th[2 * t] + sigma_c * ex;
-        const float ay = th[2 * t + 1] + sigma_c * ey;
-        if (t + 1 < hz) {
-          ex = ep[(t + 1) * ma];
-          ey = ep[(hz + t + 1) * ma];
-        }
-        cost = cost + dp::step(km, px, py, vx, vy, ax, ay, imp);
-      }
-      dcost[u] = cost + dp::terminal_cost(km, px, py, vx, vy);
+      dcost[u] = dp::trajectory_cost(
+          km, sv[kPx], sv[kPy], sv[kVx], sv[kVy], im[p], hz,
+          [&](int t) {
+            return make_float2(ep[t * ma], ep[(hz + t) * ma]);
+          },
+          [&](int t, float2 e, float& ax, float& ay) {
+            ax = th[2 * t] + sigma_c * e.x;
+            ay = th[2 * t + 1] + sigma_c * e.y;
+          });
     }
     __syncthreads();
-    for (int pair = tid; pair < ma; pair += nt) {
-      float mc = dcost[pair];
-      for (int p = 1; p < n_params; ++p) mc = mc + dcost[p * ma + pair];
-      mcost[pair] = mc * inv_np;
-    }
+    sum_draws(dcost, n_params, ma, mcost);
     __syncthreads();
-    mark(kClkRollouts);
+    clk.mark(kClkRollouts);
     disco_weights(mcost, m, n_act, dk, omega, w_lik, eta, log_l, red);
-    mark(kClkDisco);
+    clk.mark(kClkDisco);
 
     // ---- DISCO delta and likelihood gradient: kSumLanes lanes per
     // entry, lane s taking the samples i = s, s + kSumLanes, ... (reads of
@@ -341,12 +308,12 @@ __global__ void __launch_bounds__(kThreads, 2)
       }
     }
     __syncthreads();
-    mark(kClkDelta);
+    clk.mark(kClkDelta);
 
     // ---- Stein step + forward ----
     stein_forward(theta, locs, score, logmix, 1, log_l, m, ev, bw_sv, lr,
                   inv_ps2, ss, theta_new);
-    mark(kClkStein);
+    clk.mark(kClkStein);
 
     // ---- warm-up gate + commits ----
     const int star = *ss.i_star;
@@ -391,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       sv[kAx] = a_x;
       sv[kAy] = a_y;
     }
-    mark(kClkCommit);
+    clk.mark(kClkCommit);
     // ---- MPF update, gated on step >= warm_up and not done; its prior
     // bandwidth is the previous update's ----
     const float bw_mpf = a.fixed_bw ? sc[14]
@@ -399,7 +366,7 @@ __global__ void __launch_bounds__(kThreads, 2)
                                                        srt, red) *
                                           a.mpf_bw_scale;
     __syncthreads();
-    mark(kClkMpfBw);
+    clk.mark(kClkMpfBw);
     if (gate) {
       for (int i = tid; i < m_mpf; i += nt) scc[i] = sx[i];
       __syncthreads();
@@ -412,7 +379,7 @@ __global__ void __launch_bounds__(kThreads, 2)
       dp::mass_stein_loop(sx, scc, st, sn, m_mpf, a.mpf_steps, k, max_acc,
                           max_speed, a.log_space);
     }
-    mark(kClkMpf);
+    clk.mark(kClkMpf);
     if (tid == 0) {
       if (gate) {
         sv[kPriorBw] = bw_mpf;
@@ -463,16 +430,9 @@ __global__ void __launch_bounds__(kThreads, 2)
       sv[kCum] = cum;
     }
     __syncthreads();
-    mark(kClkTail);
+    clk.mark(kClkTail);
   }
-  if constexpr (kClock) {
-    if (tid == 0) {
-      long long* out = a.clock + static_cast<size_t>(b) * kClockSlots;
-      for (int p = 0; p < kClkPhases; ++p) out[p] = clk[p];
-      out[kClkPhases] = clock64() - t0;
-      out[kClkPhases + 1] = global_ns() - ns0;
-    }
-  }
+  clk.write(a.clock + static_cast<size_t>(b) * kClockSlots);
 
   for (int e = tid; e < mh; e += nt) {
     a.theta_out[b * mh + e] = theta[e];

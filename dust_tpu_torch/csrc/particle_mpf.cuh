@@ -58,13 +58,8 @@ __device__ __forceinline__ float vel_grad_term(float a, float v0, float loc,
 // quad's partial sums meet in a fixed butterfly, (p0 + p1) + (p2 + p3)
 // (ops/particle_mpf.py:ROW_LANES, lane_sum).
 constexpr int kRowLanes = 4;
-constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ float ex2(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
+using dust_solve::ex2;
+using dust_solve::kLog2e;
 
 // sx: particles (updated in place); sc: prior centers; st: scratch for
 // the drive terms; sn: scratch for the new particles; all shared, m floats

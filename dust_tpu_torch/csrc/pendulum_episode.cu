@@ -1,7 +1,6 @@
 // Whole pendulum DuSt episodes in one launch: the single-episode kernel
 // (K4) and the scenario sweep (K5) launch the same entry,
-// dust_pendulum_episodes, and run the same block code, one block per
-// episode.
+// dust_pendulum_episodes, and run the same block code.
 //
 // Replaces the TPU kernels `fused_pendulum_episode`
 // (dust_tpu/ops/pallas_episode.py, `_pendulum_episode_kernel`) and
@@ -23,24 +22,35 @@
 // for the 256-episode sweep. A single episode is bound by the latency of
 // its serial chain: per step, a 30-step rollout chain, a dozen block-wide
 // reductions and the 20 dependent MPF iterations.
-// Design: one persistent block of 256 threads per episode keeps every
-// piece of state (particles, plans, MPF particles, simulator state) in
-// shared memory for the whole episode; nothing returns to the host. The
-// per-step noise lives in device memory (46 KB at the demo shapes; up to
-// 512 KB at the shape ceiling), read through L1/L2. A sweep is a grid of
-// such blocks, so each scenario computes exactly what an independent
-// single-episode launch computes, bit for bit, and a diverged scenario
-// cannot reach another one.
+// Design, from the step's measured phases (the clocked build, kClock):
+// one persistent block of 256 threads per episode keeps every piece of
+// state (particles, plans, MPF particles, simulator state) in shared memory
+// for the whole episode; nothing returns to the host. A sweep (K5) is a
+// grid of such blocks, two per SM (<= 128 registers), so each scenario
+// computes what an independent single-episode launch computes, bit for
+// bit, and a diverged scenario cannot reach another one. A single episode
+// (K4, B = 1) runs as a thread-block cluster of kK4Cluster blocks: each
+// block draws the noise of its share of the (particle, sample) pairs and
+// rolls them out, the pair costs meet over distributed shared memory, and
+// every other phase runs in every block alike, so K4 computes K5's bits
+// over four SMs. The rollouts hold a pair's eight draws in registers with
+// a branch-free step (pendulum_solve.cuh); the DISCO delta takes 8 lanes
+// per entry; the MPF loop a quad of lanes per particle. The per-step noise
+// lives in device memory (46 KB at the demo shapes; up to 512 KB at the
+// shape ceiling), read through L1/L2.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "counter_rng.cuh"
 #include "pendulum_mpf.cuh"
 #include "pendulum_solve.cuh"
+#include "phase_clock.cuh"
 
 namespace {
 
+namespace cg = cooperative_groups;
 using namespace dust_solve;
 using dust_rng::normal_at;
 using dust_rng::rng_key;
@@ -63,6 +73,7 @@ struct EpisodeArgs {
   float* locs_out;
   float* amat_out;     // [B, m, hz]
   float* mpfx_out;     // [B, m_mpf, 2]
+  long long* clock;    // [B, kClockSlots] (the clocked build), or null
   int steps, warm_up, hz, m, n_params, n_act, m_mpf, mpf_steps;
   RolloutConsts rk;    // model rollout: dt, xmax, cg, ca
   float half3g;        // 3 g_model 0.5 (MPF likelihood)
@@ -73,17 +84,44 @@ struct EpisodeArgs {
   int host_noise;
 };
 
+// The phases of one step that the clocked build of the kernel times
+// (ops/episode.py:CLOCK_PHASES, phase_clock.cuh).
+enum : int {
+  kClkNoise = 0, kClkSilverman, kClkDraws, kClkRollouts, kClkDisco,
+  kClkDelta, kClkStein, kClkCommit, kClkMpfBw, kClkMpf, kClkLog,
+  kClkPhases,
+  kClockSlots = kClkPhases + 2
+};
+
+// lanes that share one entry's sum over the action samples in the DISCO
+// delta (ops/episode.py:SUM_LANES)
+constexpr int kSumLanes = 8;
+// the blocks of the cluster that runs a single episode (B = 1, K4): a
+// quarter of the demo's 384 pairs each; two were slower, eight no faster
+constexpr int kK4Cluster = 4;
+
 __host__ __device__ inline size_t episode_smem_floats(int m, int hz,
                                                       int n_act, int m_mpf) {
   return 5 * static_cast<size_t>(m) * hz + 3 * static_cast<size_t>(m) * n_act +
          3 * kMaxM * kMaxM + 5 * kMaxM + 5 * kMaxParams + 2 * kWarps + 8 +
-         6 * static_cast<size_t>(m_mpf) + 16;
+         10 * static_cast<size_t>(m_mpf) + 16;
 }
 
-__global__ void __launch_bounds__(kThreads)
+template <bool kClock, bool kCluster>
+__global__ void __launch_bounds__(kThreads, 2)
     pendulum_episode_kernel(EpisodeArgs a) {
   extern __shared__ float sh[];
-  const int b = blockIdx.x;
+  __shared__ long long clk_acc[kClkPhases];
+  // kCluster: the blocks of one cluster share episode 0; block `rank` draws
+  // the noise of its share of the (particle, sample) pairs and rolls them
+  // out, every other phase runs in every block alike (the same bits), and
+  // block 0 writes the results. Otherwise block b runs episode b alone.
+  int rank = 0, n_rank = 1;
+  if constexpr (kCluster) {
+    rank = static_cast<int>(cg::this_cluster().block_rank());
+    n_rank = static_cast<int>(cg::this_cluster().num_blocks());
+  }
+  const int b = kCluster ? 0 : blockIdx.x;
   const int tid = threadIdx.x;
   const int nt = blockDim.x;
   const int m = a.m, hz = a.hz, n_act = a.n_act, n_params = a.n_params;
@@ -91,6 +129,10 @@ __global__ void __launch_bounds__(kThreads)
   const int mh = m * hz;
   const int ma = m * n_act;
   const int n_eps = hz * ma;
+  // this block's pairs [p_begin, p_end)
+  const int share = (ma + n_rank - 1) / n_rank;
+  const int p_begin = min(ma, rank * share);
+  const int p_end = min(ma, p_begin + share);
 
   float* theta = sh;
   float* locs = theta + mh;
@@ -123,6 +165,10 @@ __global__ void __launch_bounds__(kThreads)
   float* st1 = st0 + m_mpf;
   float* sv = st1 + m_mpf;            // simulator and step scalars [16]
   ss.i_star = reinterpret_cast<int*>(sv + 15);
+  float* sn0 = sv + 16;               // MPF new particles
+  float* sn1 = sn0 + m_mpf;
+  float* su0 = sn1 + m_mpf;
+  float* su1 = su0 + m_mpf;
 
   // scal: [th0, om0, ctrl_sigma, lr, alpha, inv_temp, inv_s2, inv_ps2,
   //        mpf_lr, mpf_sigma, prior_bw0, log_mix]
@@ -154,8 +200,11 @@ __global__ void __launch_bounds__(kThreads)
     sv[2] = sc[10];
   }
   __syncthreads();
+  dust_clock::PhaseClock<kClock, kClkPhases> clk(clk_acc);
 
   for (int step = 0; step < a.steps; ++step) {
+    // every block has read the previous step's noise and pair costs
+    if constexpr (kCluster) cg::this_cluster().sync();
     // ---- noise: action eps [hz, m, n_act], draws pdz [P, 2], pdu [P] ----
     float* eps;
     if (a.host_noise) {
@@ -166,15 +215,27 @@ __global__ void __launch_bounds__(kThreads)
     } else {
       eps = a.eps + static_cast<size_t>(b) * n_eps;
       const uint32_t key = rng_key(seed0, seed1, step, scen);
-      for (int e = tid; e < n_eps; e += nt) eps[e] = normal_at(key, e);
+      if constexpr (kCluster) {
+        // the draws of this block's pairs, eps[t * m * n_act + pair]
+        const int n_own = p_end - p_begin;
+        for (int u = tid; u < n_own * hz; u += nt) {
+          const int t = u / n_own;
+          const int e = t * ma + p_begin + (u - t * n_own);
+          eps[e] = normal_at(key, e);
+        }
+      } else {
+        for (int e = tid; e < n_eps; e += nt) eps[e] = normal_at(key, e);
+      }
       if (tid < 2 * n_params) pdz[tid] = normal_at(key, n_eps + tid);
       if (tid < n_params)
         pdu[tid] = uniform_at(key, 2u * (n_eps + 2 * n_params) + tid);
     }
     __syncthreads();
+    clk.mark(kClkNoise);
 
     // ---- Silverman bandwidth of the policy particles ----
     const float bw_sv = silverman(theta, mh, red);
+    clk.mark(kClkSilverman);
 
     // ---- dynamics-parameter draws from the live MPF prior ----
     const float th_s = sv[0], om_s = sv[1], prior_bw = sv[2];
@@ -193,38 +254,63 @@ __global__ void __launch_bounds__(kThreads)
       im[tid] = 1.0f / ms;
     }
     __syncthreads();
+    clk.mark(kClkDraws);
 
     // ---- rollouts + costs ----
-    auto act = [&](int q, int i, int t) {
-      return theta[q * hz + t] + sigma_c * eps[(t * m + q) * n_act + i];
-    };
-    rollout_mcost(th_s, om_s, il, im, n_params, m, hz, n_act, a.rk, act,
-                  mcost);
+    rollout_mcost(
+        th_s, om_s, il, im, n_params, p_begin, p_end, hz, n_act, a.rk,
+        [&](int q, int i, int t) { return eps[(t * m + q) * n_act + i]; },
+        [&](int q, int t, float e) { return theta[q * hz + t] + sigma_c * e; },
+        mcost);
+    if constexpr (kCluster) {
+      // the other blocks' pair costs, over distributed shared memory; their
+      // noise, in device memory, is visible after the cluster barrier too
+      cg::cluster_group cluster = cg::this_cluster();
+      cluster.sync();
+      for (int pair = tid; pair < ma; pair += nt) {
+        const int r = pair / share;
+        if (r != rank) mcost[pair] = cluster.map_shared_rank(mcost, r)[pair];
+      }
+    }
     __syncthreads();
+    clk.mark(kClkRollouts);
     disco_weights(mcost, m, n_act, dk, omega, w_lik, eta, log_l, red);
+    clk.mark(kClkDisco);
 
     // ---- DISCO delta and likelihood gradient: the weights sum to 1, so
     // sum_i w (theta + sigma eps - a_seq) = theta + sigma sum_i w eps -
-    // a_seq, and theta cancels in the gradient ----
-    for (int e = tid; e < mh; e += nt) {
-      const int q = e / hz;
-      const int t = e - q * hz;
-      const float* et = eps + (t * m + q) * n_act;
-      float de = 0.0f, we = 0.0f;
-      for (int i = 0; i < n_act; ++i) {
-        de = de + omega[q * n_act + i] * et[i];
-        we = we + w_lik[q * n_act + i] * et[i];
+    // a_seq, and theta cancels in the gradient; kSumLanes lanes per
+    // entry, lane s taking the samples i = s, s + kSumLanes, ...
+    // (neighbouring noise values), then a butterfly in a fixed order ----
+    {
+      const int sub = tid % kSumLanes;
+      const unsigned mask = lane_group_mask(kSumLanes);
+      for (int e = tid / kSumLanes; e < mh; e += nt / kSumLanes) {
+        const int q = e / hz;
+        const int t = e - q * hz;
+        const float* et = eps + (t * m + q) * n_act;
+        float de = 0.0f, we = 0.0f;
+        for (int i = sub; i < n_act; i += kSumLanes) {
+          de = de + omega[q * n_act + i] * et[i];
+          we = we + w_lik[q * n_act + i] * et[i];
+        }
+        de = lane_group_sum<kSumLanes>(de, mask);
+        we = lane_group_sum<kSumLanes>(we, mask);
+        if (sub == 0) {
+          float delta = theta[e] + sigma_c * de;
+          if (a.aseq != nullptr) delta = delta - a.aseq[t];
+          amat[e] = amat[e] + delta;
+          score[e] = sigma_c * we * inv_s2;
+        }
       }
-      float delta = theta[e] + sigma_c * de;
-      if (a.aseq != nullptr) delta = delta - a.aseq[t];
-      amat[e] = amat[e] + delta;
-      score[e] = sigma_c * we * inv_s2;
     }
     __syncthreads();
+    clk.mark(kClkDelta);
 
     // ---- Stein step + forward ----
     stein_forward(theta, locs, score, &log_mix, 0, log_l, m, hz, bw_sv, lr,
                   inv_ps2, ss, theta_new);
+    clk.mark(kClkStein);
 
     // ---- warm-up gate + commits ----
     const bool active = step >= a.warm_up;
@@ -253,6 +339,7 @@ __global__ void __launch_bounds__(kThreads)
       sv[7] = om2;
       sv[9] = kSwingW * (d * d) + om2 * om2;
     }
+    clk.mark(kClkCommit);
     // ---- MPF update: Silverman bandwidth of the flattened particles,
     // then the Stein loop centered on them with the previous bandwidth ----
     const float bw_mpf = a.fixed_bw
@@ -263,24 +350,36 @@ __global__ void __launch_bounds__(kThreads)
       sc1[i] = sx1[i];
     }
     __syncthreads();
+    clk.mark(kClkMpfBw);
     const float a_cl = sv[5], th2 = sv[6], om2 = sv[7];
-    dust_mpf::stein_loop(sx0, sx1, sc0, sc1, st0, st1, m_mpf, a.mpf_steps,
-                         bw_mpf, prior_bw, mpf_lr, mpf_sigma, th_s, om_s,
-                         a_cl, th2, om2, a.rk.dt, a.half3g, a.log_space);
+    dust_mpf::stein_loop(sx0, sx1, sc0, sc1, st0, st1, sn0, sn1, su0, su1,
+                         m_mpf, a.mpf_steps, bw_mpf, prior_bw, mpf_lr,
+                         mpf_sigma, th_s, om_s, a_cl, th2, om2, a.rk.dt,
+                         a.half3g, a.log_space);
+    clk.mark(kClkMpf);
     if (tid == 0) {
-      float* row = a.log + (static_cast<size_t>(b) * a.steps + step) * 6;
-      row[0] = th2;
-      row[1] = om2;
-      row[2] = sv[4];
-      row[3] = sv[9];
-      row[4] = sv[3];
-      row[5] = bw_mpf;
+      if (rank == 0) {
+        float* row = a.log + (static_cast<size_t>(b) * a.steps + step) * 6;
+        row[0] = th2;
+        row[1] = om2;
+        row[2] = sv[4];
+        row[3] = sv[9];
+        row[4] = sv[3];
+        row[5] = bw_mpf;
+      }
       sv[0] = th2;
       sv[1] = om2;
       sv[2] = bw_mpf;
     }
     __syncthreads();
+    clk.mark(kClkLog);
   }
+  if constexpr (kCluster) {
+    // no block leaves while another may still read its pair costs
+    cg::this_cluster().sync();
+    if (rank != 0) return;
+  }
+  clk.write(a.clock + static_cast<size_t>(b) * kClockSlots);
 
   for (int e = tid; e < mh; e += nt) {
     a.theta_out[b * mh + e] = theta[e];
@@ -293,21 +392,38 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-int launch(int B, const EpisodeArgs& a, void* stream) {
+template <bool kClock>
+int launch(int B, const EpisodeArgs& a, cudaStream_t stream) {
   if (B < 1 || a.m < 1 || a.m > kMaxM || a.n_params < 1 ||
       a.n_params > kMaxParams || a.m_mpf < 1 || a.m_mpf > kThreads ||
       a.hz < 1 || a.n_act < 1)
     return static_cast<int>(cudaErrorInvalidValue);
   const size_t bytes =
       episode_smem_floats(a.m, a.hz, a.n_act, a.m_mpf) * sizeof(float);
+  // a single episode takes a cluster of kK4Cluster blocks; a sweep one
+  // block per episode
+  auto kernel = B == 1 ? pendulum_episode_kernel<kClock, true>
+                       : pendulum_episode_kernel<kClock, false>;
   if (bytes > 48 * 1024) {
     const cudaError_t err = cudaFuncSetAttribute(
-        pendulum_episode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(bytes));
     if (err != cudaSuccess) return static_cast<int>(err);
   }
-  pendulum_episode_kernel<<<B, kThreads, bytes,
-                            static_cast<cudaStream_t>(stream)>>>(a);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(B == 1 ? kK4Cluster : B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = bytes;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = kK4Cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = B == 1 ? 1 : 0;
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, a);
+  if (err != cudaSuccess) return static_cast<int>(err);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -318,22 +434,25 @@ int launch(int B, const EpisodeArgs& a, void* stream) {
 // int32), contiguous; aseq, pdz and pdu may be null (no a_seq term;
 // device-RNG mode). Constants folded by the caller in double precision:
 // xmax = 8 dt, cg = -3 g_model 0.5 dt, ca = 3 dt, half3g = 3 g_model 0.5,
-// gs = -3 g_sim 0.5, log_n_act = log(n_act).
+// gs = -3 g_sim 0.5, log_n_act = log(n_act). clock, when not null, is
+// [B, kClockSlots] int64: the launch then takes the build of the kernel
+// that times the phases of a step (the other build has no clock code).
 extern "C" int dust_pendulum_episodes(
     const float *scal, const float *ep_f, const int *ep_i,
     const float *theta0, const float *locs0, const float *amat0,
     const float *aseq, const float *mpfx0, float *eps, const float *pdz,
     const float *pdu, float *log, float *theta_out, float *locs_out,
-    float *amat_out, float *mpfx_out, int B, int steps, int warm_up, int hz,
-    int m, int n_params, int n_act, int m_mpf, int mpf_steps, float dt,
-    float xmax, float cg, float ca, float half3g, float gs, float log_n_act,
-    int exp_util, int log_space, int fixed_bw, float mpf_fixed_bw,
-    float mpf_bw_scale, int host_noise, void *stream) {
+    float *amat_out, float *mpfx_out, long long *clock, int B, int steps,
+    int warm_up, int hz, int m, int n_params, int n_act, int m_mpf,
+    int mpf_steps, float dt, float xmax, float cg, float ca, float half3g,
+    float gs, float log_n_act, int exp_util, int log_space, int fixed_bw,
+    float mpf_fixed_bw, float mpf_bw_scale, int host_noise, void *stream) {
   EpisodeArgs a{scal, ep_f, ep_i, theta0, locs0, amat0, aseq, mpfx0, eps,
                 pdz, pdu, log, theta_out, locs_out, amat_out, mpfx_out,
-                steps, warm_up, hz, m, n_params, n_act, m_mpf, mpf_steps,
-                RolloutConsts{dt, xmax, cg, ca}, half3g, gs, log_n_act,
+                clock, steps, warm_up, hz, m, n_params, n_act, m_mpf,
+                mpf_steps, RolloutConsts{dt, xmax, cg, ca}, half3g, gs, log_n_act,
                 exp_util, log_space, fixed_bw, mpf_fixed_bw, mpf_bw_scale,
                 host_noise};
-  return launch(B, a, stream);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  return clock != nullptr ? launch<true>(B, a, s) : launch<false>(B, a, s);
 }

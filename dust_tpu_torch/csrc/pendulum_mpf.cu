@@ -18,14 +18,15 @@
 // kernel moves ~1.2 KB and does ~1.4 MFLOP, far below a microsecond of
 // either; it is bound by the latency of its 20 dependent iterations, each
 // a pass over m centers and m particles plus three block barriers.
-// Design: one block of ceil(m/32)*32 threads (m <= 1024), one thread per
-// particle row; particles, centers and the per-row drive terms live in
-// shared memory for the whole loop, so nothing returns to device memory
-// between iterations. The loop itself is `dust_mpf::stein_loop`
-// (pendulum_mpf.cuh), which the whole-episode kernel runs too. The
-// arithmetic follows the plain PyTorch version operation by operation
-// (built with --fmad=false, expf/sinf at full precision); only the order
-// of the sums over j differs.
+// Design: one block of ceil(4m/32)*32 threads (at most 1024), a quad of
+// lanes per particle row, each lane walking a quarter of the columns and
+// the quad's sums meeting in a butterfly; particles, centers, the per-row
+// drive terms and the new particles live in shared memory for the whole
+// loop, so nothing returns to device memory between iterations. The loop
+// itself is `dust_mpf::stein_loop` (pendulum_mpf.cuh), which the
+// whole-episode kernel runs too. The arithmetic follows the plain PyTorch
+// version operation by operation, the order of the sums too (built with
+// --fmad=false, expf/sinf at full precision).
 
 #include <cuda_runtime.h>
 
@@ -46,10 +47,12 @@ __global__ void pendulum_mpf_kernel(const float* __restrict__ x_in,
   float* sc1 = sh + 3 * m;
   float* st0 = sh + 4 * m;  // drive terms s_j - x_j / bw^2
   float* st1 = sh + 5 * m;
+  float* sn0 = sh + 6 * m;  // the new particles
+  float* sn1 = sh + 7 * m;
+  float* su0 = sh + 8 * m;
+  float* su1 = sh + 9 * m;
 
-  const int i = threadIdx.x;
-  const bool row = i < m;
-  if (row) {
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
     sx0[i] = x_in[2 * i];
     sx1[i] = x_in[2 * i + 1];
     sc0[i] = centers[2 * i];
@@ -57,10 +60,11 @@ __global__ void pendulum_mpf_kernel(const float* __restrict__ x_in,
   }
   __syncthreads();
   // scal: [bw, prior_bw, lr, sigma, theta0, theta_d0, action, loc0, loc1]
-  dust_mpf::stein_loop(sx0, sx1, sc0, sc1, st0, st1, m, n_steps, scal[0],
-                       scal[1], scal[2], scal[3], scal[4], scal[5], scal[6],
-                       scal[7], scal[8], dt, half3g, log_space);
-  if (row) {
+  dust_mpf::stein_loop(sx0, sx1, sc0, sc1, st0, st1, sn0, sn1, su0, su1, m,
+                       n_steps, scal[0], scal[1], scal[2], scal[3], scal[4],
+                       scal[5], scal[6], scal[7], scal[8], dt, half3g,
+                       log_space);
+  for (int i = threadIdx.x; i < m; i += blockDim.x) {
     x_out[2 * i] = sx0[i];
     x_out[2 * i + 1] = sx1[i];
   }
@@ -75,8 +79,9 @@ extern "C" int dust_pendulum_mpf_optimize(const float* x, const float* centers,
                                           int m, int n_steps, float dt,
                                           float half3g, int log_space,
                                           void* stream) {
-  const int threads = ((m + 31) / 32) * 32;
-  const size_t shmem = 6 * static_cast<size_t>(m) * sizeof(float);
+  // a quad of lanes per particle row, up to 1024 threads
+  const int threads = min(1024, ((dust_mpf::kRowLanes * m + 31) / 32) * 32);
+  const size_t shmem = 10 * static_cast<size_t>(m) * sizeof(float);
   pendulum_mpf_kernel<<<1, threads, shmem,
                         static_cast<cudaStream_t>(stream)>>>(
       x, centers, scal, x_out, m, n_steps, dt, half3g, log_space);

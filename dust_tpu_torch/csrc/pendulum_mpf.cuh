@@ -3,8 +3,8 @@
 // whole-episode kernel (K4/K5, pendulum_episode.cu).
 //
 // n_steps SVGD iterations on m (length, mass) particles held in shared
-// memory, one thread per particle row (threadIdx.x < m; the block may be
-// wider). Each iteration, for every row i:
+// memory, a quad of lanes per particle row (kRowLanes; the block's quads
+// take the rows in turn). Each iteration, for every row i:
 //   * GMM prior score over the fixed centers with an isotropic bandwidth
 //     (max-subtracted softmax over the centers);
 //   * the hand-derived gradient of the Gaussian observation likelihood
@@ -14,14 +14,20 @@
 //     phi_i = (sum_j k_ij (s_j - x_j/bw^2) + (sum_j k_ij) x_i/bw^2) / m;
 //   * SGD: x_i += lr * phi_i.
 // The arithmetic follows the plain PyTorch version
-// (ops/mpf.py:pendulum_mpf_optimize_plain) operation by operation; only
-// the order of the sums over j differs. Every thread of the block must
-// call it (it synchronises the block).
+// (ops/mpf.py:pendulum_mpf_optimize_plain) operation by operation, the
+// order of the sums over j too: lane l of a row's quad walks the columns
+// j = l, l + 4, ... in order and the quad's partial sums meet in a fixed
+// butterfly, (p0 + p1) + (p2 + p3) (ops/particle_mpf.py:lane_sum). The
+// pairs' exps are one ex2.approx each with log2 e folded into the scale,
+// within ~1e-6 relative of the plain version's exp. Every thread of the block must call it (it
+// synchronises the block).
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
+
+#include "stein.cuh"
 
 namespace dust_mpf {
 
@@ -29,31 +35,61 @@ constexpr float kMaxSpeed = 8.0f;
 constexpr float kMaxTorque = 2.0f;
 constexpr float kPi = 3.14159265358979323846f;
 
+// Lanes per particle row (ops/mpf.py:ROW_LANES).
+constexpr int kRowLanes = 4;
+// The max of v over a row's quad (fmaxf: NaN-ignoring, as the serial walk
+// it replaces; the max is exact, so the order does not matter).
+__device__ __forceinline__ float quad_fmax(float v, unsigned mask) {
+#pragma unroll
+  for (int o = 1; o < kRowLanes; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(mask, v, o));
+  return v;
+}
+
+using dust_solve::ex2;
+using dust_solve::kLog2e;
+
 // sx0/sx1: particles (updated in place); sc0/sc1: prior centers;
-// st0/st1: scratch for the drive terms; all shared, m floats each.
-// theta0/theta_d0: the prediction start; loc0/loc1: the newest
-// observation; half3g = 3 g 0.5.
+// st0/st1 and su0/su1: scratch for the drive terms (odd iterations take
+// su); sn0/sn1: scratch for the new particles (the iterations alternate
+// between sx and sn); all shared, m floats each. One block barrier per
+// iteration: a row's quad reads only its own new row before the next
+// barrier, so a warp barrier orders it. Rows i = g, g + G, ... belong to quad g of the block's G =
+// blockDim.x / 4 quads (blockDim.x a multiple of 32). theta0/theta_d0: the
+// prediction start; loc0/loc1: the newest observation; half3g = 3 g 0.5.
 __device__ inline void stein_loop(float* sx0, float* sx1, const float* sc0,
                                   const float* sc1, float* st0, float* st1,
-                                  int m, int n_steps, float bw, float pbw,
-                                  float lr, float sigma, float theta0,
-                                  float theta_d0, float action, float loc0,
-                                  float loc1, float dt, float half3g,
-                                  int log_space) {
-  const int i = threadIdx.x;
-  const bool row = i < m;
+                                  float* sn0, float* sn1, float* su0,
+                                  float* su1, int m, int n_steps, float bw,
+                                  float pbw, float lr, float sigma,
+                                  float theta0, float theta_d0, float action,
+                                  float loc0, float loc1, float dt,
+                                  float half3g, int log_space) {
+  using dust_solve::lane_group_sum;
+  const int g = threadIdx.x / kRowLanes;
+  const int l = threadIdx.x % kRowLanes;
+  const int groups = blockDim.x / kRowLanes;
+  const unsigned mask = dust_solve::lane_group_mask(kRowLanes);
   const float inv_pbw2 = 1.0f / (pbw * pbw);
   const float inv_bw2 = 1.0f / (bw * bw);
+  // p_j = 2^(D_j cp - max), k_j = 2^(D_j ck), D the squared distance
+  const float cp = -0.5f * inv_pbw2 * kLog2e;
+  const float ck = -0.5f * inv_bw2 * kLog2e;
   const float inv_s2 = 1.0f / (sigma * sigma);
   const float acts = fminf(fmaxf(action, -kMaxTorque), kMaxTorque);
   const float sin_t = sinf(theta0 + kPi);
   const float fm = static_cast<float>(m);
+  float* x0s = sx0;  // this iteration's particles
+  float* x1s = sx1;
+  float* n0s = sn0;  // the next iteration's
+  float* n1s = sn1;
 
   for (int it = 0; it < n_steps; ++it) {
-    float x0 = 0.0f, x1 = 0.0f;
-    if (row) {
-      x0 = sx0[i];
-      x1 = sx1[i];
+    float* const ta = it & 1 ? su0 : st0;  // this iteration's drive terms
+    float* const tb = it & 1 ? su1 : st1;
+    for (int i = g; i < m; i += groups) {
+      const float x0 = x0s[i];
+      const float x1 = x1s[i];
       float length = x0;
       float mass = x1;
       if (log_space) {
@@ -83,49 +119,74 @@ __device__ inline void stein_loop(float* sx0, float* sx1, const float* sc0,
         gl_m = gl_m * mass;
       }
       // ---- GMM prior score over the fixed centers ----
-      float mx = -INFINITY;
-      for (int j = 0; j < m; ++j) {
-        const float d0 = x0 - sc0[j];
-        const float d1 = x1 - sc1[j];
-        mx = fmaxf(mx, -0.5f * (d0 * d0 + d1 * d1) * inv_pbw2);
-      }
       float psum = 0.0f, pc0 = 0.0f, pc1 = 0.0f;
-      for (int j = 0; j < m; ++j) {
+      float mx = -INFINITY;
+#pragma unroll 4
+      for (int j = l; j < m; j += kRowLanes) {
         const float d0 = x0 - sc0[j];
         const float d1 = x1 - sc1[j];
-        const float p = expf(-0.5f * (d0 * d0 + d1 * d1) * inv_pbw2 - mx);
+        mx = fmaxf(mx, (d0 * d0 + d1 * d1) * cp);
+      }
+      mx = quad_fmax(mx, mask);
+#pragma unroll 4
+      for (int j = l; j < m; j += kRowLanes) {
+        const float d0 = x0 - sc0[j];
+        const float d1 = x1 - sc1[j];
+        const float p = ex2((d0 * d0 + d1 * d1) * cp - mx);
         psum = psum + p;
         pc0 = pc0 + p * sc0[j];
         pc1 = pc1 + p * sc1[j];
       }
+      psum = lane_group_sum<kRowLanes>(psum, mask);
+      pc0 = lane_group_sum<kRowLanes>(pc0, mask);
+      pc1 = lane_group_sum<kRowLanes>(pc1, mask);
       const float gp0 = (pc0 / psum - x0) * inv_pbw2;
       const float gp1 = (pc1 / psum - x1) * inv_pbw2;
-      st0[i] = (gl_l + gp0) - x0 * inv_bw2;
-      st1[i] = (gl_m + gp1) - x1 * inv_bw2;
+      if (l == 0) {
+        ta[i] = (gl_l + gp0) - x0 * inv_bw2;
+        tb[i] = (gl_m + gp1) - x1 * inv_bw2;
+      }
     }
     __syncthreads();
 
-    float nx0 = 0.0f, nx1 = 0.0f;
-    if (row) {
+    for (int i = g; i < m; i += groups) {
       // ---- RBF Stein direction, repulsion folded into the drive ----
+      const float x0 = x0s[i];
+      const float x1 = x1s[i];
       float rows = 0.0f, drive0 = 0.0f, drive1 = 0.0f;
-      for (int j = 0; j < m; ++j) {
-        const float d0 = x0 - sx0[j];
-        const float d1 = x1 - sx1[j];
-        const float k = expf(-0.5f * (d0 * d0 + d1 * d1) * inv_bw2);
+#pragma unroll 4
+      for (int j = l; j < m; j += kRowLanes) {
+        const float d0 = x0 - x0s[j];
+        const float d1 = x1 - x1s[j];
+        const float k = ex2((d0 * d0 + d1 * d1) * ck);
         rows = rows + k;
-        drive0 = drive0 + k * st0[j];
-        drive1 = drive1 + k * st1[j];
+        drive0 = drive0 + k * ta[j];
+        drive1 = drive1 + k * tb[j];
       }
-      const float phi0 = (drive0 + rows * x0 * inv_bw2) / fm;
-      const float phi1 = (drive1 + rows * x1 * inv_bw2) / fm;
-      nx0 = x0 + lr * phi0;
-      nx1 = x1 + lr * phi1;
+      rows = lane_group_sum<kRowLanes>(rows, mask);
+      drive0 = lane_group_sum<kRowLanes>(drive0, mask);
+      drive1 = lane_group_sum<kRowLanes>(drive1, mask);
+      if (l == 0) {
+        n0s[i] = x0 + lr * ((drive0 + rows * x0 * inv_bw2) / fm);
+        n1s[i] = x1 + lr * ((drive1 + rows * x1 * inv_bw2) / fm);
+      }
     }
-    __syncthreads();  // every row has read sx before any row writes it
-    if (row) {
-      sx0[i] = nx0;
-      sx1[i] = nx1;
+    // no block barrier: the next iteration's first phase reads only the
+    // quad's own new row and writes the other drive-term buffer; its
+    // barrier orders everything else
+    __syncwarp();
+    float* t0 = x0s;
+    float* t1 = x1s;
+    x0s = n0s;
+    x1s = n1s;
+    n0s = t0;
+    n1s = t1;
+  }
+  __syncthreads();
+  if (x0s != sx0) {  // an odd count of iterations ended in sn
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      sx0[i] = x0s[i];
+      sx1[i] = x1s[i];
     }
     __syncthreads();
   }

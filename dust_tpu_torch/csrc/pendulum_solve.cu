@@ -34,7 +34,7 @@ namespace {
 
 using namespace dust_solve;
 
-__global__ void __launch_bounds__(kThreads) pendulum_solve_kernel(
+__global__ void __launch_bounds__(kThreads, 1) pendulum_solve_kernel(
     const float* __restrict__ scal, const float* __restrict__ theta_in,
     const float* __restrict__ locs_in, const float* __restrict__ log_mix,
     const float* __restrict__ amat, const float* __restrict__ aseq,
@@ -86,11 +86,12 @@ __global__ void __launch_bounds__(kThreads) pendulum_solve_kernel(
   }
   __syncthreads();
 
-  // actions [n_act, m, hz]
+  // actions [n_act, m, hz], taken as they are
   auto act = [&](int q, int i, int t) {
     return actions[(i * m + q) * hz + t];
   };
-  rollout_mcost(th0, om0, il, im, n_params, m, hz, n_act, rk, act, mcost);
+  rollout_mcost(th0, om0, il, im, n_params, 0, ma, hz, n_act, rk, act,
+                [](int, int, float raw) { return raw; }, mcost);
   __syncthreads();
   for (int e = tid; e < ma; e += blockDim.x) {
     const int q = e / n_act;

@@ -36,6 +36,16 @@ __device__ __forceinline__ float minp(float a, float b) {
   return (a < b || a != a) ? a : b;
 }
 
+// 2^v as one ex2.approx (the MPF loops' exps in base 2, log2 e folded into
+// their scales): within ~1e-6 relative of expf at their arguments, at a
+// fraction of its instructions.
+constexpr float kLog2e = 1.4426950408889634f;
+__device__ __forceinline__ float ex2(float v) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
+  return r;
+}
+
 // xor-butterfly reductions: every lane ends with the same bits
 __device__ __forceinline__ float warp_sum(float v) {
   for (int o = 16; o > 0; o >>= 1) v = v + __shfl_xor_sync(0xffffffffu, v, o);
@@ -91,60 +101,82 @@ __device__ inline void block_min(const float* v, int n, float* red,
   __syncthreads();
 }
 
+// The param-averaged cost of every (particle, sample) pair, mcost[pair]
+// = (dcost[pair] + dcost[n + pair] + ...) / n_params with the draws added
+// in draw order (ops/solve.py:rollout_mcost, particle_rollout_mcost);
+// dcost [n_params, n] the draws' trajectory costs. The block's threads
+// take the pairs in turn.
+__device__ inline void sum_draws(const float* dcost, int n_params, int n,
+                                 float* mcost) {
+  const float inv_np = static_cast<float>(1.0 / n_params);
+  for (int pair = threadIdx.x; pair < n; pair += blockDim.x) {
+    float mc = dcost[pair];
+    for (int p = 1; p < n_params; ++p) mc = mc + dcost[p * n + pair];
+    mcost[pair] = mc * inv_np;
+  }
+}
+
 struct DiscoConsts {
   float inv_temp, alpha, log_n_act, inv_n_act;
   int exp_util;
 };
 
+// The DISCO softmax weights om and eta of one particle row, the
+// likelihood's softmax wl and log-likelihood log_l (ops/solve.py:
+// disco_weights), from the row's costs mc [n_act] and the global min beta.
+// One warp calls it (lanes take the samples i = lane, lane + 32, ...).
+__device__ inline void disco_row(const float* mc, int n_act, float beta,
+                                 const DiscoConsts& k, float* om, float* wl,
+                                 float* eta, float* log_l) {
+  const int lane = threadIdx.x & 31;
+  float rmax = -INFINITY, wmax = -INFINITY;
+  for (int i = lane; i < n_act; i += 32) {
+    const float lc = -(mc[i] - beta) * k.inv_temp;
+    const float w = -mc[i] * k.alpha;
+    om[i] = lc;
+    wl[i] = w;
+    rmax = maxp(rmax, lc);
+    wmax = maxp(wmax, w);
+  }
+  rmax = warp_max(rmax);
+  wmax = warp_max(wmax);
+  float se = 0.0f, sw = 0.0f, sc = 0.0f;
+  for (int i = lane; i < n_act; i += 32) {
+    const float e = expf(om[i] - rmax);
+    const float w = expf(wl[i] - wmax);
+    om[i] = e;
+    wl[i] = w;
+    se = se + e;
+    sw = sw + w;
+    sc = sc + mc[i];
+  }
+  se = warp_sum(se);
+  sw = warp_sum(sw);
+  sc = warp_sum(sc);
+  for (int i = lane; i < n_act; i += 32) {
+    om[i] = om[i] / se;
+    wl[i] = wl[i] / sw;
+  }
+  if (lane == 0) {
+    *eta = rmax + logf(se);
+    *log_l = k.exp_util ? (wmax + logf(sw)) - k.log_n_act
+                        : (-k.alpha) * sc * k.inv_n_act;
+  }
+}
+
 // DISCO softmax weights omega and eta per particle, the likelihood's
 // per-particle softmax w_lik and log-likelihood log_l
 // (ops/solve.py:disco_weights). One warp per particle row; mcost, omega,
-// w_lik [m * n_act]; eta, log_l [m]; beta_red: >= kWarps + 1 scratch.
+// w_lik [m * n_act]; eta, log_l [m]; red: >= kWarps + 1 scratch.
 __device__ inline void disco_weights(const float* mcost, int m, int n_act,
                               const DiscoConsts& k, float* omega,
                               float* w_lik, float* eta, float* log_l,
                               float* red) {
   block_min(mcost, m * n_act, red, red + kWarps);
   const float beta = red[kWarps];
-  const int lane = threadIdx.x & 31;
-  for (int q = threadIdx.x >> 5; q < m; q += kWarps) {
-    const float* mc = mcost + q * n_act;
-    float* om = omega + q * n_act;
-    float* wl = w_lik + q * n_act;
-    float rmax = -INFINITY, wmax = -INFINITY;
-    for (int i = lane; i < n_act; i += 32) {
-      const float lc = -(mc[i] - beta) * k.inv_temp;
-      const float w = -mc[i] * k.alpha;
-      om[i] = lc;
-      wl[i] = w;
-      rmax = maxp(rmax, lc);
-      wmax = maxp(wmax, w);
-    }
-    rmax = warp_max(rmax);
-    wmax = warp_max(wmax);
-    float se = 0.0f, sw = 0.0f, sc = 0.0f;
-    for (int i = lane; i < n_act; i += 32) {
-      const float e = expf(om[i] - rmax);
-      const float w = expf(wl[i] - wmax);
-      om[i] = e;
-      wl[i] = w;
-      se = se + e;
-      sw = sw + w;
-      sc = sc + mc[i];
-    }
-    se = warp_sum(se);
-    sw = warp_sum(sw);
-    sc = warp_sum(sc);
-    for (int i = lane; i < n_act; i += 32) {
-      om[i] = om[i] / se;
-      wl[i] = wl[i] / sw;
-    }
-    if (lane == 0) {
-      eta[q] = rmax + logf(se);
-      log_l[q] = k.exp_util ? (wmax + logf(sw)) - k.log_n_act
-                            : (-k.alpha) * sc * k.inv_n_act;
-    }
-  }
+  for (int q = threadIdx.x >> 5; q < m; q += kWarps)
+    disco_row(mcost + q * n_act, n_act, beta, k, omega + q * n_act,
+              w_lik + q * n_act, eta + q, log_l + q);
   __syncthreads();
 }
 

@@ -48,13 +48,21 @@ _FLOAT = ctypes.c_float
 
 # K4 and K5 share one entry (csrc/pendulum_episode.cu)
 _EPISODE_ARGS = (
-    [_VOID_P] * 16                # scal ep_f ep_i theta0 locs0 amat0 aseq mpfx0
+    [_VOID_P] * 17                # scal ep_f ep_i theta0 locs0 amat0 aseq mpfx0
                                   # eps pdz pdu log theta locs amat mpfx
+                                  # clock (null but inside episode.phase_clock)
     + [_INT] * 9                  # B steps warm_up hz m n_params n_act m_mpf mpf_steps
     + [_FLOAT] * 7                # dt xmax cg ca half3g gs log_n_act
     + [_INT] * 3                  # exp_util log_space fixed_bw
     + [_FLOAT] * 2                # mpf_fixed_bw mpf_bw_scale
     + [_INT, _VOID_P]             # host_noise stream
+)
+
+_PARTICLE_SOLVE_ARGS = (
+    [_VOID_P] * 9                 # model scal theta locs log_mix amat aseq actions masses
+    + [_VOID_P] * 7               # theta_opt theta_fwd amat_out a_mix aseq_sel weights costs
+    + [_INT] * 4                  # hz m n_params n_act
+    + [_FLOAT, _INT]              # log_n_act exp_util
 )
 
 # C signatures: name -> argtypes (every pointer and the stream as void*)
@@ -93,12 +101,9 @@ _SIGNATURES = {
         _FLOAT, _FLOAT, _INT,                          # max_acc max_speed log_space
         _VOID_P,                                       # stream
     ],
-    "dust_particle_solve": (
-        [_VOID_P] * 9                                  # model scal theta locs log_mix amat aseq actions masses
-        + [_VOID_P] * 7                                # theta_opt theta_fwd amat_out a_mix aseq_sel weights costs
-        + [_INT] * 4                                   # hz m n_params n_act
-        + [_FLOAT, _INT, _VOID_P]                      # log_n_act exp_util stream
-    ),
+    "dust_particle_solve": _PARTICLE_SOLVE_ARGS + [_VOID_P],  # stream
+    # the clocked build (inside solve.phase_clock)
+    "dust_particle_solve_clock": _PARTICLE_SOLVE_ARGS + [_VOID_P, _VOID_P],  # clock stream
     "dust_particle_episodes": (
         [_VOID_P] * 20                # model scal base_mass ep_i logmix0 theta0 locs0
                                       # amat0 aseq mpfx0 eps pdz pdu log theta locs amat mpfx

@@ -26,9 +26,11 @@ Noise has two modes:
 
 * On CUDA tensors `fused_pendulum_episode` launches the hand-written
   kernel `csrc/pendulum_episode.cu` (which replaces the TPU kernel
-  `dust_tpu/ops/pallas_episode.py:fused_pendulum_episode`): one block runs
-  the whole episode; the solve, the simulator and the MPF loop (K2's
-  device code) follow each other inside it.
+  `dust_tpu/ops/pallas_episode.py:fused_pendulum_episode`): a cluster of
+  four blocks runs the whole episode, sharing out the noise and the
+  rollouts; the solve, the simulator and the MPF loop (K2's device code)
+  follow each other inside it. A sweep (`ops/sweep_episode.py`) runs one
+  block per episode with the same bits.
 * On CPU tensors it runs `pendulum_episode_plain`, the same arithmetic in
   plain PyTorch, batched over episodes (the sweep, `ops/sweep_episode.py`,
   shares it).
@@ -40,6 +42,8 @@ import math
 
 import torch
 
+from .phase_clock import PhaseClock
+
 _MAX_SPEED = 8.0
 _MAX_TORQUE = 2.0
 _SWINGUP_W = 50.0
@@ -47,6 +51,16 @@ _SWINGUP_W = 50.0
 _IQR_NORM = 1.3489795003921634
 _MASK32 = 0xFFFFFFFF
 LOG_FIELDS = ("th", "om", "action", "cost", "bw_sv", "bw_mpf")
+# the phases of one step that the kernel's clocked build times, in order
+# (csrc/pendulum_episode.cu, kClkNoise ... kClkLog)
+CLOCK_PHASES = ("noise", "silverman", "draws", "rollouts", "disco_weights",
+                "disco_delta", "stein_forward", "commit_simulator",
+                "mpf_bandwidth", "mpf_loop", "log")
+# `with phase_clock() as rows:` launches the clocked build
+phase_clock = PhaseClock(CLOCK_PHASES)
+# lanes that share one entry's sum over the action samples in the kernel's
+# DISCO delta (csrc/pendulum_episode.cu:kSumLanes)
+SUM_LANES = 8
 
 
 # -- shared helpers -----------------------------------------------------------
@@ -206,6 +220,7 @@ def pendulum_episode_plain(scal, ep_f, seeds, scenario, theta0, locs0, amat0,
     Returns (log [B, steps, 6], theta, locs, a_mat [B, m, hz],
     mpf_x [B, m_mpf, 2])."""
     from .mpf import pendulum_mpf_optimize_plain
+    from .particle_mpf import lane_sum
     from .solve import disco_weights, rollout_mcost, stein_forward
 
     (th0, om0, sigma_c, lr, alpha, inv_temp, inv_s2, inv_ps2, mpf_lr,
@@ -241,9 +256,9 @@ def pendulum_episode_plain(scal, ep_f, seeds, scenario, theta0, locs0, amat0,
         omega, _, w_lik, log_l = disco_weights(mcost, inv_temp, alpha,
                                                exp_util)
         # delta and likelihood gradient in the theta + sigma*sum(w eps)
-        # form (the weights sum to 1)
-        d_eps = (omega[:, None] * eps_t).sum(dim=-1).transpose(1, 2)
-        w_eps = (w_lik[:, None] * eps_t).sum(dim=-1).transpose(1, 2)
+        # form (the weights sum to 1), the sums in the kernel's order
+        d_eps, w_eps = (lane_sum(w[:, None] * eps_t, SUM_LANES)[..., 0]
+                        .transpose(1, 2) for w in (omega, w_lik))
         delta = theta + sigma_c * d_eps
         if a_seq is not None:
             delta = delta - a_seq
@@ -344,12 +359,13 @@ def run_episodes(wrapper, inputs, st):
     theta, locs, amat = (torch.empty((B, m, hz), dtype=torch.float32,
                                      device=dev) for _ in range(3))
     mpf_x = torch.empty((B, m_mpf, 2), dtype=torch.float32, device=dev)
+    clock = phase_clock.rows(B, dev)
     # every tensor stays referenced here until the launch is queued: a
     # temporary's memory could be handed to the next allocation
     tensors = [c(inputs["scal"]), c(inputs["ep_f"]), ep_i,
                c(inputs["theta0"]), c(inputs["locs0"]), c(inputs["amat0"]),
                c(inputs["a_seq"]), c(inputs["mpfx0"]), eps, c(inputs["pdz"]),
-               c(inputs["pdu"]), log, theta, locs, amat, mpf_x]
+               c(inputs["pdu"]), log, theta, locs, amat, mpf_x, clock]
     rc = load_library().dust_pendulum_episodes(
         *(None if t is None else t.data_ptr() for t in tensors),
         B, st["steps"], st["warm_up"], hz, m, st["n_params"], st["n_act"],

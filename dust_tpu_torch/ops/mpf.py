@@ -10,11 +10,13 @@ Semantics = `MPF(reference_compat=False)`.
 * On CUDA tensors `fused_pendulum_mpf_optimize` launches the hand-written
   kernel `csrc/pendulum_mpf.cu` (which replaces the TPU kernel
   `dust_tpu/ops/pallas_mpf.py:fused_pendulum_mpf_optimize`). It runs as
-  one block with one thread per particle and the particles in shared
+  one block with a quad of lanes per particle and the particles in shared
   memory, so it takes at most `MAX_PARTICLES` particles; it is bound by
   the latency of its dependent iterations, not by bytes or arithmetic.
 * On CPU tensors it runs `pendulum_mpf_optimize_plain`, the same
-  arithmetic in plain PyTorch, operation by operation.
+  arithmetic in plain PyTorch, operation by operation, its sums over j in
+  the kernel's order (the kernel's pairs' exps are ex2.approx, ~1e-6
+  relative from `torch.exp`).
 """
 
 from __future__ import annotations
@@ -23,10 +25,14 @@ import math
 
 import torch
 
+from .particle_mpf import lane_sum
+
 _MAX_SPEED = 8.0
 _MAX_TORQUE = 2.0
-# one CUDA block holds every particle: at most 1024 threads
+# one CUDA block holds every particle
 MAX_PARTICLES = 1024
+# lanes per particle row in the kernel (csrc/pendulum_mpf.cuh:kRowLanes)
+ROW_LANES = 4
 
 
 def _scalars(x, past_obs, loc, action, bw, prior_bw, lr, obs_sigma):
@@ -46,7 +52,10 @@ def pendulum_mpf_optimize_plain(x, prior_locs, scal, n_steps=20, dt=0.05,
                                 g=9.8, log_space=False):
     """Plain PyTorch version of the kernel: x, prior_locs [..., m, 2];
     scal [..., 9] as built by `_scalars` (leading dims batch independent
-    particle sets). Returns the particles after n_steps updates."""
+    particle sets). Returns the particles after n_steps updates. The sums
+    over the particles and centers take the kernel's order (`lane_sum`
+    over ROW_LANES lanes); its pairs' exps are one ex2.approx each, which
+    agree with `torch.exp` here to ~1e-6 relative."""
     bw, pbw, lr, sigma, theta0, theta_d0, action, loc0, loc1 = (
         v[..., None, None] for v in scal.unbind(-1))
     m = x.shape[-2]
@@ -87,18 +96,20 @@ def pendulum_mpf_optimize_plain(x, prior_locs, scal, n_steps=20, dt=0.05,
         d2c = (x0 - c0t) ** 2 + (x1 - c1t) ** 2    # [..., m, m]
         logits = -0.5 * d2c * inv_pbw2
         p = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
-        psum = p.sum(dim=-1, keepdim=True)
-        gp0 = ((p * c0t).sum(dim=-1, keepdim=True) / psum - x0) * inv_pbw2
-        gp1 = ((p * c1t).sum(dim=-1, keepdim=True) / psum - x1) * inv_pbw2
+        psum, pc0, pc1 = lane_sum(torch.stack([p, p * c0t, p * c1t]),
+                                  ROW_LANES)
+        gp0 = (pc0 / psum - x0) * inv_pbw2
+        gp1 = (pc1 / psum - x1) * inv_pbw2
         # ---- RBF Stein direction, repulsion folded into the drive ----
         t0t = ((gl_l + gp0) - x0 * inv_bw2).transpose(-1, -2)
         t1t = ((gl_m + gp1) - x1 * inv_bw2).transpose(-1, -2)
         d2 = ((x0 - x0.transpose(-1, -2)) ** 2
               + (x1 - x1.transpose(-1, -2)) ** 2)
         k = torch.exp(-0.5 * d2 * inv_bw2)
-        rows = k.sum(dim=-1, keepdim=True)
-        phi0 = ((k * t0t).sum(dim=-1, keepdim=True) + rows * x0 * inv_bw2) / m
-        phi1 = ((k * t1t).sum(dim=-1, keepdim=True) + rows * x1 * inv_bw2) / m
+        rows, drive0, drive1 = lane_sum(torch.stack([k, k * t0t, k * t1t]),
+                                        ROW_LANES)
+        phi0 = (drive0 + rows * x0 * inv_bw2) / m
+        phi1 = (drive1 + rows * x1 * inv_bw2) / m
         x0 = x0 + lr * phi0
         x1 = x1 + lr * phi1
     return torch.cat([x0, x1], dim=-1)

@@ -39,41 +39,26 @@ Noise has two modes, as in the pendulum episode (`ops/episode.py`):
 
 from __future__ import annotations
 
-import contextlib
 import math
 
 import torch
 
 from .episode import _normals_at, bits_to_uniform, counter_bits, rng_key
 from .episode import silverman_rows
+from .phase_clock import PhaseClock
 
 LOG_FIELDS = ("px", "py", "vx", "vy", "a_x", "a_y", "cost", "done",
               "crashed", "cum", "bw_sv", "bw_mpf")
 # the phases of one step that the kernel's clocked build times, in order
-# (csrc/particle_episode.cu, kClkNoise ... kClkTail); each clock row holds
-# their clock64 cycles summed over the steps, then the loop's cycles and
-# its nanoseconds
+# (csrc/particle_episode.cu, kClkNoise ... kClkTail)
 CLOCK_PHASES = ("noise", "silverman", "draws", "rollouts", "disco_weights",
                 "disco_delta", "stein_forward", "commit_simulator",
                 "mpf_bandwidth", "mpf_loop", "cost_log")
-_clock_rows = []
+# `with phase_clock() as rows:` launches the clocked build
+phase_clock = PhaseClock(CLOCK_PHASES)
 # lanes that share one entry's sum over the action samples in the kernel's
 # DISCO delta (csrc/particle_episode.cu:kSumLanes)
 SUM_LANES = 8
-
-
-@contextlib.contextmanager
-def phase_clock():
-    """Launches of the kernel inside this context take its clocked build;
-    yields a list that receives each launch's [B, len(CLOCK_PHASES) + 2]
-    int64 clock rows. A measurement aid: the wrappers' results are the
-    same, their time is not the unclocked build's."""
-    rows = []
-    _clock_rows.append(rows)
-    try:
-        yield rows
-    finally:
-        _clock_rows.remove(rows)
 
 
 def particle_device_noise(seeds, scenario, step, hz, m, n_act, n_params):
@@ -304,8 +289,7 @@ def run_particle_episodes(wrapper, inputs, sp, log_mix=False):
     mpf_x = torch.empty((B, m_mpf), dtype=torch.float32, device=dev)
     logmix = torch.empty((B, m), dtype=torch.float32, device=dev) \
         if log_mix else None
-    clock = torch.zeros((B, len(CLOCK_PHASES) + 2), dtype=torch.int64,
-                        device=dev) if _clock_rows else None
+    clock = phase_clock.rows(B, dev)
     # every tensor stays referenced here until the launch is queued: a
     # temporary's memory could be handed to the next allocation
     tensors = [model, c(inputs["scal"]), c(inputs["base_mass"]), ep_i,
@@ -325,8 +309,6 @@ def run_particle_episodes(wrapper, inputs, sp, log_mix=False):
     )
     wrapper.launches += 1
     check(rc, "dust_particle_episodes")
-    if clock is not None:
-        _clock_rows[-1].append(clock)
     return log, theta, locs, amat, mpf_x, logmix
 
 

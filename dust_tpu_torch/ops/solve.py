@@ -5,11 +5,12 @@ navigation (K8): counterpart of `dust_tpu/ops/pallas_solve.py`
 `fused_particle_solve`).
 
 The particle solve (`fused_particle_solve`, kernel
-`csrc/particle_solve.cu`) runs all n_params x m x n_act point-mass
-rollouts with rectangle collisions (`particle_rollout.rollout_costs`'s
-arithmetic), then the same tail as the pendulum's on particles of
-hz * 2 values: DISCO weights, Stein step with the (weighted) mixture
-log-weights, forward, and the "repeat" roll by one step of two values.
+`csrc/particle_solve.cu`, a thread-block cluster of one block per policy
+particle) runs all n_params x m x n_act point-mass rollouts with rectangle
+collisions (`particle_rollout.rollout_costs`'s arithmetic), then the same
+tail as the pendulum's on particles of hz * 2 values: DISCO weights, Stein
+step with the (weighted) mixture log-weights, forward, and the "repeat"
+roll by one step of two values.
 
 One solve: all n_params x m x n_act pendulum rollouts (the rollout state
 is (cos th, sin th, om), advanced by plane rotation with `rot_sincos`) ->
@@ -41,10 +42,20 @@ import math
 import torch
 
 from .episode import rot_sincos
+from .phase_clock import PhaseClock
 
 _MAX_SPEED = 8.0
 _MAX_TORQUE = 2.0
 _SWINGUP_W = 50.0
+# the phases of the particle solve that K8's clocked build times, in order
+# (csrc/particle_solve.cu, kClkLoad ... kClkOutputs)
+CLOCK_PHASES = ("load", "rollouts", "disco_weights", "disco_delta",
+                "stein_forward", "outputs")
+# `with phase_clock() as rows:` launches K8's clocked build
+phase_clock = PhaseClock(CLOCK_PHASES)
+# lanes that share one entry's sum over the action samples in K8's delta
+# (csrc/particle_solve.cu:kSumLanes)
+SUM_LANES = 8
 
 
 def check_dims(hz, m, n_act, dim_a=1):
@@ -319,7 +330,10 @@ def particle_solve_plain(scal, theta, locs, log_mix, a_mat, a_seq, actions,
     with dim_s=4; theta/locs/a_mat [m, hz * 2]; log_mix [m]; a_seq
     [hz * 2]; actions [n_act, m, hz, 2]; masses [n_params]; st the rollout
     statics. Returns the 7 outputs of `fused_particle_solve`, horizon
-    flattened."""
+    flattened. The delta's and the likelihood gradient's sums over the
+    samples take the kernel's order (`lane_sum` over SUM_LANES lanes)."""
+    from .particle_mpf import lane_sum
+
     s0 = scal[:4]
     bw, lr, alpha, inv_temp, inv_s2, inv_ps2 = scal[4:].unbind()
     n_act, m, hz, _ = actions.shape
@@ -331,9 +345,10 @@ def particle_solve_plain(scal, theta, locs, log_mix, a_mat, a_seq, actions,
     mcost = particle_rollout_mcost(s0[None], act, (1.0 / masses)[None], st)
     omega, eta, w_lik, log_l = disco_weights(mcost, inv_temp, alpha,
                                              exp_util)
-    a_qil = actions.reshape(n_act, m, hz * 2).permute(1, 0, 2)
-    delta = (omega[0, :, :, None] * (a_qil - a_seq)).sum(dim=1)
-    wa = (w_lik[0, :, :, None] * a_qil).sum(dim=1)
+    a_qli = actions.reshape(n_act, m, hz * 2).permute(1, 2, 0)
+    delta = lane_sum(omega[0, :, None] * (a_qli - a_seq[:, None]),
+                     SUM_LANES)[..., 0]
+    wa = lane_sum(w_lik[0, :, None] * a_qli, SUM_LANES)[..., 0]
     glik = (wa - theta) * inv_s2
     eta_e = torch.exp(eta - eta.amax(dim=-2, keepdim=True))
     a_mix = (eta_e / eta_e.sum(dim=-2, keepdim=True))[0, :, 0]
@@ -390,12 +405,17 @@ def _particle_solve(plain, state0, theta, locs, log_mix, a_mat, a_seq,
                  torch.empty((ev,), dtype=torch.float32, device=dev),
                  torch.empty((m,), dtype=torch.float32, device=dev),
                  torch.empty((n_act, m), dtype=torch.float32, device=dev)]
-        rc = load_library().dust_particle_solve(
-            model.data_ptr(), scal.data_ptr(), *(t.data_ptr() for t in ins),
-            *(t.data_ptr() for t in outs), hz, m, n_params, n_act,
-            math.log(float(n_act)), int(bool(exp_util)),
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+        args = [model.data_ptr(), scal.data_ptr(),
+                *(t.data_ptr() for t in ins), *(t.data_ptr() for t in outs),
+                hz, m, n_params, n_act, math.log(float(n_act)),
+                int(bool(exp_util))]
+        clock = phase_clock.rows(1, dev)   # block 0's, the whole solve
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        if clock is None:
+            rc = load_library().dust_particle_solve(*args, stream)
+        else:
+            rc = load_library().dust_particle_solve_clock(
+                *args, clock.data_ptr(), stream)
         fused_particle_solve.launches += 1
         check(rc, "particle_solve")
     theta_opt, theta_fwd, amat, a_mix, a_seq_sel, w, costs = outs

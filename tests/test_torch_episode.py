@@ -43,6 +43,22 @@ def _t(a):
     return torch.tensor(np.asarray(a, dtype=np.float32))
 
 
+def _explicit_lane_sum(t, lanes):
+    """The sum over t's last axis as a group of `lanes` kernel lanes takes
+    it, written out in float32: lane l adds j = l, l + lanes, ... in turn
+    from 0, then neighbouring lanes meet pairwise, (p0 + p1) + (p2 + p3)
+    for a quad, ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)) for 8.
+    Keeps the axis."""
+    a = t.numpy().astype(np.float32)
+    acc = [np.zeros(a.shape[:-1], np.float32) for _ in range(lanes)]
+    for j in range(a.shape[-1]):
+        acc[j % lanes] = (acc[j % lanes] + a[..., j]).astype(np.float32)
+    while len(acc) > 1:
+        acc = [(x + y).astype(np.float32)
+               for x, y in zip(acc[0::2], acc[1::2])]
+    return torch.from_numpy(acc[0])[..., None]
+
+
 def _setup(steps, seed=1):
     rng = np.random.default_rng(seed)
     theta0 = (0.3 * rng.normal(size=(M, HZ))).astype(np.float32)
@@ -155,6 +171,30 @@ def test_episode_plain_matches_jax_and_port_composition(warm_up):
         np.testing.assert_allclose(out1["theta"], ref_theta, atol=1e-6)
         np.testing.assert_allclose(out1["a_mat"], ref_amat, atol=1e-6)
         np.testing.assert_allclose(out1["action"][0], ref_action, atol=1e-6)
+
+
+def test_plain_delta_sums_in_the_kernels_lane_order(monkeypatch):
+    """K4/K5's DISCO delta and likelihood gradient sum over the 128 action
+    samples in the kernel's order, 8 lanes per entry
+    (csrc/pendulum_episode.cu:kSumLanes): with `lane_sum` replaced by that
+    order written out, a 2-step episode gives the same bits (two sums of
+    [hz, m, n_act] terms per step, both through that order)."""
+    from dust_tpu_torch.ops import particle_mpf
+
+    setup = _setup(2, seed=3)
+    want = _port(2, 0, *setup)
+    assert tep.SUM_LANES == 8
+    calls = []
+
+    def explicit(t, lanes):
+        calls.append((tuple(t.shape), lanes))
+        return _explicit_lane_sum(t, lanes)
+
+    monkeypatch.setattr(particle_mpf, "lane_sum", explicit)
+    got = _port(2, 0, *setup)
+    for k in want:
+        np.testing.assert_array_equal(got[k], want[k], err_msg=k)
+    assert calls == [((1, HZ, M, NA), 8)] * 4
 
 
 @pytest.mark.parametrize("option", [

@@ -42,6 +42,26 @@ def _t(a):
     return torch.tensor(np.asarray(a, dtype=np.float32))
 
 
+def _explicit_lane_sum(t, lanes):
+    """The sum over t's last axis as a group of `lanes` kernel lanes takes
+    it, written out in float32: lane l adds j = l, l + lanes, ... in turn
+    from 0, then neighbouring lanes meet pairwise, (p0 + p1) + (p2 + p3)
+    for a quad, ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)) for 8.
+    Keeps the axis."""
+    a = t.numpy().astype(np.float32)
+    acc = [np.zeros(a.shape[:-1], np.float32) for _ in range(lanes)]
+    for j in range(a.shape[-1]):
+        acc[j % lanes] = (acc[j % lanes] + a[..., j]).astype(np.float32)
+    while len(acc) > 1:
+        acc = [(x + y).astype(np.float32)
+               for x, y in zip(acc[0::2], acc[1::2])]
+    return torch.from_numpy(acc[0])[..., None]
+
+
+def _plain_sum(t, lanes):
+    return t.sum(dim=-1, keepdim=True)
+
+
 def _liks(log_space):
     j = JLik(obs_std=0.1, model=JPendulum(uncertain_params=("length", "mass")),
              log_space=log_space)
@@ -135,6 +155,31 @@ def test_plain_k2_at_main_path_shapes(log_space):
     assert np.abs(t.numpy() - x).max() > 1e-3      # the particles moved
     np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=RTOL,
                                atol=ATOL)
+
+
+@pytest.mark.parametrize("log_space", [False, True])
+def test_plain_k2_sums_in_the_kernels_quad_order(monkeypatch, log_space):
+    """K2's plain loop takes its six sums over j (the prior weights and
+    weighted centers, the kernel row sums and drives) in the kernel's
+    order, a quad of lanes per row (csrc/pendulum_mpf.cuh:kRowLanes): with
+    `lane_sum` replaced by that order written out, 20 steps at m = 50 (no
+    quad boundary) give the same bits; with a plain sum they do not."""
+    rng = np.random.default_rng(7)
+    x = _init(log_space, seed=7)
+    locs = x + rng.normal(scale=0.02, size=x.shape).astype(np.float32)
+    scal = tmpf._scalars(_t(x), _t([2.9, 0.4]), _t([2.95, 0.9]), _t([1.3]),
+                         0.05, 0.04, 1e-3, 0.1)
+
+    def run():
+        return tmpf.pendulum_mpf_optimize_plain(
+            _t(x), _t(locs), scal, n_steps=20, log_space=log_space)
+
+    want = run()
+    assert tmpf.ROW_LANES == 4
+    monkeypatch.setattr(tmpf, "lane_sum", _explicit_lane_sum)
+    assert torch.equal(run(), want)
+    monkeypatch.setattr(tmpf, "lane_sum", _plain_sum)
+    assert not torch.equal(run(), want)
 
 
 def test_init_state_vector_bandwidth():

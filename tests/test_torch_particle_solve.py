@@ -58,6 +58,21 @@ def _t(a):
     return torch.tensor(np.asarray(a, dtype=np.float32))
 
 
+def _explicit_lane_sum(t, lanes):
+    """The sum over t's last axis as a group of `lanes` kernel lanes takes
+    it, written out in float32: lane l adds j = l, l + lanes, ... in turn
+    from 0, then neighbouring lanes meet pairwise, for 8 lanes
+    ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)). Keeps the axis."""
+    a = t.numpy().astype(np.float32)
+    acc = [np.zeros(a.shape[:-1], np.float32) for _ in range(lanes)]
+    for j in range(a.shape[-1]):
+        acc[j % lanes] = (acc[j % lanes] + a[..., j]).astype(np.float32)
+    while len(acc) > 1:
+        acc = [(x + y).astype(np.float32)
+               for x, y in zip(acc[0::2], acc[1::2])]
+    return torch.from_numpy(acc[0])[..., None]
+
+
 def test_demo_config_equals_yaml():
     assert PARTICLE_DEMO_CONFIG == load_config(YAML)
 
@@ -119,6 +134,39 @@ def test_solve_plain_matches_jax_at_demo_shapes(start, exp_util):
     np.testing.assert_array_equal(theta_fwd[:, -1], theta_opt[:, -1])
     if start == (2.0, 2.0):
         assert t[6].min() > 1e7       # every rollout starts crashed
+
+
+def test_plain_delta_sums_in_the_kernels_lane_order(monkeypatch):
+    """K8's delta and likelihood gradient sum over the 64 action samples in
+    the kernel's order, 8 lanes per entry (csrc/particle_solve.cu:
+    kSumLanes): with `lane_sum` replaced by that order written out, the
+    solve gives the same bits (two sums of [m, hz * 2, n_act] terms, both
+    through that order)."""
+    from dust_tpu_torch.models import Particle as TParticle
+    from dust_tpu_torch.ops import particle_mpf
+
+    tm = TParticle(uncertain_params=["mass"], mass=2.0,
+                   **PARTICLE_DEMO_CONFIG["env_params"])
+    inp = _solve_inputs(3, (-9.0, -9.0))
+    statics = dict(hz=H, m=M, n_params=NP, n_act=NA, dt=0.015, max_acc=10.0,
+                   max_speed=5.0, **particle_kernel_statics(tm))
+
+    def run():
+        return tsolve.fused_particle_solve(*(_t(v) for v in inp.values()),
+                                           *_SCALARS.values(), **statics)
+
+    want = run()
+    assert tsolve.SUM_LANES == 8
+    calls = []
+
+    def explicit(t, lanes):
+        calls.append((tuple(t.shape), lanes))
+        return _explicit_lane_sum(t, lanes)
+
+    monkeypatch.setattr(particle_mpf, "lane_sum", explicit)
+    for name, g, w in zip(_OUTS, run(), want):
+        assert torch.equal(g, w), name
+    assert calls == [((M, 2 * H, NA), 8)] * 2
 
 
 @pytest.mark.parametrize("dims,match", [
