@@ -9,11 +9,14 @@ It builds the checkout's kernels, drives path 11 (`chip_smoke.py`'s
 `phase_fused_mpf_path`: FusedMPF.optimize at m = 2048, 8192, 32768 and with
 fuse_streams), times K11a at m = 2048, d = 1, K11b, K12b and K13 at
 m = 8192 and 32768, d = 2, K2, K3, K7 and K8 at the demos' shapes
-(`chip_smoke._device_ms`), one 200-step K4 and K9 episode (paths 3 and 7)
-and one 256-episode K5 and K10 sweep (paths 4 and 8) between CUDA events
-(median of 3), and hashes the outputs of K13, of K8 and of a 20-step K5
-sweep on fixed seeded inputs (host noise), so that two trees can be held
-bit for bit. It prints one line, `RESULT {json}`. To compare a parent and a change,
+(`chip_smoke._device_ms`; K2 also at m = 1024), one 200-step K4 and K9
+episode (paths 3 and 7) and one 256-episode K5 and K10 sweep (paths 4 and 8) between CUDA
+events (median of 3), and hashes the outputs of K2, K3 (its costs also on
+their own), K13, K8, a 20-step K5 sweep on fixed seeded inputs (host
+noise) and a 200-step K9 episode (device noise), so that two trees can be
+held bit for bit. Where the tree has
+them, it prints K2's and K3's per-phase clocks (their clocked builds,
+`chip_smoke._phase_clock`). It prints one line, `RESULT {json}`. To compare a parent and a change,
 unpack both (`git archive`) and run the script once in each, in the order
 parent, change, change, parent, in one call on one card:
 
@@ -96,6 +99,27 @@ k3_args = cs._k3_inputs(30, 3, 8, 128, (3.0, 0.0), pgen, dev)
 k3_st = dict(hz=30, m=3, n_params=8, n_act=128, exp_util=True)
 res["k3_ms"] = min(cs._device_ms(
     lambda: solve.fused_pendulum_solve(*k3_args, **k3_st)) for _ in range(2))
+# K2's and K3's outputs on those inputs, hashed; K3's costs on their own
+res["k2_sha256"] = sha256(
+    [mpf.fused_pendulum_mpf_optimize(**k2_in, n_steps=20)])
+k3_out = solve.fused_pendulum_solve(*k3_args, **k3_st)
+res["k3_sha256"] = sha256(k3_out)
+res["k3_costs_sha256"] = sha256(k3_out[6:])
+# K2 on its general path (m = 1024)
+k2_big = cs._k2_inputs(1024, (2.9, 0.4), (2.95, 0.9), 1.3, pgen, dev)
+res["k2_ms_1024"] = min(cs._device_ms(
+    lambda: mpf.fused_pendulum_mpf_optimize(**k2_big, n_steps=20))
+    for _ in range(2))
+# the per-phase clocks of K2 and K3, where the tree has them
+if hasattr(mpf, "phase_clock"):
+    res["k2_clock"] = cs._phase_clock(
+        f"{tree} K2", lambda: mpf.fused_pendulum_mpf_optimize(
+            **k2_in, n_steps=20), mpf.phase_clock, steps=1, calls=20,
+        per="call")
+if hasattr(solve, "pendulum_phase_clock"):
+    res["k3_clock"] = cs._phase_clock(
+        f"{tree} K3", lambda: solve.fused_pendulum_solve(*k3_args, **k3_st),
+        solve.pendulum_phase_clock, steps=1, calls=20, per="solve")
 pcfg = copy.deepcopy(PENDULUM_DEMO_CONFIG)
 pstack = build_pendulum_stack(
     pcfg, torch.Generator(device=dev).manual_seed(cs.SEED), case="dust",
@@ -134,6 +158,9 @@ episode = megakernel_particle_episode_fn(stack, cfg["exp_params"],
                                          steps=cs.MAIN_STEPS)
 res["k9_ms_per_episode"] = statistics.median(
     cs._event_ms(lambda: episode([cs.SEED, 1]), 3))
+k9_out = episode([cs.SEED, 1])
+res["k9_sha256"] = sha256(k9_out[k] for k in sorted(k9_out)
+                          if torch.is_tensor(k9_out[k]))
 groups, seeds, masses, _ = cs._bench_particle_sweep(dev, cs.MAIN_STEPS)
 res["k10_ms_per_sweep"] = statistics.median(
     cs._event_ms(lambda: groups.run(seeds(1), masses), 3))

@@ -13,7 +13,8 @@ Phases (any failure raises and exits non-zero):
   2. K1 (rollout costs) against its plain version on the card, at the
      main-path shapes and at an odd shape near the speed clamp;
   3. K2 (the MPF loop) against its plain version, m = 50, 20 steps,
-     log_space off and on, and near the speed clamp;
+     log_space off and on, near the speed clamp, and at m = 64 (the
+     ceiling of its register path), 300 and 1024 (its general path);
   4. the main path: the `dust` stack from PENDULUM_DEMO_CONFIG with the
      fused rollout (K1) and FusedPendulumMPF (K2), 200 MPC steps of
      PendulumSimulation; every kernel must launch once per step, every
@@ -25,9 +26,13 @@ Phases (any failure raises and exits non-zero):
   6. kernel and plain-version times at the main-path shapes, beside the
      bound: device time per call (20 calls in one CUDA graph, median of 7
      replays) and time per call as the main path pays it (CUDA events
-     around one call, median of 100); plain, kernel, kernel, plain;
-  7. K3 (the whole SVMPC solve) against its plain version at the demo
-     shapes and at an odd shape near the speed clamp;
+     around one call, median of 100); plain, kernel, kernel, plain; then
+     20 more K2 calls under its clocked build: the mean time per call of
+     its phases (load, prior score and drive summed over the iterations,
+     store);
+  7. K3 (the whole SVMPC solve, one thread-block cluster of a block per
+     policy particle) against its plain version at the demo shapes, at an
+     odd shape near the speed clamp and at m = 1 and 8;
   8. path 2: the `dust` stack with `fused_solve: true` (K3) and
      FusedPendulumMPF (K2), 200 MPC steps of PendulumSimulation; K3 and K2
      must launch once per step and K1 never;
@@ -50,10 +55,12 @@ Phases (any failure raises and exits non-zero):
      group (bit for bit); after it, the plain sweep on the same
      draws over 200 steps: where the episodes drift apart and how many
      fail to swing up on either side;
- 14. K3, K4 and K5 times beside their bounds: K3 as in phase 6; K4 and K5
-     (one launch each, 20-70 ms) between CUDA events around single calls,
-     their plain versions likewise (one call each: bound by the host
-     launching their operations); then one more K4 and K5 call under the
+ 14. K3, K4 and K5 times beside their bounds: K3 as in phase 6, then 20
+     more K3 solves under its clocked build (load, rollouts, DISCO weights,
+     delta, Stein step, outputs); K4 and K5 (one launch each, 20-70 ms)
+     between CUDA events around single calls, their plain versions
+     likewise (one call each: bound by the host launching their
+     operations); then one more K4 and K5 call under the
      kernel's clocked build: the mean time per step of each phase of the
      step (noise, Silverman, parameter draws, rollouts, DISCO weights, DISCO
      delta, Stein step, commit and simulator, MPF bandwidth, MPF loop, log);
@@ -357,17 +364,26 @@ def phase_k1(dev):
 
 
 def phase_k2(dev):
+    """K2 against its plain version (its sums in the kernel's order): m =
+    50, log space off and on, near the speed clamp; the register path's
+    ceiling (m = REGISTER_MAX) and the general path (m = 300, and m =
+    MAX_PARTICLES)."""
     import torch
 
     from dust_tpu_torch.ops import mpf
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 2)
     errs = {}
-    for label, log_space, past_obs, loc, action in (
-            ("m50 log_space=False", False, (2.9, 0.4), (2.95, 0.9), 1.3),
-            ("m50 log_space=True", True, (2.9, 0.4), (2.95, 0.9), -2.6),
-            ("m50 near speed clamp", False, (0.5, 7.9), (0.6, 8.0), 2.0)):
-        inp = _k2_inputs(50, past_obs, loc, action, gen, dev, log_space)
+    for label, m, log_space, past_obs, loc, action in (
+            ("m50 log_space=False", 50, False, (2.9, 0.4), (2.95, 0.9), 1.3),
+            ("m50 log_space=True", 50, True, (2.9, 0.4), (2.95, 0.9), -2.6),
+            ("m50 near speed clamp", 50, False, (0.5, 7.9), (0.6, 8.0), 2.0),
+            (f"m{mpf.REGISTER_MAX} register ceiling", mpf.REGISTER_MAX, True,
+             (2.9, 0.4), (2.95, 0.9), -1.1),
+            ("m300 general path", 300, True, (2.9, 0.4), (2.95, 0.9), 0.7),
+            (f"m{mpf.MAX_PARTICLES} general path", mpf.MAX_PARTICLES, False,
+             (2.9, 0.4), (2.95, 0.9), 1.3)):
+        inp = _k2_inputs(m, past_obs, loc, action, gen, dev, log_space)
         got = mpf.fused_pendulum_mpf_optimize(**inp, n_steps=20,
                                               log_space=log_space)
         torch.cuda.synchronize()
@@ -376,7 +392,8 @@ def phase_k2(dev):
                             inp["lr"], inp["obs_sigma"])
         want = mpf.pendulum_mpf_optimize_plain(inp["x"], inp["prior_locs"],
                                                scal, n_steps=20,
-                                               log_space=log_space)
+                                               log_space=log_space,
+                                               lanes=mpf.ROW_LANES)
         if (want - inp["x"]).abs().max().item() < 1e-4:
             raise AssertionError(f"K2 {label}: the particles did not move")
         errs[label] = _check_close(f"K2 {label}", got, want, **K2_TOL)
@@ -604,7 +621,7 @@ def phase_timing(dev):
                                                             masses)
     k2 = lambda: mpf.fused_pendulum_mpf_optimize(**inp, n_steps=20)
     k2_plain = lambda: mpf.pendulum_mpf_optimize_plain(
-        inp["x"], inp["prior_locs"], scal, n_steps=20)
+        inp["x"], inp["prior_locs"], scal, n_steps=20, lanes=mpf.ROW_LANES)
     out = {}
     # plain, kernel, kernel, plain: one card, one call
     for name, kern, plain, bound in (
@@ -626,6 +643,9 @@ def phase_timing(dev):
         print(f"time {name}: kernel device {_fmt(k_dev)} ms, per call "
               f"{_fmt(k_call)} ms; plain device {_fmt(p_dev)} ms, per call "
               f"{_fmt(p_call)} ms; bound {bound[0]:.2e} ms ({bound[1]})")
+    # never on a timed path: the clock's marks add barriers
+    out["pendulum_mpf_optimize"]["phase_clock"] = _phase_clock(
+        "K2 (path 1)", k2, mpf.phase_clock, steps=1, calls=20, per="call")
     return out
 
 
@@ -690,7 +710,11 @@ def _episodes_bound(episodes, steps, n_params, m, n_act, hz, m_mpf,
     return _bound(nbytes, ops)
 
 
-def _k3_inputs(hz, m, n_params, n_act, state0, gen, dev):
+def _k3_inputs(hz, m, n_params, n_act, state0, gen, dev, alpha=1.0,
+               temp=1.0):
+    """K3's arguments, seeded: at alpha = temp = 1 the DISCO and likelihood
+    weights are peaked (one sample dominates a row); alpha = 1e-3, temp =
+    1e3 spread them over many samples."""
     import torch
 
     theta = 0.5 * torch.randn((m, hz), generator=gen, device=dev)
@@ -707,7 +731,7 @@ def _k3_inputs(hz, m, n_params, n_act, state0, gen, dev):
         0.6 + 0.7 * torch.rand((n_params,), generator=gen, device=dev),
         # bw, lr, alpha, temp, ctrl_sigma, prior_sigma as device tensors
         # (a CUDA graph capture takes no host-to-device copy)
-        *(torch.tensor(v, device=dev) for v in (0.3, 2.0, 1.0, 1.0, 2.0,
+        *(torch.tensor(v, device=dev) for v in (0.3, 2.0, alpha, temp, 2.0,
                                                 2.0)),
     )
 
@@ -718,7 +742,7 @@ def _k3_plain(args, **statics):
     (state0, theta, locs, log_mix, a_mat, a_seq, actions, lengths, masses,
      bw, lr, alpha, temp, ctrl_sigma, prior_sigma) = args
     scal = solve._solve_scal(state0, bw, lr, alpha, temp, ctrl_sigma,
-                             prior_sigma, theta.device)
+                             prior_sigma, theta.device, dim_s=2)
     return solve.pendulum_solve_plain(
         scal, theta, locs, log_mix, a_mat, a_seq, actions, lengths, masses,
         dt=statics.get("dt", 0.05), g=statics.get("g", 9.8),
@@ -730,24 +754,44 @@ _K3_OUTS = ("theta_opt", "theta_fwd", "a_mat", "a_mix", "a_seq_sel",
 
 
 def phase_k3(dev):
+    """K3 against its plain version: the demo's shapes (both utilities),
+    an odd shape near the speed clamp, the cluster's extremes (m = 1 and
+    8), and soft weights at m = 3 and 8, where many samples carry weight
+    in every lane's partial sum of the delta and the likelihood gradient."""
     import torch
 
     from dust_tpu_torch.ops import solve
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 6)
     worst = 0.0
-    for label, (hz, m, n_params, n_act), state0, exp_util in (
-            ("main 8x3x128 H30", (30, 3, 8, 128), (3.0, 0.0), True),
+    peaked, soft = (1.0, 1.0), (1e-3, 1e3)
+    for label, (hz, m, n_params, n_act), state0, exp_util, (alpha, temp) in (
+            ("main 8x3x128 H30", (30, 3, 8, 128), (3.0, 0.0), True, peaked),
             ("main 8x3x128 H30 ExpectedCost", (30, 3, 8, 128), (3.0, 0.0),
-             False),
+             False, peaked),
             ("odd 3x2x7 H11 near speed clamp", (11, 2, 3, 7), (0.2, 7.9),
-             True)):
-        args = _k3_inputs(hz, m, n_params, n_act, state0, gen, dev)
+             True, peaked),
+            # the cluster's extremes: one block, and eight
+            ("m1 8x1x128 H30", (30, 1, 8, 128), (3.0, 0.0), True, peaked),
+            ("m8 8x8x128 H30", (30, 8, 8, 128), (3.0, 0.0), True, peaked),
+            ("m3 8x3x128 H30 soft weights", (30, 3, 8, 128), (3.0, 0.0),
+             True, soft),
+            ("m8 8x8x128 H30 soft weights", (30, 8, 8, 128), (3.0, 0.0),
+             True, soft)):
+        args = _k3_inputs(hz, m, n_params, n_act, state0, gen, dev,
+                          alpha=alpha, temp=temp)
         statics = dict(hz=hz, m=m, n_params=n_params, n_act=n_act,
                        exp_util=exp_util)
         got = solve.fused_pendulum_solve(*args, **statics)
         torch.cuda.synchronize()
         want = _k3_plain(args, **statics)
+        if (alpha, temp) == soft:
+            omega, _, w_lik, _ = solve.disco_weights(
+                want[6].T[None], 1.0 / temp, alpha, exp_util)
+            top = max(omega.max().item(), w_lik.max().item())
+            if not top < 0.5:
+                raise AssertionError(
+                    f"K3 {label}: the weights are peaked (max {top})")
         for name, g, w in zip(_K3_OUTS, got, want):
             worst = max(worst, _check_close(f"K3 {label} {name}", g, w,
                                             **K3_TOL))
@@ -1297,7 +1341,10 @@ def phase_timing_slice2(dev, config):
         "plain_ms": min(r["device_ms"] for r in runs["plain"]),
         "runs": runs, "bound_ms": bound[0], "bound_by": bound[1],
         "bound_bytes": bound[2], "bound_ops": bound[3],
-        "timed_as": "device time per call, 20 calls in one CUDA graph"}
+        "timed_as": "device time per call, 20 calls in one CUDA graph",
+        "phase_clock": _phase_clock("K3 (path 2)", k3,
+                                    solve.pendulum_phase_clock, steps=1,
+                                    calls=20, per="solve")}
 
     from dust_tpu_torch.experiments import build_pendulum_stack
 
@@ -2031,7 +2078,7 @@ def phase_particle_episode_path(dev):
 
 
 def _phase_clock(label, fn, clock, steps=MAIN_STEPS, calls=1, per="step"):
-    """`calls` more calls of fn (a K4/K5, K8 or K9/K10 launch) under the
+    """`calls` more calls of fn (a K2, K3, K4/K5, K8 or K9/K10 launch) under the
     kernel's clocked build (`clock`, an `ops/phase_clock.PhaseClock`):
     thread 0 of every block stamps clock64 at the block barriers that
     close the phases of a step. Prints, on one line, each phase's mean time

@@ -122,10 +122,11 @@ __global__ void __launch_bounds__(kThreads, 1) particle_solve_kernel(
   ss.i_star = reinterpret_cast<int*>(red + 2 * kWarps + 8);
   float* row_min = red + 2 * kWarps + 9;     // read by the other blocks
 
-  // scal: [x, y, vx, vy, bw, lr, alpha, inv_temp, inv_s2, inv_ps2]
-  const float bw = scal[4], lr = scal[5], inv_s2 = scal[8];
-  const float inv_ps2 = scal[9];
-  const DiscoConsts dk{scal[7], scal[6], log_n_act,
+  // scal: [x, y, vx, vy, bw, lr, alpha, temp, ctrl_sigma, prior_sigma]
+  const float bw = scal[4], lr = scal[5];
+  const float inv_s2 = 1.0f / (scal[8] * scal[8]);
+  const float inv_ps2 = 1.0f / (scal[9] * scal[9]);
+  const DiscoConsts dk{1.0f / scal[7], scal[6], log_n_act,
                        static_cast<float>(1.0 / n_act), exp_util};
   for (int e = tid; e < mh; e += nt) {
     theta[e] = theta_in[e];
@@ -282,7 +283,7 @@ int launch_solve(const float* model, const float* scal, const float* theta,
 }  // namespace
 
 // model: ops/particle_rollout.py:model_tensor; scal [10]: x, y, vx, vy,
-// bw, lr, alpha, inv_temp, inv_s2, inv_ps2. theta/locs/amat/theta_opt/
+// bw, lr, alpha, temp, ctrl_sigma, prior_sigma. theta/locs/amat/theta_opt/
 // theta_fwd/amat_out [m, hz, 2]; log_mix, a_mix, weights [m]; aseq,
 // aseq_sel [hz, 2]; actions [n_act, m, hz, 2]; masses [n_params]; costs
 // [n_act, m]. All device pointers, float32, contiguous; m <= 8,

@@ -352,10 +352,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     __syncthreads();
     clk.mark(kClkMpfBw);
     const float a_cl = sv[5], th2 = sv[6], om2 = sv[7];
-    dust_mpf::stein_loop(sx0, sx1, sc0, sc1, st0, st1, sn0, sn1, su0, su1,
-                         m_mpf, a.mpf_steps, bw_mpf, prior_bw, mpf_lr,
-                         mpf_sigma, th_s, om_s, a_cl, th2, om2, a.rk.dt,
-                         a.half3g, a.log_space);
+    dust_mpf::NoClock mpf_clk;
+    dust_mpf::stein_loop<dust_mpf::kRowLanes>(
+        sx0, sx1, sc0, sc1, st0, st1, sn0, sn1, su0, su1, m_mpf, a.mpf_steps,
+        dust_mpf::mpf_consts(m_mpf, bw_mpf, prior_bw, mpf_lr, mpf_sigma, th_s,
+                             om_s, a_cl, th2, om2, a.rk.dt, a.half3g,
+                             a.log_space),
+        mpf_clk);
     clk.mark(kClkMpf);
     if (tid == 0) {
       if (rank == 0) {

@@ -58,6 +58,20 @@ _EPISODE_ARGS = (
     + [_INT, _VOID_P]             # host_noise stream
 )
 
+_PENDULUM_MPF_ARGS = [
+    _VOID_P, _VOID_P, _VOID_P, _VOID_P,            # x centers scal x_out
+    _INT, _INT,                                    # m n_steps
+    _FLOAT, _FLOAT, _INT,                          # dt half3g log_space
+]
+
+_PENDULUM_SOLVE_ARGS = (
+    [_VOID_P] * 9                 # scal theta locs log_mix amat aseq actions lengths masses
+    + [_VOID_P] * 7               # theta_opt theta_fwd amat_out a_mix aseq_sel weights costs
+    + [_INT] * 4                  # hz m n_params n_act
+    + [_FLOAT] * 5                # dt xmax cg ca log_n_act
+    + [_INT]                      # exp_util
+)
+
 _PARTICLE_SOLVE_ARGS = (
     [_VOID_P] * 9                 # model scal theta locs log_mix amat aseq actions masses
     + [_VOID_P] * 7               # theta_opt theta_fwd amat_out a_mix aseq_sel weights costs
@@ -73,19 +87,12 @@ _SIGNATURES = {
         _FLOAT, _FLOAT, _FLOAT,                        # c_grav c_act dt
         _VOID_P,                                       # stream
     ],
-    "dust_pendulum_mpf_optimize": [
-        _VOID_P, _VOID_P, _VOID_P, _VOID_P,            # x centers scal x_out
-        _INT, _INT,                                    # m n_steps
-        _FLOAT, _FLOAT, _INT,                          # dt half3g log_space
-        _VOID_P,                                       # stream
-    ],
-    "dust_pendulum_solve": (
-        [_VOID_P] * 9                                  # scal theta locs log_mix amat aseq actions lengths masses
-        + [_VOID_P] * 7                                # theta_opt theta_fwd amat_out a_mix aseq_sel weights costs
-        + [_INT] * 4                                   # hz m n_params n_act
-        + [_FLOAT] * 5                                 # dt xmax cg ca log_n_act
-        + [_INT, _VOID_P]                              # exp_util stream
-    ),
+    "dust_pendulum_mpf_optimize": _PENDULUM_MPF_ARGS + [_VOID_P],  # stream
+    # the clocked build (inside mpf.phase_clock)
+    "dust_pendulum_mpf_optimize_clock": _PENDULUM_MPF_ARGS + [_VOID_P, _VOID_P],  # clock stream
+    "dust_pendulum_solve": _PENDULUM_SOLVE_ARGS + [_VOID_P],  # stream
+    # the clocked build (inside solve.pendulum_phase_clock)
+    "dust_pendulum_solve_clock": _PENDULUM_SOLVE_ARGS + [_VOID_P, _VOID_P],  # clock stream
     "dust_pendulum_episodes": _EPISODE_ARGS,
     "dust_particle_rollout_costs": [
         _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,   # model state0 acts masses costs

@@ -219,7 +219,7 @@ def pendulum_episode_plain(scal, ep_f, seeds, scenario, theta0, locs0, amat0,
     n_act], pdz [B, steps, n_params, 2], pdu [B, steps, n_params].
     Returns (log [B, steps, 6], theta, locs, a_mat [B, m, hz],
     mpf_x [B, m_mpf, 2])."""
-    from .mpf import pendulum_mpf_optimize_plain
+    from .mpf import EPISODE_ROW_LANES, pendulum_mpf_optimize_plain
     from .particle_mpf import lane_sum
     from .solve import disco_weights, rollout_mcost, stein_forward
 
@@ -294,8 +294,9 @@ def pendulum_episode_plain(scal, ep_f, seeds, scenario, theta0, locs0, amat0,
             bw_mpf, prior_bw, mpf_lr.expand(B), mpf_sigma.expand(B), th_s,
             om_s, a_cl, th2, om2,
         ], dim=-1)
-        x = pendulum_mpf_optimize_plain(x, x, mscal, n_steps=mpf_steps,
-                                        dt=dt, g=g_model,
+        x = pendulum_mpf_optimize_plain(x, x, mscal,
+                                        lanes=EPISODE_ROW_LANES,
+                                        n_steps=mpf_steps, dt=dt, g=g_model,
                                         log_space=mpf_log_space)
         prior_bw = bw_mpf
         logs.append(torch.stack([th2, om2, action, cost_t, bw_sv, bw_mpf],

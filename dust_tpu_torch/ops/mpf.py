@@ -10,9 +10,10 @@ Semantics = `MPF(reference_compat=False)`.
 * On CUDA tensors `fused_pendulum_mpf_optimize` launches the hand-written
   kernel `csrc/pendulum_mpf.cu` (which replaces the TPU kernel
   `dust_tpu/ops/pallas_mpf.py:fused_pendulum_mpf_optimize`). It runs as
-  one block with a quad of lanes per particle and the particles in shared
-  memory, so it takes at most `MAX_PARTICLES` particles; it is bound by
-  the latency of its dependent iterations, not by bytes or arithmetic.
+  one block with a group of `ROW_LANES` lanes per particle, so it takes at
+  most `MAX_PARTICLES` particles; up to `REGISTER_MAX` particles each lane
+  keeps its centers in registers. It is bound by the latency of its
+  dependent iterations, not by bytes or arithmetic.
 * On CPU tensors it runs `pendulum_mpf_optimize_plain`, the same
   arithmetic in plain PyTorch, operation by operation, its sums over j in
   the kernel's order (the kernel's pairs' exps are ex2.approx, ~1e-6
@@ -26,13 +27,26 @@ import math
 import torch
 
 from .particle_mpf import lane_sum
+from .phase_clock import PhaseClock
 
 _MAX_SPEED = 8.0
 _MAX_TORQUE = 2.0
 # one CUDA block holds every particle
 MAX_PARTICLES = 1024
-# lanes per particle row in the kernel (csrc/pendulum_mpf.cuh:kRowLanes)
-ROW_LANES = 4
+# lanes per particle row in K2 (csrc/pendulum_mpf.cu:kLanes)
+ROW_LANES = 8
+# lanes per particle row in the episode kernels' MPF loop
+# (csrc/pendulum_mpf.cuh:kRowLanes)
+EPISODE_ROW_LANES = 4
+# K2 keeps each lane's centers in registers up to this many particles
+# (csrc/pendulum_mpf.cu:kRegMax)
+REGISTER_MAX = 64
+# the phases of K2 that its clocked build times, in order
+# (csrc/pendulum_mpf.cuh, kClkLoad ... kClkStore); the two of an iteration
+# are summed over the iterations
+CLOCK_PHASES = ("load", "prior_score", "drive_update", "store")
+# `with phase_clock() as rows:` launches K2's clocked build
+phase_clock = PhaseClock(CLOCK_PHASES)
 
 
 def _scalars(x, past_obs, loc, action, bw, prior_bw, lr, obs_sigma):
@@ -48,14 +62,15 @@ def _scalars(x, past_obs, loc, action, bw, prior_bw, lr, obs_sigma):
     ])
 
 
-def pendulum_mpf_optimize_plain(x, prior_locs, scal, n_steps=20, dt=0.05,
-                                g=9.8, log_space=False):
+def pendulum_mpf_optimize_plain(x, prior_locs, scal, *, lanes, n_steps=20,
+                                dt=0.05, g=9.8, log_space=False):
     """Plain PyTorch version of the kernel: x, prior_locs [..., m, 2];
     scal [..., 9] as built by `_scalars` (leading dims batch independent
     particle sets). Returns the particles after n_steps updates. The sums
     over the particles and centers take the kernel's order (`lane_sum`
-    over ROW_LANES lanes); its pairs' exps are one ex2.approx each, which
-    agree with `torch.exp` here to ~1e-6 relative."""
+    over `lanes` lanes: ROW_LANES for K2, EPISODE_ROW_LANES for the
+    episode kernels); its pairs' exps are one ex2.approx each, which agree
+    with `torch.exp` here to ~1e-6 relative."""
     bw, pbw, lr, sigma, theta0, theta_d0, action, loc0, loc1 = (
         v[..., None, None] for v in scal.unbind(-1))
     m = x.shape[-2]
@@ -97,7 +112,7 @@ def pendulum_mpf_optimize_plain(x, prior_locs, scal, n_steps=20, dt=0.05,
         logits = -0.5 * d2c * inv_pbw2
         p = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
         psum, pc0, pc1 = lane_sum(torch.stack([p, p * c0t, p * c1t]),
-                                  ROW_LANES)
+                                  lanes)
         gp0 = (pc0 / psum - x0) * inv_pbw2
         gp1 = (pc1 / psum - x1) * inv_pbw2
         # ---- RBF Stein direction, repulsion folded into the drive ----
@@ -107,7 +122,7 @@ def pendulum_mpf_optimize_plain(x, prior_locs, scal, n_steps=20, dt=0.05,
               + (x1 - x1.transpose(-1, -2)) ** 2)
         k = torch.exp(-0.5 * d2 * inv_bw2)
         rows, drive0, drive1 = lane_sum(torch.stack([k, k * t0t, k * t1t]),
-                                        ROW_LANES)
+                                        lanes)
         phi0 = (drive0 + rows * x0 * inv_bw2) / m
         phi1 = (drive1 + rows * x1 * inv_bw2) / m
         x0 = x0 + lr * phi0
@@ -123,13 +138,14 @@ def fused_pendulum_mpf_optimize(x, prior_locs, past_obs, loc, action, bw,
     the newest observation, action [1]; bw, prior_bw, lr, obs_sigma
     scalars (numbers or tensors). Returns x_final [m, 2].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in `fused_pendulum_mpf_optimize.launches`)."""
+    CPU tensors take the plain version (its sums in K2's order, ROW_LANES
+    lanes per row); CUDA tensors launch the kernel (counted in
+    `fused_pendulum_mpf_optimize.launches`)."""
     scal = _scalars(x, past_obs, loc, action, bw, prior_bw, lr, obs_sigma)
     if x.device.type == "cpu":
         return pendulum_mpf_optimize_plain(
             x, prior_locs, scal, n_steps=n_steps, dt=dt, g=g,
-            log_space=log_space,
+            log_space=log_space, lanes=ROW_LANES,
         )
     if x.device.type != "cuda":
         raise ValueError(f"unsupported device {x.device}")
@@ -149,11 +165,16 @@ def fused_pendulum_mpf_optimize(x, prior_locs, past_obs, loc, action, bw,
     x = x.contiguous()
     centers = prior_locs.contiguous()
     out = torch.empty_like(x)
-    rc = load_library().dust_pendulum_mpf_optimize(
-        x.data_ptr(), centers.data_ptr(), scal.data_ptr(), out.data_ptr(),
-        m, int(n_steps), float(dt), 3.0 * g * 0.5, int(bool(log_space)),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    args = [x.data_ptr(), centers.data_ptr(), scal.data_ptr(),
+            out.data_ptr(), m, int(n_steps), float(dt), 3.0 * g * 0.5,
+            int(bool(log_space))]
+    clock = phase_clock.rows(1, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if clock is None:
+        rc = load_library().dust_pendulum_mpf_optimize(*args, stream)
+    else:
+        rc = load_library().dust_pendulum_mpf_optimize_clock(
+            *args, clock.data_ptr(), stream)
     fused_pendulum_mpf_optimize.launches += 1
     check(rc, "pendulum_mpf_optimize")
     return out

@@ -24,8 +24,9 @@ reference_compat=False, roll_strategy="repeat", n_steps=1)` over a
 
 * On CUDA tensors `fused_pendulum_solve` launches the hand-written kernel
   `csrc/pendulum_solve.cu` (which replaces the TPU kernel
-  `dust_tpu/ops/pallas_solve.py:fused_pendulum_solve`): one block per
-  solve, bound by the latency of its dependent phases, not by bytes or
+  `dust_tpu/ops/pallas_solve.py:fused_pendulum_solve`): a thread-block
+  cluster of one block per policy particle, as the particle solve's,
+  bound by the latency of its dependent phases, not by bytes or
   arithmetic.
 * On CPU tensors it runs `pendulum_solve_plain`, the same arithmetic in
   plain PyTorch.
@@ -47,14 +48,17 @@ from .phase_clock import PhaseClock
 _MAX_SPEED = 8.0
 _MAX_TORQUE = 2.0
 _SWINGUP_W = 50.0
-# the phases of the particle solve that K8's clocked build times, in order
-# (csrc/particle_solve.cu, kClkLoad ... kClkOutputs)
+# the phases of a solve that the clocked builds of K3 and K8 time, in
+# order (csrc/pendulum_solve.cu and csrc/particle_solve.cu, kClkLoad ...
+# kClkOutputs)
 CLOCK_PHASES = ("load", "rollouts", "disco_weights", "disco_delta",
                 "stein_forward", "outputs")
 # `with phase_clock() as rows:` launches K8's clocked build
 phase_clock = PhaseClock(CLOCK_PHASES)
-# lanes that share one entry's sum over the action samples in K8's delta
-# (csrc/particle_solve.cu:kSumLanes)
+# `with pendulum_phase_clock() as rows:` launches K3's clocked build
+pendulum_phase_clock = PhaseClock(CLOCK_PHASES)
+# lanes that share one entry's sum over the action samples in K3's and
+# K8's delta (csrc/pendulum_solve.cu, csrc/particle_solve.cu: kSumLanes)
 SUM_LANES = 8
 
 
@@ -127,26 +131,32 @@ def disco_weights(mcost, inv_temp, alpha, exp_util):
     return omega, eta, w_lik, log_l
 
 
-def _prior_logits(theta, locs, log_mix, neg_half_ips2):
-    """[B, m(q), m(c)] GMM component log-probs (+ mixture log-weights)."""
+def _prior_logits(theta, locs, log_mix, neg_half_ips2, lanes=None):
+    """[B, m(q), m(c)] GMM component log-probs (+ mixture log-weights);
+    with `lanes`, each squared distance summed over the horizon in the
+    order of a group of that many kernel lanes (`lane_sum`)."""
+    from .particle_mpf import lane_sum
+
     m = theta.shape[1]
     cols = []
     for c in range(m):
         diff = theta - locs[:, c:c + 1]
         lm = log_mix if log_mix.ndim < 2 else log_mix[:, c:c + 1, None]
-        cols.append(neg_half_ips2 * (diff * diff).sum(dim=-1, keepdim=True)
-                    + lm)
+        d2 = (diff * diff).sum(dim=-1, keepdim=True) if lanes is None \
+            else lane_sum(diff * diff, lanes)
+        cols.append(neg_half_ips2 * d2 + lm)
     return torch.cat(cols, dim=-1)
 
 
 def stein_forward(theta, locs, glik, log_mix, bw, lr, inv_ps2, log_l,
-                  dim_a=1):
+                  dim_a=1, new_lanes=None):
     """Stein direction + SGD step, then the forward pass (weights,
     first-argmax selection, "repeat" roll by one step of `dim_a` values).
     theta/locs/glik [B, m, hz * dim_a] (the horizon flattened); log_mix a
-    scalar or [B, m]; bw [B]; log_l [B, m, 1]. Returns (theta_new,
-    theta_fwd [B, m, hz * dim_a], weights [B, m], a_seq_sel
-    [B, hz * dim_a])."""
+    scalar or [B, m]; bw [B]; log_l [B, m, 1]; new_lanes: the new
+    particles' logits sum over the horizon in the order of that many
+    kernel lanes (K3's). Returns (theta_new, theta_fwd [B, m, hz * dim_a],
+    weights [B, m], a_seq_sel [B, hz * dim_a])."""
     m = theta.shape[1]
     bw = bw.reshape(-1, 1, 1)
     inv_bw2 = 1.0 / (bw * bw)
@@ -177,7 +187,8 @@ def stein_forward(theta, locs, glik, log_mix, bw, lr, inv_ps2, log_l,
     phi = (k_score + grad_k) * (1.0 / m)
     theta_new = theta + lr * phi
 
-    lp_new = _prior_logits(theta_new, locs, log_mix, neg_half_ips2)
+    lp_new = _prior_logits(theta_new, locs, log_mix, neg_half_ips2,
+                           new_lanes)
     n_max = lp_new.amax(dim=-1, keepdim=True)
     log_p = n_max + torch.log(torch.exp(lp_new - n_max).sum(dim=-1,
                                                           keepdim=True))
@@ -199,27 +210,36 @@ def stein_forward(theta, locs, glik, log_mix, bw, lr, inv_ps2, log_l,
 
 
 def _solve_scal(state0, bw, lr, alpha, temp, ctrl_sigma, prior_sigma,
-                device, dim_s=2):
-    """[state0 (dim_s values), bw, lr, alpha, inv_temp, inv_s2, inv_ps2]
-    as one float32 tensor on `device` (as `pallas_solve.py:_solve_scal`;
-    the mixture log-weights travel as their own tensor)."""
+                device, dim_s):
+    """[state0 (dim_s values), bw, lr, alpha, temp, ctrl_sigma,
+    prior_sigma] as one float32 tensor on `device`: the values as they
+    come, gathered by one concatenation (the kernels K3 and K8 and their
+    plain versions take the reciprocals themselves, so the call launches
+    no arithmetic of its own; the mixture log-weights travel as their own
+    tensor)."""
     def f(v):
         return torch.as_tensor(v, dtype=torch.float32,
                                device=device).reshape(-1)
 
-    return torch.cat([
-        f(state0)[:dim_s], f(bw), f(lr), f(alpha), 1.0 / f(temp),
-        1.0 / f(ctrl_sigma) ** 2, 1.0 / f(prior_sigma) ** 2,
-    ])
+    return torch.cat([f(state0)[:dim_s], *(f(v) for v in (
+        bw, lr, alpha, temp, ctrl_sigma, prior_sigma))])
 
 
 def pendulum_solve_plain(scal, theta, locs, log_mix, a_mat, a_seq, actions,
                          lengths, masses, dt=0.05, g=9.8, exp_util=True):
-    """Plain PyTorch version of the kernel. scal as built by `_solve_scal`;
-    theta/locs/a_mat [m, hz]; log_mix [m]; a_seq [hz]; actions
-    [n_act, m, hz]; lengths/masses [n_params]. Returns the 7 outputs of
-    `fused_pendulum_solve`."""
-    th0, om0, bw, lr, alpha, inv_temp, inv_s2, inv_ps2 = scal.unbind()
+    """Plain PyTorch version of the kernel. scal as built by `_solve_scal`
+    with dim_s=2; theta/locs/a_mat [m, hz]; log_mix [m]; a_seq [hz];
+    actions [n_act, m, hz]; lengths/masses [n_params]. Returns the 7
+    outputs of `fused_pendulum_solve`. The delta's and the likelihood
+    gradient's sums over the samples, and the new particles' logits' sums
+    over the horizon, take the kernel's order (`lane_sum` over SUM_LANES
+    lanes)."""
+    from .particle_mpf import lane_sum
+
+    th0, om0, bw, lr, alpha, temp, ctrl_sigma, prior_sigma = scal.unbind()
+    inv_temp = 1.0 / temp
+    inv_s2 = 1.0 / ctrl_sigma ** 2
+    inv_ps2 = 1.0 / prior_sigma ** 2
     acts = actions.permute(2, 1, 0).unsqueeze(0)            # [1, hz, m, n_act]
     mcost = rollout_mcost(th0.reshape(1), om0.reshape(1), acts,
                           (1.0 / lengths).reshape(1, -1),
@@ -228,15 +248,16 @@ def pendulum_solve_plain(scal, theta, locs, log_mix, a_mat, a_seq, actions,
                                              exp_util)
     # delta_q = sum_i omega[q, i] (a[i, q, :] - a_seq); the likelihood
     # gradient (sum_i w[q, i] a[i, q, :] - theta_q) / sigma^2
-    a_qit = actions.permute(1, 0, 2)                        # [m, n_act, hz]
-    delta = (omega[0, :, :, None] * (a_qit - a_seq)).sum(dim=1)
-    wa = (w_lik[0, :, :, None] * a_qit).sum(dim=1)
+    a_qti = actions.permute(1, 2, 0)                        # [m, hz, n_act]
+    delta = lane_sum(omega[0, :, None] * (a_qti - a_seq[:, None]),
+                     SUM_LANES)[..., 0]
+    wa = lane_sum(w_lik[0, :, None] * a_qti, SUM_LANES)[..., 0]
     glik = (wa - theta) * inv_s2
     eta_e = torch.exp(eta - eta.amax(dim=-2, keepdim=True))
     a_mix = (eta_e / eta_e.sum(dim=-2, keepdim=True))[0, :, 0]
     theta_new, theta_fwd, weights, a_seq_sel = stein_forward(
         theta[None], locs[None], glik[None], log_mix[None], bw.reshape(1),
-        lr, inv_ps2, log_l)
+        lr, inv_ps2, log_l, new_lanes=SUM_LANES)
     return (theta_new[0], theta_fwd[0], a_mat + delta, a_mix, a_seq_sel[0],
             weights[0], mcost[0].T)
 
@@ -259,7 +280,7 @@ def fused_pendulum_solve(state0, theta, locs, log_mix, a_mat, a_seq, actions,
     check_dims(hz, m, n_act)
     dev = theta.device
     scal = _solve_scal(state0, bw, lr, alpha, temp, ctrl_sigma, prior_sigma,
-                       dev)
+                       dev, dim_s=2)
     if tuple(actions.shape) != (n_act, m, hz) or tuple(theta.shape) != (m, hz):
         raise ValueError("expected theta [m, hz] and actions [n_act, m, hz]")
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
@@ -286,14 +307,19 @@ def fused_pendulum_solve(state0, theta, locs, log_mix, a_mat, a_seq, actions,
     a_seq_sel = torch.empty((hz,), dtype=torch.float32, device=dev)
     weights = torch.empty((m,), dtype=torch.float32, device=dev)
     costs = torch.empty((n_act, m), dtype=torch.float32, device=dev)
-    rc = load_library().dust_pendulum_solve(
-        scal.data_ptr(), *(t.data_ptr() for t in ins),
-        *(t.data_ptr() for t in outs), a_mix.data_ptr(),
-        a_seq_sel.data_ptr(), weights.data_ptr(), costs.data_ptr(),
-        hz, m, n_params, n_act, float(dt), _MAX_SPEED * dt,
-        -3.0 * g * 0.5 * dt, 3.0 * dt, math.log(float(n_act)),
-        int(bool(exp_util)), torch.cuda.current_stream(dev).cuda_stream,
-    )
+    args = [scal.data_ptr(), *(t.data_ptr() for t in ins),
+            *(t.data_ptr() for t in outs), a_mix.data_ptr(),
+            a_seq_sel.data_ptr(), weights.data_ptr(), costs.data_ptr(),
+            hz, m, n_params, n_act, float(dt), _MAX_SPEED * dt,
+            -3.0 * g * 0.5 * dt, 3.0 * dt, math.log(float(n_act)),
+            int(bool(exp_util))]
+    clock = pendulum_phase_clock.rows(1, dev)   # block 0's, the whole solve
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if clock is None:
+        rc = load_library().dust_pendulum_solve(*args, stream)
+    else:
+        rc = load_library().dust_pendulum_solve_clock(
+            *args, clock.data_ptr(), stream)
     fused_pendulum_solve.launches += 1
     check(rc, "pendulum_solve")
     return (outs[0], outs[1], outs[2], a_mix, a_seq_sel, weights, costs)
@@ -335,7 +361,10 @@ def particle_solve_plain(scal, theta, locs, log_mix, a_mat, a_seq, actions,
     from .particle_mpf import lane_sum
 
     s0 = scal[:4]
-    bw, lr, alpha, inv_temp, inv_s2, inv_ps2 = scal[4:].unbind()
+    bw, lr, alpha, temp, ctrl_sigma, prior_sigma = scal[4:].unbind()
+    inv_temp = 1.0 / temp
+    inv_s2 = 1.0 / ctrl_sigma ** 2
+    inv_ps2 = 1.0 / prior_sigma ** 2
     n_act, m, hz, _ = actions.shape
 
     def act(t):

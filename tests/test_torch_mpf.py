@@ -157,13 +157,16 @@ def test_plain_k2_at_main_path_shapes(log_space):
                                atol=ATOL)
 
 
+@pytest.mark.parametrize("lanes", [4, 8])
 @pytest.mark.parametrize("log_space", [False, True])
-def test_plain_k2_sums_in_the_kernels_quad_order(monkeypatch, log_space):
-    """K2's plain loop takes its six sums over j (the prior weights and
+def test_plain_k2_sums_in_the_kernels_quad_order(monkeypatch, log_space,
+                                                 lanes):
+    """The plain MPF loop takes its six sums over j (the prior weights and
     weighted centers, the kernel row sums and drives) in the kernel's
-    order, a quad of lanes per row (csrc/pendulum_mpf.cuh:kRowLanes): with
-    `lane_sum` replaced by that order written out, 20 steps at m = 50 (no
-    quad boundary) give the same bits; with a plain sum they do not."""
+    order, a group of lanes per row: a quad in the episode kernels
+    (csrc/pendulum_mpf.cuh:kRowLanes), 8 lanes in K2 (csrc/pendulum_mpf.cu):
+    with `lane_sum` replaced by that order written out, 20 steps at m = 50
+    give the same bits; with a plain sum they do not."""
     rng = np.random.default_rng(7)
     x = _init(log_space, seed=7)
     locs = x + rng.normal(scale=0.02, size=x.shape).astype(np.float32)
@@ -172,14 +175,56 @@ def test_plain_k2_sums_in_the_kernels_quad_order(monkeypatch, log_space):
 
     def run():
         return tmpf.pendulum_mpf_optimize_plain(
-            _t(x), _t(locs), scal, n_steps=20, log_space=log_space)
+            _t(x), _t(locs), scal, n_steps=20, log_space=log_space,
+            lanes=lanes)
 
     want = run()
-    assert tmpf.ROW_LANES == 4
+    assert (tmpf.EPISODE_ROW_LANES, tmpf.ROW_LANES) == (4, 8)
     monkeypatch.setattr(tmpf, "lane_sum", _explicit_lane_sum)
     assert torch.equal(run(), want)
     monkeypatch.setattr(tmpf, "lane_sum", _plain_sum)
     assert not torch.equal(run(), want)
+
+
+@pytest.mark.parametrize("lanes", [4, 8])
+@pytest.mark.parametrize("m", [37, 64])
+def test_plain_k2_lane_counts_match_jax(m, lanes):
+    """The plain MPF loop at the lane counts of the kernels (a quad in the
+    episode kernels, 8 in K2), in log space, at a width on no lane
+    boundary (m = 37) and at K2's register ceiling (m = REGISTER_MAX),
+    against JAX's K2 in interpret mode; the lane count changes only the
+    order of the sums."""
+    assert tmpf.REGISTER_MAX == 64
+    rng = np.random.default_rng(m + lanes)
+    x = np.log(rng.uniform(0.6, 1.3, size=(m, 2))).astype(np.float32)
+    locs = x + rng.normal(scale=0.02, size=x.shape).astype(np.float32)
+    obs = dict(past_obs=np.array([2.9, 0.4], np.float32),
+               loc=np.array([2.95, 0.9], np.float32),
+               action=np.array([-2.6], np.float32))
+    j = j_mpf_optimize(jnp.asarray(x), jnp.asarray(locs),
+                       *(jnp.asarray(v) for v in obs.values()), 0.05, 0.04,
+                       1e-3, 0.1, n_steps=20, dt=0.05, g=9.8, log_space=True,
+                       interpret=True)
+    scal = tmpf._scalars(_t(x), *(_t(v) for v in obs.values()), 0.05, 0.04,
+                         1e-3, 0.1)
+    t = tmpf.pendulum_mpf_optimize_plain(_t(x), _t(locs), scal, n_steps=20,
+                                         log_space=True, lanes=lanes)
+    assert np.abs(t.numpy() - x).max() > 1e-3      # the particles moved
+    np.testing.assert_allclose(t.numpy(), np.asarray(j), rtol=RTOL,
+                               atol=ATOL)
+
+
+def test_plain_k2_needs_its_lane_count():
+    """The plain MPF loop reproduces one kernel's sum order, so every
+    caller names it: K2's ROW_LANES or the episode kernels'
+    EPISODE_ROW_LANES; without it the call raises."""
+    x = _t(_init(False))
+    scal = tmpf._scalars(x, _t([2.9, 0.4]), _t([2.95, 0.9]), _t([1.3]),
+                         0.05, 0.04, 1e-3, 0.1)
+    with pytest.raises(TypeError, match="lanes"):
+        tmpf.pendulum_mpf_optimize_plain(x, x, scal, n_steps=2)
+    assert tmpf.pendulum_mpf_optimize_plain(
+        x, x, scal, lanes=tmpf.ROW_LANES, n_steps=2).shape == x.shape
 
 
 def test_init_state_vector_bandwidth():

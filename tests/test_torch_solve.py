@@ -46,11 +46,12 @@ def _t(a):
     return torch.tensor(np.asarray(a, dtype=np.float32))
 
 
-def _solve_inputs(seed=0, hz=H, m=M, n_params=NP, n_act=NA):
+def _solve_inputs(seed=0, hz=H, m=M, n_params=NP, n_act=NA,
+                  state0=(3.0, 0.0)):
     rng = np.random.default_rng(seed)
     theta = (0.5 * rng.normal(size=(m, hz))).astype(np.float32)
     return dict(
-        state0=np.array([3.0, 0.0], np.float32),
+        state0=np.array(state0, np.float32),
         theta=theta,
         locs=(theta + 0.1 * rng.normal(size=(m, hz))).astype(np.float32),
         log_mix=np.log(np.full(m, 1.0 / m, np.float32)),
@@ -91,6 +92,103 @@ def test_solve_plain_matches_jax_at_demo_shapes(exp_util):
     assert any(np.array_equal(t[4].numpy(), row) for row in theta_opt)
     np.testing.assert_array_equal(theta_fwd[:, :-1], theta_opt[:, 1:])
     np.testing.assert_array_equal(theta_fwd[:, -1], theta_opt[:, -1])
+
+
+_OUTS = ("theta_opt", "theta_fwd", "a_mat", "a_mix", "a_seq_sel", "weights",
+         "costs")
+
+
+@pytest.mark.parametrize("hz,m,n_params,n_act,state0", [
+    (30, 1, 8, 128, (3.0, 0.0)),     # the kernel's cluster of one block
+    (30, 8, 8, 128, (3.0, 0.0)),     # of eight, the portable maximum
+    (11, 2, 3, 7, (0.2, 7.9)),       # odd shapes near the speed clamp
+])
+def test_solve_plain_matches_jax_at_cluster_extremes(hz, m, n_params, n_act,
+                                                     state0):
+    """K3's plain version, its delta in the kernel's 8-lane order, against
+    JAX's K3 in interpret mode at the extremes of the kernel's cluster
+    (one block per policy particle) and at an odd shape."""
+    inp = _solve_inputs(seed=m, hz=hz, m=m, n_params=n_params, n_act=n_act,
+                        state0=state0)
+    statics = dict(hz=hz, m=m, n_params=n_params, n_act=n_act, dt=0.05,
+                   g=9.8, exp_util=True)
+    j = j_solve(*(jnp.asarray(v) for v in inp.values()),
+                *_SCALARS.values(), interpret=True, **statics)
+    t = tsolve.fused_pendulum_solve(*(_t(v) for v in inp.values()),
+                                    *_SCALARS.values(), **statics)
+    for name, a, b in zip(_OUTS, j, t):
+        tol = K1_TOL if name in ("costs", "weights") else STEP_TOL
+        np.testing.assert_allclose(b.numpy(), np.asarray(a), err_msg=name,
+                                   **tol)
+
+
+def _explicit_lane_sum(t, lanes):
+    """The sum over t's last axis as a group of `lanes` kernel lanes takes
+    it, written out in float32: lane l adds i = l, l + lanes, ... in turn
+    from 0, then neighbouring lanes meet pairwise, for 8 lanes
+    ((p0 + p1) + (p2 + p3)) + ((p4 + p5) + (p6 + p7)). Keeps the axis."""
+    a = t.numpy().astype(np.float32)
+    acc = [np.zeros(a.shape[:-1], np.float32) for _ in range(lanes)]
+    for j in range(a.shape[-1]):
+        acc[j % lanes] = (acc[j % lanes] + a[..., j]).astype(np.float32)
+    while len(acc) > 1:
+        acc = [(x + y).astype(np.float32)
+               for x, y in zip(acc[0::2], acc[1::2])]
+    return torch.from_numpy(acc[0])[..., None]
+
+
+def test_plain_delta_sums_in_the_kernels_lane_order(monkeypatch):
+    """K3's delta and likelihood gradient sum over the 128 action samples
+    in the kernel's order, 8 lanes per entry, and the new particles'
+    prior logits over the horizon, 8 lanes per particle pair
+    (csrc/pendulum_solve.cu:kSumLanes): with `lane_sum` replaced by that
+    order written out, the solve gives the same bits (two sums of
+    [m, hz, n_act] terms and m of [1, m, hz], all through that order);
+    with a plain sum the plan update and the particles do not."""
+    from dust_tpu_torch.ops import particle_mpf
+
+    inp = _solve_inputs(seed=4)
+    statics = dict(hz=H, m=M, n_params=NP, n_act=NA)
+    # soft weights (high temperature, low alpha), so that many samples
+    # carry weight in both sums
+    scalars = dict(_SCALARS, alpha=1e-3, temp=1e3)
+
+    def run():
+        return tsolve.fused_pendulum_solve(*(_t(v) for v in inp.values()),
+                                           *scalars.values(), **statics)
+
+    want = run()
+    assert tsolve.SUM_LANES == 8
+    calls = []
+
+    def explicit(t, lanes):
+        calls.append((tuple(t.shape), lanes))
+        return _explicit_lane_sum(t, lanes)
+
+    monkeypatch.setattr(particle_mpf, "lane_sum", explicit)
+    for name, g, w in zip(_OUTS, run(), want):
+        assert torch.equal(g, w), name
+    assert calls == [((M, H, NA), 8)] * 2 + [((1, M, H), 8)] * M
+    monkeypatch.setattr(particle_mpf, "lane_sum",
+                        lambda t, lanes: t.sum(dim=-1, keepdim=True))
+    got = run()
+    assert not torch.equal(got[2], want[2])      # the plan update
+    assert not torch.equal(got[0], want[0])      # the particles
+
+
+@pytest.mark.parametrize("dim_s", [2, 4])
+def test_solve_scal_passes_the_scalars_raw(dim_s):
+    """K3 and K8 share one scalar packer, which gathers the values as they
+    come (the kernels and their plain versions take the reciprocals), so
+    a call launches no arithmetic of its own."""
+    state0 = torch.arange(1.0, 5.0)
+    vals = (0.3, torch.tensor(2.0), 1e-3, torch.tensor([1e3]), 2.0, 0.5)
+    scal = tsolve._solve_scal(state0, *vals, torch.device("cpu"),
+                              dim_s=dim_s)
+    want = [*state0[:dim_s].tolist(), 0.3, 2.0, 1e-3, 1e3, 2.0, 0.5]
+    assert scal.dtype == torch.float32 and scal.shape == (dim_s + 6,)
+    np.testing.assert_array_equal(scal.numpy(),
+                                  np.asarray(want, np.float32))
 
 
 @pytest.mark.parametrize("dims,match", [
