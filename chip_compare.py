@@ -8,17 +8,18 @@ Run from the root of a checkout, on a machine with a card:
 It builds the checkout's kernels, drives path 11 (`chip_smoke.py`'s
 `phase_fused_mpf_path`: FusedMPF.optimize at m = 2048, 8192, 32768 and with
 fuse_streams), times K11a at m = 2048, d = 1, K11b, K12b and K13 at
-m = 8192 and 32768, d = 2, K2, K3, K7 and K8 at the demos' shapes
-(`chip_smoke._device_ms`; K2 also at m = 1024), one 200-step K4 and K9
-episode (paths 3 and 7) and one 256-episode K5 and K10 sweep (paths 4 and 8) between CUDA
-events (median of 3), and hashes the outputs of K2, K3 (its costs also on
-their own), K13, K8, a 20-step K5 sweep on fixed seeded inputs (host
-noise) and a 200-step K9 episode (device noise), so that two trees can be
-held bit for bit. Where the tree has
-them, it prints K2's and K3's per-phase clocks (their clocked builds,
-`chip_smoke._phase_clock`). It prints one line, `RESULT {json}`. To compare a parent and a change,
-unpack both (`git archive`) and run the script once in each, in the order
-parent, change, change, parent, in one call on one card:
+m = 8192 and 32768, d = 2, K2, K3, K6, K7 and K8 at the demos' shapes
+(`chip_smoke._device_ms`; K2 and K7 also at m = 1024), one 200-step K4
+and K9 episode (paths 3 and 7) and one 256-episode K5 and K10 sweep
+(paths 4 and 8) between CUDA events (median of 3), and hashes the outputs
+of K2, K3 (its costs also on their own), K6, K7 (m = 50 and 1024), K13,
+K8, a 20-step K5 sweep on fixed seeded inputs (host noise) and a 200-step
+K9 episode (device noise), so that two trees can be held bit for bit.
+Where the tree has them, it prints the per-phase clocks of K2, K3, K6 and
+K7 (their clocked builds, `chip_smoke._phase_clock`). It prints one line,
+`RESULT {json}`. To compare a parent and a change, unpack both (`git
+archive`) and run the script once in each, in the order parent, change,
+change, parent, in one call on one card:
 
     for t in parent change change parent; do (cd $t && python3 ../chip_compare.py $t); done
 
@@ -42,6 +43,7 @@ from dust_tpu_torch.experiments import (  # noqa: E402
 )
 from dust_tpu_torch.ops import gmm, mpf, mpf_stream, solve, svgd  # noqa: E402
 from dust_tpu_torch.ops import particle_mpf as pm  # noqa: E402
+from dust_tpu_torch.ops import particle_rollout as pr  # noqa: E402
 from dust_tpu_torch.ops import sweep_episode  # noqa: E402
 from dust_tpu_torch.simulation import (  # noqa: E402
     megakernel_particle_episode_fn,
@@ -147,7 +149,44 @@ inp = cs._k7_inputs(kgen, dev, True, (0.4, -0.2), (3.0, -5.0), 0.015)
 res["k7_ms"] = min(cs._device_ms(
     lambda: pm.fused_particle_mpf_optimize(**inp, n_steps=20))
     for _ in range(2))
+# K7 at m = 1024 (its general path; the inputs made here, as
+# chip_smoke._k7_inputs makes them at m = 50)
+xb = torch.log(1.6 + 0.8 * torch.rand((1024, 1), generator=kgen,
+                                      device=dev))
+k7_big = dict(inp, x=xb, prior_locs=xb + 0.02 * torch.randn(
+    (1024, 1), generator=kgen, device=dev))
+res["k7_ms_1024"] = min(cs._device_ms(
+    lambda: pm.fused_particle_mpf_optimize(**k7_big, n_steps=20))
+    for _ in range(2))
+res["k7_sha256"] = sha256([pm.fused_particle_mpf_optimize(**inp, n_steps=20)])
+res["k7_sha256_1024"] = sha256(
+    [pm.fused_particle_mpf_optimize(**k7_big, n_steps=20)])
+if hasattr(pm, "phase_clock"):
+    res["k7_clock"] = cs._phase_clock(
+        f"{tree} K7", lambda: pm.fused_particle_mpf_optimize(
+            **inp, n_steps=20), pm.phase_clock, steps=1, calls=20,
+        per="call")
 cfg, stack = cs._particle_stack(dev)
+# K6 at the demo's shapes (4 x 64 x 6, H 40), and its costs hashed from a
+# free start, a start inside an obstacle and one inside a wall
+k6_kw = cs._pkw(stack.model)
+k6_gen = torch.Generator(device=dev).manual_seed(cs.SEED + 60)
+k6_acts = 5.0 * torch.randn((64, 6, 40, 2), generator=k6_gen, device=dev)
+k6_masses = 1.7 + 0.7 * torch.rand((4,), generator=k6_gen, device=dev)
+k6_s0 = torch.tensor([-9.0, -9.0, 0.0, 0.0], device=dev)
+res["k6_ms"] = min(cs._device_ms(
+    lambda: pr.fused_particle_rollout_costs(k6_s0, k6_acts, k6_masses,
+                                            **k6_kw)) for _ in range(2))
+res["k6_sha256"] = sha256(
+    pr.fused_particle_rollout_costs(torch.tensor([*start, 0.8, 1.2],
+                                                 device=dev),
+                                    k6_acts, k6_masses, **k6_kw)
+    for start in ((-9.0, -9.0), (2.0, 2.0), (10.95, 0.3)))
+if hasattr(pr, "phase_clock"):
+    res["k6_clock"] = cs._phase_clock(
+        f"{tree} K6", lambda: pr.fused_particle_rollout_costs(
+            k6_s0, k6_acts, k6_masses, **k6_kw), pr.phase_clock, steps=1,
+        calls=20, per="call")
 k8_args = cs._k8_inputs(torch.Generator(device=dev).manual_seed(cs.SEED + 22),
                         dev, (-9.0, -9.0))
 k8_st = dict(cs._K8_STATICS, exp_util=True, **cs._pkw(stack.model))

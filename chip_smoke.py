@@ -1520,9 +1520,10 @@ def _k9_bound(steps, mpf_updates, n_params, m, n_act, hz, m_mpf, mpf_steps,
 
 
 def phase_k6(dev):
-    """K6 against its plain version at the demo shapes from a free start,
-    a start inside an obstacle and one inside a wall; and the kernels'
-    occupancy test against `occupancy_hit` on every cell of the clamped
+    """K6 against its plain version, bit for bit, at the demo shapes from a
+    free start, a start inside an obstacle and one inside a wall, and at a
+    shape with a part-filled block and more draws than a block takes; and
+    the kernels' occupancy test against `occupancy_hit` on every cell of the clamped
     domain (cell centers, cell edges, a hair either side), and against the
     raster, exactly."""
     import torch
@@ -1559,33 +1560,41 @@ def phase_k6(dev):
     if mismatches or raster_mismatches:
         raise AssertionError("K6's occupancy test is not exact")
     errs = {}
-    for label, start in (("free start", (-9.0, -9.0)),
-                         ("start inside an obstacle", (2.0, 2.0)),
-                         ("start inside a wall", (10.95, 0.3))):
+    for label, start, (n_params, n_act, n_pol, hz) in (
+            ("free start", (-9.0, -9.0), (4, 64, 6, 40)),
+            ("start inside an obstacle", (2.0, 2.0), (4, 64, 6, 40)),
+            ("start inside a wall", (10.95, 0.3), (4, 64, 6, 40)),
+            # a part-filled block and draws over two grid rows
+            ("free start, 9 draws", (-9.0, -9.0), (9, 7, 5, 13))):
         s0 = torch.tensor([*start, 0.8, 1.2], device=dev)
-        actions = 12.0 * torch.randn((64, 6, 40, 2), generator=gen,
+        actions = 12.0 * torch.randn((n_act, n_pol, hz, 2), generator=gen,
                                      device=dev)
-        masses = 1.5 + 1.5 * torch.rand((4,), generator=gen, device=dev)
+        masses = 1.5 + 1.5 * torch.rand((n_params,), generator=gen,
+                                        device=dev)
         got = pr.fused_particle_rollout_costs(s0, actions, masses, **kw)
         torch.cuda.synchronize()
         want = pr.particle_rollout_costs_plain(s0, actions, masses, **kw)
-        errs[label] = _check_close(f"K6 4x64x6 H40 {label}", got, want,
-                                   **K6_TOL)
+        name = f"K6 {n_params}x{n_act}x{n_pol} H{hz} {label}"
+        errs[label] = _check_close(name, got, want, **K6_TOL)
+        # the same arithmetic in the same order (--fmad=false): the bits
+        if not torch.equal(got, want):
+            raise AssertionError(f"{name}: not bit-equal to plain")
+        print(f"{name}: bit-equal to plain")
     return max(errs.values()), {"points": int(pts.shape[0]),
                                 "mismatches": mismatches,
                                 "raster_mismatches": raster_mismatches}
 
 
-def _k7_inputs(gen, dev, log_space, v0, action, scale):
+def _k7_inputs(gen, dev, log_space, v0, action, scale, m=50):
     import torch
 
-    x = 1.6 + 0.8 * torch.rand((50, 1), generator=gen, device=dev)
+    x = 1.6 + 0.8 * torch.rand((m, 1), generator=gen, device=dev)
     if log_space:
         x = torch.log(x)
     past = torch.tensor([-9.0, -9.0, *v0], device=dev)
     t = lambda v: torch.tensor(v, device=dev)
     return dict(
-        x=x, prior_locs=x + 0.02 * torch.randn((50, 1), generator=gen,
+        x=x, prior_locs=x + 0.02 * torch.randn((m, 1), generator=gen,
                                                device=dev),
         past_obs=past, loc=past + t([0.01, -0.01, 0.1, -0.15]),
         action=t(action), scale=t(scale), bw=t(0.5), prior_bw=t(0.5),
@@ -1603,27 +1612,38 @@ def _k7_plain(inp, log_space):
 
 
 def phase_k7(dev):
+    """K7 against its plain version (sums in its order, a quad of lanes
+    per row) at the demo's m = 50 (the register path) and at m = 200 (the
+    general path): log and linear space, both clip gates, a crashed
+    start, and lr and sigma given as Python numbers (path 5's way: read
+    as values, the rest through their device addresses)."""
     import torch
 
     from dust_tpu_torch.ops import particle_mpf as pm
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 21)
     errs = {}
-    for label, log_space, v0, action, scale in (
-            ("log space", True, (0.4, -0.2), (3.0, -5.0), 0.015),
-            ("linear", False, (0.4, -0.2), (3.0, -5.0), 0.015),
-            ("acceleration clip", True, (0.4, -0.2), (25.0, -2.0), 0.015),
-            ("speed clip", True, (4.96, -4.96), (9.0, -9.0), 0.015),
-            ("crashed start", True, (0.4, -0.2), (3.0, -5.0), 0.0)):
-        inp = _k7_inputs(gen, dev, log_space, v0, action, scale)
-        got = pm.fused_particle_mpf_optimize(**inp, n_steps=20,
-                                             log_space=log_space)
-        torch.cuda.synchronize()
-        want = _k7_plain(inp, log_space)
-        if (want - inp["x"]).abs().max().item() < 1e-4:
-            raise AssertionError(f"K7 {label}: the particles did not move")
-        errs[label] = _check_close(f"K7 m50 20 steps {label}", got, want,
-                                   **K7_TOL)
+    for m in (50, 200):
+        for label, log_space, v0, action, scale in (
+                ("log space", True, (0.4, -0.2), (3.0, -5.0), 0.015),
+                ("linear", False, (0.4, -0.2), (3.0, -5.0), 0.015),
+                ("acceleration clip", True, (0.4, -0.2), (25.0, -2.0),
+                 0.015),
+                ("speed clip", True, (4.96, -4.96), (9.0, -9.0), 0.015),
+                ("crashed start", True, (0.4, -0.2), (3.0, -5.0), 0.0),
+                ("numbers", True, (0.4, -0.2), (3.0, -5.0), 0.015)):
+            inp = _k7_inputs(gen, dev, log_space, v0, action, scale, m=m)
+            if label == "numbers":
+                inp.update(lr=1e-2, obs_sigma=0.1)
+            got = pm.fused_particle_mpf_optimize(**inp, n_steps=20,
+                                                 log_space=log_space)
+            torch.cuda.synchronize()
+            want = _k7_plain(inp, log_space)
+            if (want - inp["x"]).abs().max().item() < 1e-4:
+                raise AssertionError(
+                    f"K7 m{m} {label}: the particles did not move")
+            errs[f"m{m} {label}"] = _check_close(
+                f"K7 m{m} 20 steps {label}", got, want, **K7_TOL)
     return max(errs.values())
 
 
@@ -2078,7 +2098,7 @@ def phase_particle_episode_path(dev):
 
 
 def _phase_clock(label, fn, clock, steps=MAIN_STEPS, calls=1, per="step"):
-    """`calls` more calls of fn (a K2, K3, K4/K5, K8 or K9/K10 launch) under the
+    """`calls` more calls of fn (a K2, K3, K4/K5, K6, K7, K8 or K9/K10 launch) under the
     kernel's clocked build (`clock`, an `ops/phase_clock.PhaseClock`):
     thread 0 of every block stamps clock64 at the block barriers that
     close the phases of a step. Prints, on one line, each phase's mean time
@@ -2111,8 +2131,10 @@ def _phase_clock(label, fn, clock, steps=MAIN_STEPS, calls=1, per="step"):
 
 def phase_timing_slice3(dev, path7):
     """K6, K7 and K8 as phase 6 times K1/K2 (device time per call, 20
-    calls in one CUDA graph; plain, kernel, kernel, plain); K9 one 200-step
-    episode between CUDA events (median of 3), its plain version one call."""
+    calls in one CUDA graph; plain, kernel, kernel, plain), with the
+    per-phase clocks of K8, K6 and K7; K9 one 200-step episode between
+    CUDA events (median of 3), its plain version one call, and its
+    clock."""
     import torch
 
     from dust_tpu_torch.ops import particle_episode as pe
@@ -2161,6 +2183,14 @@ def phase_timing_slice3(dev, path7):
     out["particle_solve"]["phase_clock"] = _phase_clock(
         "K8 (path 6)", lambda: solve.fused_particle_solve(*k8_args, **k8_st),
         solve.phase_clock, steps=1, calls=20, per="solve")
+    out["particle_rollout_costs"]["phase_clock"] = _phase_clock(
+        "K6 (path 5)",
+        lambda: pr.fused_particle_rollout_costs(s0, acts, masses, **kw),
+        pr.phase_clock, steps=1, calls=20, per="call")
+    out["particle_mpf_optimize"]["phase_clock"] = _phase_clock(
+        "K7 (path 5)",
+        lambda: pm.fused_particle_mpf_optimize(**inp, n_steps=20),
+        pm.phase_clock, steps=1, calls=20, per="call")
 
     episode = megakernel_particle_episode_fn(stack, cfg["exp_params"],
                                              steps=MAIN_STEPS)

@@ -5,7 +5,8 @@
 // The model (cost weights, target, dt and limits, the map's grid and its
 // occupancy as one bit per cell) arrives as one float array laid out as
 // ops/particle_rollout.py:model_tensor writes it; each block copies it to
-// shared memory once (6 KB of bits for the demo's 220 x 220 cells). The
+// shared memory once (6 KB of bits for the demo's 220 x 220 cells;
+// load_model, or load_model_async beside other copies). The
 // occupancy of a world point is
 //   xi = clip(floor(px * inv_cell + offx), 0, ximax)   (same for y)
 //   occupied = bit xi * (yimax + 1) + yi,
@@ -30,6 +31,7 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "stein.cuh"
 
 namespace dust_particle {
@@ -61,6 +63,20 @@ __device__ inline void load_model(const float* src, float* km) {
 #pragma unroll 8
   for (int e = threadIdx.x; e < n; e += blockDim.x) d[e] = s[e];
   __syncthreads();
+}
+
+// Start copying the model array's n floats into shared memory km (16 bytes
+// at a time where both are aligned) without waiting: the caller commits
+// and waits (cp_async.cuh), then passes a block barrier, once every copy
+// it needs is in flight. The bit words travel as their bytes.
+__device__ inline void load_model_async(const float* src, int n, float* km) {
+  const bool vec = ((reinterpret_cast<uintptr_t>(src) |
+                     reinterpret_cast<uintptr_t>(km)) & 15) == 0;
+  const int n4 = vec ? n / 4 : 0;
+  for (int q = threadIdx.x; q < n4; q += blockDim.x)
+    dust_async::cp_async16(km + 4 * q, src + 4 * q);
+  for (int e = 4 * n4 + threadIdx.x; e < n; e += blockDim.x)
+    dust_async::cp_async4(km + e, src + e);
 }
 
 // 1.0 inside an obstacle cell, else 0.0 (0.0 without a map, and for a NaN
@@ -132,9 +148,9 @@ __device__ __forceinline__ float terminal_cost(const float* km, float px,
 // terminal cost (ops/particle_rollout.py:rollout_costs for one draw).
 // ld(t) returns the raw values behind step t's action, act(t, raw, ax, ay)
 // makes the action from them; ld is called one step ahead of the chain,
-// so a read's latency overlaps a step. K8 and K9/K10 give each thread one
-// trajectory in turn and then add each pair's draws in draw order
-// (stein.cuh:sum_draws).
+// so a read's latency overlaps a step. K6, K8 and K9/K10 give each
+// thread one trajectory (K8 and K9/K10 then add each pair's draws in draw
+// order, stein.cuh:sum_draws).
 template <class Load, class Act>
 __device__ __forceinline__ float trajectory_cost(const float* km, float px,
                                                  float py, float vx,

@@ -52,16 +52,6 @@ struct NoClock {
   __device__ __forceinline__ void mark(int) {}
 };
 
-// The max of v over a row's group of L lanes (fmaxf: NaN-ignoring, as a
-// serial walk; the max is exact, so the order does not matter).
-template <int L>
-__device__ __forceinline__ float group_fmax(float v, unsigned mask) {
-#pragma unroll
-  for (int o = 1; o < L; o <<= 1)
-    v = fmaxf(v, __shfl_xor_sync(mask, v, o));
-  return v;
-}
-
 using dust_solve::ex2;
 using dust_solve::kLog2e;
 
@@ -173,7 +163,7 @@ __device__ inline void stein_loop(float* sx0, float* sx1, const float* sc0,
         const float d1 = x1 - sc1[j];
         mx = fmaxf(mx, (d0 * d0 + d1 * d1) * k.cp);
       }
-      mx = group_fmax<kLanes>(mx, mask);
+      mx = dust_solve::lane_group_fmax<kLanes>(mx, mask);
 #pragma unroll 4
       for (int j = l; j < m; j += kLanes) {
         const float d0 = x0 - sc0[j];
@@ -298,7 +288,7 @@ __device__ inline void stein_loop_reg(const float* __restrict__ x_in,
           mx = fmaxf(mx, dc[c]);
         }
       }
-      mx = group_fmax<kLanes>(mx, mask);
+      mx = dust_solve::lane_group_fmax<kLanes>(mx, mask);
       float psum = 0.0f, pc0 = 0.0f, pc1 = 0.0f;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {

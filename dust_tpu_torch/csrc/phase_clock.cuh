@@ -1,4 +1,4 @@
-// The clocked builds of the episode and solve kernels (K4/K5, K8, K9/K10):
+// The clocked builds of the kernels (K2, K3, K4/K5, K6, K7, K8, K9/K10):
 // thread 0 adds the clock64 cycles between the block barriers that close
 // the phases of a step, summed over the steps, then writes one row per
 // block: the phases' cycles, the whole loop's cycles and its %globaltimer

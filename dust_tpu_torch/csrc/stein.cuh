@@ -96,6 +96,17 @@ __device__ __forceinline__ float lane_group_max(float v, unsigned mask) {
     v = maxp(v, __shfl_xor_sync(mask, v, o));
   return v;
 }
+// The max of v over the group with fmaxf, NaN-ignoring as a serial fmaxf
+// walk: the MPF loops' prior-score max, where a NaN term makes the row's
+// weight sum NaN all the same (the max is exact, so the order does not
+// matter).
+template <int L>
+__device__ __forceinline__ float lane_group_fmax(float v, unsigned mask) {
+#pragma unroll
+  for (int o = 1; o < L; o <<= 1)
+    v = fmaxf(v, __shfl_xor_sync(mask, v, o));
+  return v;
+}
 
 // Block min of v[0..n) into *out (exact; order-free). red: >= kWarps.
 __device__ inline void block_min(const float* v, int n, float* red,

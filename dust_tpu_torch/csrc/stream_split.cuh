@@ -29,6 +29,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "cp_async.cuh"
+
 #if !defined(DUST_TILE_COLS) || !defined(DUST_SLICE_WARPS) || \
     !defined(DUST_MAX_CLUSTER) || !defined(DUST_MIN_SLICE)
 #error "build with ops/_build.py, which defines the column-split constants"
@@ -136,21 +138,9 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16_rn(v));
 }
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
+using dust_async::cp_async4;
+using dust_async::cp_async_commit;
+using dust_async::cp_async_wait;
 
 // Where this thread's block sits: its tile's first row, its rank in the
 // cluster, its warp's column slice [j0, j1) and its lane.

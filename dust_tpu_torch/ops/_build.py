@@ -64,6 +64,20 @@ _PENDULUM_MPF_ARGS = [
     _FLOAT, _FLOAT, _INT,                          # dt half3g log_space
 ]
 
+_PARTICLE_ROLLOUT_ARGS = [
+    _VOID_P, _INT,                                 # model n_model
+    _VOID_P, _VOID_P, _VOID_P, _VOID_P,            # state0 acts masses costs
+    _INT, _INT, _INT,                              # n_params n_traj hz
+]
+
+_PARTICLE_MPF_ARGS = [
+    _VOID_P, _VOID_P,                              # x centers
+    _VOID_P, _VOID_P,                              # scal_ptrs scal_vals (host arrays)
+    _VOID_P,                                       # x_out
+    _INT, _INT,                                    # m n_steps
+    _FLOAT, _FLOAT, _INT,                          # max_acc max_speed log_space
+]
+
 _PENDULUM_SOLVE_ARGS = (
     [_VOID_P] * 9                 # scal theta locs log_mix amat aseq actions lengths masses
     + [_VOID_P] * 7               # theta_opt theta_fwd amat_out a_mix aseq_sel weights costs
@@ -94,20 +108,15 @@ _SIGNATURES = {
     # the clocked build (inside solve.pendulum_phase_clock)
     "dust_pendulum_solve_clock": _PENDULUM_SOLVE_ARGS + [_VOID_P, _VOID_P],  # clock stream
     "dust_pendulum_episodes": _EPISODE_ARGS,
-    "dust_particle_rollout_costs": [
-        _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,   # model state0 acts masses costs
-        _INT, _INT, _INT,                              # n_params n_traj hz
-        _VOID_P,                                       # stream
-    ],
+    "dust_particle_rollout_costs": _PARTICLE_ROLLOUT_ARGS + [_VOID_P],  # stream
+    # the clocked build (inside particle_rollout.phase_clock)
+    "dust_particle_rollout_costs_clock": _PARTICLE_ROLLOUT_ARGS + [_VOID_P, _VOID_P],  # clock stream
     "dust_particle_occupancy": [
         _VOID_P, _VOID_P, _VOID_P, _INT, _VOID_P,      # model pts out n stream
     ],
-    "dust_particle_mpf_optimize": [
-        _VOID_P, _VOID_P, _VOID_P, _VOID_P,            # x centers scal x_out
-        _INT, _INT,                                    # m n_steps
-        _FLOAT, _FLOAT, _INT,                          # max_acc max_speed log_space
-        _VOID_P,                                       # stream
-    ],
+    "dust_particle_mpf_optimize": _PARTICLE_MPF_ARGS + [_VOID_P],  # stream
+    # the clocked build (inside particle_mpf.phase_clock)
+    "dust_particle_mpf_optimize_clock": _PARTICLE_MPF_ARGS + [_VOID_P, _VOID_P],  # clock stream
     "dust_particle_solve": _PARTICLE_SOLVE_ARGS + [_VOID_P],  # stream
     # the clocked build (inside solve.phase_clock)
     "dust_particle_solve_clock": _PARTICLE_SOLVE_ARGS + [_VOID_P, _VOID_P],  # clock stream

@@ -18,20 +18,37 @@ pass the gradient on their strict interior only. Semantics =
 * On CUDA tensors `fused_particle_mpf_optimize` launches the hand-written
   kernel `csrc/particle_mpf.cu` (which replaces the TPU kernel
   `dust_tpu/ops/pallas_particle_mpf.py:fused_particle_mpf_optimize`): one
-  block, a quad of lanes per particle, the particles in shared memory;
-  bound by the latency of its dependent iterations.
+  block, a quad of lanes per particle (`ROW_LANES`), each lane's centers
+  in registers up to `REGISTER_MAX` particles and K9/K10's shared-memory
+  loop above; bound by the latency of its dependent iterations. Its scalars reach it as kernel arguments
+  (`scalar_sources`), so a call launches the kernel and nothing else.
 * On CPU tensors it runs `particle_mpf_optimize_plain`, the same
   arithmetic in plain PyTorch, its sums over j in the kernel's order.
 """
 
 from __future__ import annotations
 
+import ctypes
+
 import torch
+
+from .phase_clock import PhaseClock
 
 # one CUDA block holds every particle
 MAX_PARTICLES = 1024
-# lanes per particle row in the kernel (csrc/particle_mpf.cuh:kRowLanes)
+# lanes per particle row in K7 and K9/K10 (csrc/particle_mpf.cuh:kRowLanes)
 ROW_LANES = 4
+# K7 keeps each lane's centers in registers up to this many particles
+# (csrc/particle_mpf.cu:kRegMax)
+REGISTER_MAX = 64
+# the phases of K7 that its clocked build times, in order
+# (csrc/particle_mpf.cuh, kMpfClkLoad ... kMpfClkStore); the two of an
+# iteration are summed over the iterations
+CLOCK_PHASES = ("load", "prior_score", "drive_update", "store")
+# `with phase_clock() as rows:` launches K7's clocked build (m <=
+# REGISTER_MAX; it refuses larger m)
+phase_clock = PhaseClock(CLOCK_PHASES)
+
 
 
 def mpf_scalars(x, past_obs, loc, action, scale, bw, prior_bw, lr,
@@ -47,6 +64,44 @@ def mpf_scalars(x, past_obs, loc, action, scale, bw, prior_bw, lr,
         f(bw), f(prior_bw), f(lr), f(obs_sigma), f(past_obs)[2:4],
         f(action)[:2], f(loc)[2:4], f(scale),
     ])
+
+
+def scalar_sources(x, past_obs, loc, action, scale, bw, prior_bw, lr,
+                   obs_sigma):
+    """The scalars of `mpf_scalars`, in its order, as K7 takes them
+    (csrc/particle_mpf.cu:MassScalars), without a launch: (ptrs, vals,
+    keep). For a float32 tensor on x's device ptrs holds the address of
+    the element and the kernel reads it there; for a Python number or a
+    tensor on the CPU, ptr 0 and the value in vals (read on the host, no
+    sync). A tensor of another type or device is converted first, and
+    `keep` holds the converted copies until the launch is queued."""
+    ptrs, vals, keep = [], [], []
+
+    def add(v, elems):
+        if not torch.is_tensor(v):
+            for _ in elems:
+                ptrs.append(0)
+                vals.append(float(v))
+            return
+        if v.device.type == "cpu" and x.device.type != "cpu":
+            flat = v.detach().reshape(-1)
+            for e in elems:
+                ptrs.append(0)
+                vals.append(float(flat[e]))
+            return
+        if (v.dtype != torch.float32 or v.device != x.device
+                or not v.is_contiguous()):
+            v = v.to(device=x.device, dtype=torch.float32).contiguous()
+            keep.append(v)
+        for e in elems:
+            ptrs.append(v.data_ptr() + 4 * e)
+            vals.append(0.0)
+
+    for v, elems in ((bw, (0,)), (prior_bw, (0,)), (lr, (0,)),
+                     (obs_sigma, (0,)), (past_obs, (2, 3)), (action, (0, 1)),
+                     (loc, (2, 3)), (scale, (0,))):
+        add(v, elems)
+    return ptrs, vals, keep
 
 
 def _vel_grad_term(a, v0, loc, invm, scale, inv_s2, max_acc, max_speed):
@@ -127,11 +182,11 @@ def fused_particle_mpf_optimize(x, prior_locs, past_obs, loc, action, scale,
     collision(past_obs)); bw, prior_bw, lr, obs_sigma scalars (numbers or
     tensors). Returns x_final [m, 1].
 
-    CPU tensors take the plain version; CUDA tensors launch the kernel
-    (counted in `fused_particle_mpf_optimize.launches`)."""
-    scal = mpf_scalars(x, past_obs, loc, action, scale, bw, prior_bw, lr,
-                       obs_sigma)
+    CPU tensors take the plain version; CUDA tensors launch the kernel,
+    and nothing else (counted in `fused_particle_mpf_optimize.launches`)."""
     if x.device.type == "cpu":
+        scal = mpf_scalars(x, past_obs, loc, action, scale, bw, prior_bw, lr,
+                           obs_sigma)
         return particle_mpf_optimize_plain(
             x, prior_locs, scal, n_steps=n_steps, max_acc=max_acc,
             max_speed=max_speed, log_space=log_space)
@@ -153,12 +208,21 @@ def fused_particle_mpf_optimize(x, prior_locs, past_obs, loc, action, scale,
     x = x.contiguous()
     centers = prior_locs.contiguous()
     out = torch.empty_like(x)
-    rc = load_library().dust_particle_mpf_optimize(
-        x.data_ptr(), centers.data_ptr(), scal.data_ptr(), out.data_ptr(),
-        m, int(n_steps), float(max_acc), float(max_speed),
-        int(bool(log_space)),
-        torch.cuda.current_stream(x.device).cuda_stream,
-    )
+    ptrs, vals, keep = scalar_sources(x, past_obs, loc, action, scale, bw,
+                                      prior_bw, lr, obs_sigma)
+    c_ptrs = (ctypes.c_void_p * len(ptrs))(*ptrs)
+    c_vals = (ctypes.c_float * len(vals))(*vals)
+    args = [x.data_ptr(), centers.data_ptr(), ctypes.addressof(c_ptrs),
+            ctypes.addressof(c_vals), out.data_ptr(), m, int(n_steps),
+            float(max_acc), float(max_speed), int(bool(log_space))]
+    clock = phase_clock.rows(1, x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    if clock is None:
+        rc = load_library().dust_particle_mpf_optimize(*args, stream)
+    else:
+        rc = load_library().dust_particle_mpf_optimize_clock(
+            *args, clock.data_ptr(), stream)
+    del keep  # the launch is queued: the converted copies may go
     fused_particle_mpf_optimize.launches += 1
     check(rc, "particle_mpf_optimize")
     return out

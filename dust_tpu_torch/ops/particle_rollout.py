@@ -11,9 +11,11 @@ old velocity, then the velocity is clamped to +-max_speed.
 * On CUDA tensors `fused_particle_rollout_costs` launches the
   hand-written kernel `csrc/particle_rollout.cu` (which replaces the TPU
   kernel `dust_tpu/ops/pallas_particle_rollout.py:
-  fused_particle_rollout_costs`): one thread per trajectory, the
-  occupancy a lookup in a bit per map cell held in shared memory. It is
-  bound by launch latency and its H-step dependent chain.
+  fused_particle_rollout_costs`): a block per 32 trajectories, one
+  thread per (draw, trajectory), the actions read in their native layout
+  (`kernel_operands`: no copy) and staged in shared memory, the occupancy
+  a lookup in a bit per map cell held there too. It is bound by its
+  H-step dependent chain.
 * On CPU tensors it runs `particle_rollout_costs_plain`, the same
   arithmetic in plain PyTorch, with the occupancy of `occupancy_hit`.
 
@@ -29,6 +31,8 @@ from collections import Counter
 import numpy as np
 import torch
 
+from .phase_clock import PhaseClock
+
 # model_tensor layout: cost weights (w_px, w_py, w_vx, w_vy, w_cx, w_cy,
 # w_obs, wt_px, wt_py, wt_vx, wt_vy), target (4), dt, max_acc, max_speed,
 # grid (inv_cell, offx, offy, ximax, yimax), crash, has_map, n_words, then
@@ -37,6 +41,15 @@ import torch
 MODEL_HEADER = 26
 # the kernels hold the occupancy bits in shared memory (8 KB)
 MAX_CELLS = 65536
+# trajectories per block of K6 (csrc/particle_rollout.cu:kTraj), and the
+# mass draws a block takes (kMaxDraws; more go to further blocks)
+TRAJ_PER_BLOCK = 32
+_MAX_DRAWS = 8
+# the phases of K6 that its clocked build times, in order
+# (csrc/particle_rollout.cu, kClkLoad ... kClkStore)
+CLOCK_PHASES = ("load", "rollouts", "store")
+# `with phase_clock() as rows:` launches K6's clocked build
+phase_clock = PhaseClock(CLOCK_PHASES)
 
 
 # -- occupancy ------------------------------------------------------------------
@@ -315,6 +328,16 @@ def particle_rollout_costs_plain(state0, actions, masses, *, dt, max_acc,
         (n_params, n_act, n_pol), st)
 
 
+def kernel_operands(state0, actions, masses):
+    """The tensors K6 reads: state0 [4], the actions in their native
+    layout [n_act, n_pol, H, 2] (trajectory r = a * n_pol + pol is the
+    row of 2 H values at r * 2 H: what `particle_rollout_costs_plain`
+    reads as actions[a, pol, t, :]), masses [n_params]; contiguous, so
+    for contiguous inputs views of the caller's storage, no copy."""
+    return (state0.reshape(4).contiguous(), actions.contiguous(),
+            masses.contiguous())
+
+
 def fused_particle_rollout_costs(state0, actions, masses, *, dt, max_acc,
                                  max_speed, weights, target, rects, grid,
                                  crash):
@@ -349,18 +372,20 @@ def fused_particle_rollout_costs(state0, actions, masses, *, dt, max_acc,
     from ._build import check, load_library
 
     model = model_tensor(statics, dt, max_acc, max_speed, actions.device)
-    # [hz, 2, n_act * n_pol]: neighbouring threads read neighbouring
-    # addresses at each horizon step
-    acts_t = actions.permute(2, 3, 0, 1).contiguous()
-    s0 = state0.reshape(4).contiguous()
-    masses = masses.contiguous()
+    s0, acts, masses = kernel_operands(state0, actions, masses)
     costs = torch.empty((n_params, n_act, n_pol), dtype=torch.float32,
                         device=actions.device)
-    rc = load_library().dust_particle_rollout_costs(
-        model.data_ptr(), s0.data_ptr(), acts_t.data_ptr(),
-        masses.data_ptr(), costs.data_ptr(), n_params, n_act * n_pol, hz,
-        torch.cuda.current_stream(actions.device).cuda_stream,
-    )
+    args = [model.data_ptr(), model.numel(), s0.data_ptr(), acts.data_ptr(),
+            masses.data_ptr(), costs.data_ptr(), n_params, n_act * n_pol, hz]
+    blocks = ((n_act * n_pol + TRAJ_PER_BLOCK - 1) // TRAJ_PER_BLOCK
+              * ((n_params + _MAX_DRAWS - 1) // _MAX_DRAWS))
+    clock = phase_clock.rows(blocks, actions.device)
+    stream = torch.cuda.current_stream(actions.device).cuda_stream
+    if clock is None:
+        rc = load_library().dust_particle_rollout_costs(*args, stream)
+    else:
+        rc = load_library().dust_particle_rollout_costs_clock(
+            *args, clock.data_ptr(), stream)
     fused_particle_rollout_costs.launches += 1
     check(rc, "particle_rollout_costs")
     return costs

@@ -1,4 +1,4 @@
-"""The clocked builds of the episode and solve kernels (K4/K5, K8,
+"""The clocked builds of the kernels (K2, K3, K4/K5, K6, K7, K8,
 K9/K10): a measurement aid that splits a kernel's time by phase.
 
 Inside `PhaseClock`'s context a wrapper launches its kernel's clocked

@@ -10,6 +10,8 @@ Tolerances: the loop against the JAX kernel at K2's (rtol 1e-4, atol
 1e-5); the fused classes against the autograd MPF at that file's (rtol
 2e-3, atol 2e-4)."""
 
+import ctypes
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -176,8 +178,8 @@ def test_lane_sum_is_the_kernels_order(m, lanes):
     """`lane_sum` against a lane group's order written out in float32
     scalars: lane l adds j = l, l + lanes, ... in turn from 0, then
     neighbouring lanes' sums meet pairwise ((p0 + p1) + (p2 + p3) for a
-    quad, the MPF loop's ROW_LANES; 8 lanes for the episode's DISCO delta);
-    bit for bit, over a batch."""
+    quad, the MPF loops' ROW_LANES in K7 and K9/K10; 8 lanes for the
+    episode's DISCO delta); bit for bit, over a batch."""
     rng = np.random.default_rng(m)
     terms = (rng.normal(size=(3, m)) * 10.0 ** rng.integers(-3, 4, (3, m))
              ).astype(np.float32)
@@ -192,7 +194,72 @@ def test_lane_sum_is_the_kernels_order(m, lanes):
         while len(acc) > 1:
             acc = [np.float32(x + y) for x, y in zip(acc[0::2], acc[1::2])]
         assert want_row == acc[0]
-    assert tpm.ROW_LANES == 4
+    assert (tpm.ROW_LANES, tpm.REGISTER_MAX) == (4, 64)
+
+
+def _jax_and_plain_inputs(rng, m, log_space):
+    _, _, init = _setup(rng, log_space, m=m)
+    centers = init + 0.02 * rng.normal(size=init.shape).astype(np.float32)
+    past = np.array([-9.0, -9.0, 0.4, -0.2], np.float32)
+    loc = past + np.array([0.01, -0.01, 0.1, -0.15], np.float32)
+    return init, (init, centers, past, loc, np.array((3.0, -5.0),
+                                                     np.float32))
+
+
+@pytest.mark.parametrize("log_space", [True, False])
+@pytest.mark.parametrize("m", [50, 64, 37, 200])
+def test_plain_loop_matches_jax_at_the_kernels_widths(m, log_space):
+    """The plain loop (sums in K7's quad order) against JAX's kernel in
+    interpret mode at K7's widths: the demo's m = 50 and the register
+    path's edge m = REGISTER_MAX (each lane's 16 centers in registers), a
+    width on no lane boundary, and m = 200 on the general path; inputs
+    made by numpy from a seed."""
+    rng = np.random.default_rng(1000 + m)
+    init, args = _jax_and_plain_inputs(rng, m, log_space)
+    kw = dict(n_steps=20, max_acc=10.0, max_speed=5.0, log_space=log_space)
+    sc = dict(bw=0.5, prior_bw=0.5, lr=1e-2, obs_sigma=0.1)
+    want = np.asarray(j_mpf(*(jnp.asarray(a) for a in args), 0.015,
+                            interpret=True, **sc, **kw))
+    x, centers, past, loc, action = (_t(a) for a in args)
+    scal = tpm.mpf_scalars(x, past, loc, action, 0.015, sc["bw"],
+                           sc["prior_bw"], sc["lr"], sc["obs_sigma"])
+    got = tpm.particle_mpf_optimize_plain(x, centers, scal, **kw)
+    np.testing.assert_allclose(got.numpy(), want, **K2_TOL)
+    assert np.abs(want - init).max() > 1e-4           # the particles moved
+
+
+@pytest.mark.parametrize("numbers", [False, True])
+def test_scalar_sources_read_the_callers_storage(rng, numbers):
+    """The scalars reach K7 without a launch: each float32 tensor on x's
+    device by the address of its element in the caller's own storage,
+    each Python number by its value; read back, they are `mpf_scalars`'
+    values bit for bit. (On the CPU x's device is the CPU, so the tensors
+    here are read through their addresses.)"""
+    x = _t(rng.uniform(0.5, 0.9, size=(5, 1)))
+    past = _t([-9.0, -9.0, 0.4, -0.2])
+    loc = _t([-8.9, -9.1, 0.5, -0.4])
+    action = _t([3.0, -5.0])
+    scale = _t(0.015)
+    sc = (0.3, 0.2, 1e-2, 0.1) if numbers else tuple(
+        _t(v) for v in (0.3, 0.2, 1e-2, 0.1))
+    ptrs, vals, keep = tpm.scalar_sources(x, past, loc, action, scale, *sc)
+    assert keep == []                                 # nothing was copied
+    got = np.array([ctypes.c_float.from_address(p).value if p else v
+                    for p, v in zip(ptrs, vals)], np.float32)
+    want = tpm.mpf_scalars(x, past, loc, action, scale, *sc).numpy()
+    np.testing.assert_array_equal(got, want)
+    owners = [(v, 0) for v in sc] + [(past, 2), (past, 3), (action, 0),
+                                     (action, 1), (loc, 2), (loc, 3),
+                                     (scale, 0)]
+    for ptr, val, (owner, elem) in zip(ptrs, vals, owners):
+        if torch.is_tensor(owner):
+            assert ptr == owner.data_ptr() + 4 * elem
+        else:
+            assert ptr == 0 and val == owner
+    # a float64 tensor is converted once and kept until the launch
+    ptrs, _, keep = tpm.scalar_sources(x, past.double(), loc, action, scale,
+                                       *sc)
+    assert len(keep) == 1 and ptrs[4] == keep[0].data_ptr() + 8
 
 
 def test_plain_loop_in_quad_order_matches_jax_at_odd_width(rng):

@@ -120,6 +120,48 @@ def test_kernel_function_matches_jax_kernel(start, shape):
         assert got.min() >= (hz + 1) * 1e6
 
 
+@pytest.mark.parametrize("shape", [(4, 64, 6, 40), (3, 7, 5, 11),
+                                   (9, 5, 3, 7)])
+def test_kernel_reads_the_actions_in_their_native_layout(shape):
+    """K6 takes the actions as the caller holds them, [n_act, n_pol, H, 2]:
+    `kernel_operands` hands the kernel the caller's own storage (no copy,
+    so a call launches K6 and nothing else), and the kernel's indexing of
+    that storage (csrc/particle_rollout.cu: block b takes trajectories
+    r = 32 b + lane, step t's action at r * 2 H + 2 t and + 1, a warp per
+    mass draw p, the cost written at p * n_traj + r), written out here over
+    the flat storage, gives `particle_rollout_costs_plain`'s costs bit for
+    bit."""
+    _, tm = _models()
+    n_params, n_act, n_pol, hz = shape
+    g = torch.Generator().manual_seed(7)
+    actions = 12.0 * torch.randn((n_act, n_pol, hz, 2), generator=g)
+    masses = 1.5 + 1.5 * torch.rand((n_params,), generator=g)
+    s0 = torch.tensor([-9.0, -9.0, 0.8, 1.2])
+    kw = _kw(tm, tpr.particle_kernel_statics(tm))
+    ks0, acts, kmasses = tpr.kernel_operands(s0, actions, masses)
+    assert (ks0.data_ptr(), acts.data_ptr(), kmasses.data_ptr()) == (
+        s0.data_ptr(), actions.data_ptr(), masses.data_ptr())
+    flat = acts.reshape(-1)
+    n_traj, ev = n_act * n_pol, 2 * hz
+    st = tpr._statics(hz, kw["dt"], kw["max_acc"], kw["max_speed"],
+                      kw["weights"], kw["target"], kw["rects"], kw["grid"],
+                      kw["crash"])
+    im = (1.0 / kmasses).reshape(n_params, 1)
+    got = torch.empty(n_params * n_traj)
+    for b in range(-(-n_traj // tpr.TRAJ_PER_BLOCK)):
+        r = b * tpr.TRAJ_PER_BLOCK + torch.arange(tpr.TRAJ_PER_BLOCK)
+        r = r[r < n_traj]
+        rows = flat[r[:, None] * ev + torch.arange(ev)]      # [nb, 2 H]
+        cost = tpr.rollout_costs(
+            tuple(ks0[i] for i in range(4)),
+            lambda t: (rows[:, 2 * t], rows[:, 2 * t + 1]), im,
+            (n_params, r.numel()), st)
+        got[(torch.arange(n_params)[:, None] * n_traj + r).reshape(-1)] = (
+            cost.reshape(-1))
+    want = tpr.particle_rollout_costs_plain(s0, actions, masses, **kw)
+    assert torch.equal(got.reshape(n_params, n_act, n_pol), want)
+
+
 @pytest.mark.parametrize("start", [(-9.0, -9.0), (0.0, 0.0), (2.0, 2.0)])
 def test_kernel_function_matches_step_loop(start):
     """Cost parity over trajectories that cross obstacle cells; (0, 0)
