@@ -5,26 +5,31 @@ Run from the root of a checkout, on a machine with a card:
 
     python3 /path/to/chip_compare.py LABEL
 
-It builds the checkout's kernels, drives path 11 (`chip_smoke.py`'s
-`phase_fused_mpf_path`: FusedMPF.optimize at m = 2048, 8192, 32768 and with
-fuse_streams), times K11a at m = 2048, d = 1, K11b, K12b and K13 at
-m = 8192 and 32768, d = 2, K2, K3, K6, K7 and K8 at the demos' shapes
-(`chip_smoke._device_ms`; K2 and K7 also at m = 1024), one 200-step K4
-and K9 episode (paths 3 and 7) and one 256-episode K5 and K10 sweep
-(paths 4 and 8) between CUDA events (median of 3), and hashes the outputs
-of K2, K3 (its costs also on their own), K6, K7 (m = 50 and 1024), K13,
-K8, a 20-step K5 sweep on fixed seeded inputs (host noise) and a 200-step
-K9 episode (device noise), so that two trees can be held bit for bit.
-Where the tree has them, it prints the per-phase clocks of K2, K3, K6 and
-K7 (their clocked builds, `chip_smoke._phase_clock`). It prints one line,
-`RESULT {json}`. To compare a parent and a change, unpack both (`git
-archive`) and run the script once in each, in the order parent, change,
-change, parent, in one call on one card:
+It builds the checkout's kernels, times K1 at the demo's shapes, alone and
+as path 1's MultiDisco hook (`make_fused_pendulum_state_costs` on stride-2
+draw columns: device ms, ms per call and device operations per call by
+torch.profiler), drives path 11 (`chip_smoke.py`'s `phase_fused_mpf_path`:
+FusedMPF.optimize at m = 2048, 8192, 32768 and with fuse_streams), times
+K11a at m = 2048, d = 1, K11b, K12b and K13 at m = 8192 and 32768, d = 2,
+K2, K3, K6, K7 and K8 at the demos' shapes (`chip_smoke._device_ms`; K2
+and K7 also at m = 1024), one 200-step K4 and K9 episode (paths 3 and 7)
+and one 256-episode K5 and K10 sweep (paths 4 and 8) between CUDA events
+(median of 3), and hashes the outputs of K1 (its costs, and the hook's
+draw means on their own), K2, K3 (its costs also on their own), K6, K7
+(m = 50 and 1024), K13, K8, a 20-step K5 sweep on fixed seeded inputs
+(host noise) and a 200-step K9 episode (device noise), so that two trees
+can be held bit for bit. Where the tree has them, it prints the per-phase
+clocks of K1, K2, K3, K6 and K7 (their clocked builds,
+`chip_smoke._phase_clock`). It prints one line, `RESULT {json}`. To
+compare a parent and a change, unpack both (`git archive`) and run the
+script once in each, in the order parent, change, change, parent, in one
+call on one card:
 
     for t in parent change change parent; do (cd $t && python3 ../chip_compare.py $t); done
 
 It calls only functions that `chip_smoke.py` has had since its K10-K13
-slice, so it runs in older checkouts too.
+slice, and K1's wrapper and hook, which every tree has, so it runs in
+older checkouts too.
 """
 import copy
 import hashlib
@@ -41,7 +46,8 @@ from dust_tpu_torch.experiments import (  # noqa: E402
     PENDULUM_DEMO_CONFIG,
     build_pendulum_stack,
 )
-from dust_tpu_torch.ops import gmm, mpf, mpf_stream, solve, svgd  # noqa: E402
+from dust_tpu_torch.models import PendulumModel  # noqa: E402
+from dust_tpu_torch.ops import gmm, mpf, mpf_stream, rollout, solve, svgd  # noqa: E402
 from dust_tpu_torch.ops import particle_mpf as pm  # noqa: E402
 from dust_tpu_torch.ops import particle_rollout as pr  # noqa: E402
 from dust_tpu_torch.ops import sweep_episode  # noqa: E402
@@ -49,6 +55,26 @@ from dust_tpu_torch.simulation import (  # noqa: E402
     megakernel_particle_episode_fn,
     megakernel_pendulum_episode_fn,
 )
+
+
+def device_ops(fn, calls=20):
+    """Device operations (kernels, copies, fills) per call of fn, counted
+    by torch.profiler over `calls` calls: (ops per call, {name: per
+    call}). The same count as `chip_smoke._device_ops`, kept here so that
+    the script runs in trees that lack it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = {e.key: e.count / calls for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)}
+    return sum(ops.values()), ops
 
 
 def sha256(tensors):
@@ -63,6 +89,45 @@ tree = sys.argv[1]
 dev = torch.device("cuda")
 cs.phase_build()
 res = {"tree": tree, "card": cs._nvidia_smi()}
+
+# K1 at the demo's shapes: the wrapper alone (contiguous columns) and path
+# 1's MultiDisco hook on stride-2 draw columns (as MultiDisco.
+# _sample_params builds them): device ms per call, the hook's ms per call
+# and its device operations per call; K1's costs hashed on fixed inputs
+# (contiguous, stride-2 columns, the odd shape, a 300-step horizon), the
+# hook's draw means hashed on their own
+k1_gen = torch.Generator(device=dev).manual_seed(cs.SEED + 70)
+k1_s0, k1_acts, k1_lens, k1_masses = cs._k1_inputs(8, 128, 3, 30,
+                                                   (3.0, 0.0), k1_gen, dev)
+k1_draws = torch.stack([k1_lens, k1_masses], dim=1)
+k1_params = {k: k1_draws[:, i].reshape(8, 1, 1, 1)
+             for i, k in enumerate(("length", "mass"))}
+k1_hook_fn = rollout.make_fused_pendulum_state_costs(PendulumModel())
+k1_state = k1_s0.reshape(1, 2)
+k1_hook = lambda: k1_hook_fn(k1_state, k1_acts, k1_params)  # noqa: E731
+res["k1_ms"] = min(cs._device_ms(
+    lambda: rollout.fused_pendulum_rollout_costs(k1_s0, k1_acts, k1_lens,
+                                                 k1_masses))
+    for _ in range(2))
+res["k1_hook_ms"] = min(cs._device_ms(k1_hook) for _ in range(2))
+res["k1_hook_call_ms"] = min(cs._call_ms(k1_hook) for _ in range(2))
+res["k1_hook_ops_per_call"], res["k1_hook_ops"] = device_ops(k1_hook)
+k1_odd = cs._k1_inputs(3, 7, 3, 11, (0.2, 7.9), k1_gen, dev)
+k1_long = cs._k1_inputs(2, 5, 3, 300, (3.0, 0.0), k1_gen, dev)
+res["k1_sha256"] = sha256(
+    rollout.fused_pendulum_rollout_costs(*args) for args in (
+        (k1_s0, k1_acts, k1_lens, k1_masses),
+        (k1_s0, k1_acts, k1_draws[:, 0], k1_draws[:, 1]), k1_odd, k1_long))
+res["k1_hook_sha256"] = sha256(
+    [k1_hook(), k1_hook_fn(k1_state, k1_acts, {"mass": k1_params["mass"]}),
+     k1_hook_fn(k1_state, k1_acts, None)])
+# the per-phase clock of K1 (through the hook, as path 1 launches it),
+# where the tree has it
+if hasattr(rollout, "phase_clock"):
+    res["k1_clock"] = cs._phase_clock(
+        f"{tree} K1", k1_hook, rollout.phase_clock, steps=1, calls=20,
+        per="call")
+
 path11 = cs.phase_fused_mpf_path(dev)
 res["updates_per_s"] = {k: v["updates_per_s"] for k, v in path11.items()}
 gen = torch.Generator(device=dev).manual_seed(cs.SEED + 80)

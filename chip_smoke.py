@@ -10,14 +10,19 @@ kernels.
 Phases (any failure raises and exits non-zero):
   1. build the kernels from dust_tpu_torch/csrc with nvcc (sm_90a); print
      the build time and the card's name and power limit;
-  2. K1 (rollout costs) against its plain version on the card, at the
-     main-path shapes and at an odd shape near the speed clamp;
+  2. K1 (rollout costs) against its plain version on the card, bit for
+     bit, at the main-path shapes and at an odd shape near the speed
+     clamp, on contiguous, stride-2 and default (number) draw columns,
+     above the staged horizon and at 11 and 17 draws (the draws' rounds);
+     its draw mean (the MultiDisco hook's launch) against costs.mean(0)
+     at K1_MEAN_RTOL and bit for bit against draw_mean_plain;
   3. K2 (the MPF loop) against its plain version, m = 50, 20 steps,
      log_space off and on, near the speed clamp, and at m = 64 (the
      ceiling of its register path), 300 and 1024 (its general path);
   4. the main path: the `dust` stack from PENDULUM_DEMO_CONFIG with the
      fused rollout (K1) and FusedPendulumMPF (K2), 200 MPC steps of
-     PendulumSimulation; every kernel must launch once per step, every
+     PendulumSimulation; every kernel must launch once per step (each
+     MultiDisco hook call exactly one K1 launch), every
      cost, action and particle must be finite, and the pendulum must swing
      up (on every path: the lowest cost in steps 100-199 below 1; for the
      sweep, its median over episodes, and at most 1 in 64 episodes above);
@@ -26,9 +31,12 @@ Phases (any failure raises and exits non-zero):
   6. kernel and plain-version times at the main-path shapes, beside the
      bound: device time per call (20 calls in one CUDA graph, median of 7
      replays) and time per call as the main path pays it (CUDA events
-     around one call, median of 100); plain, kernel, kernel, plain; then
-     20 more K2 calls under its clocked build: the mean time per call of
-     its phases (load, prior score and drive summed over the iterations,
+     around one call, median of 100); plain, kernel, kernel, plain; path
+     1's MultiDisco hook on stride-2 draw columns: its device operations
+     per call (torch.profiler; it must be one, K1), device time and time
+     per call; then 20 more hook and K2 calls under K1's and K2's clocked
+     builds: the mean time per call of their phases (K1: load, rollouts,
+     store; K2: load, prior score and drive summed over the iterations,
      store);
   7. K3 (the whole SVMPC solve, one thread-block cluster of a block per
      policy particle) against its plain version at the demo shapes, at an
@@ -162,6 +170,9 @@ MAIN_STEPS = 200
 COMPARE_STEPS = 10
 SEED = 0
 K1_TOL = dict(rtol=1e-5, atol=1e-4)
+# K1's draw mean against torch's costs.mean(0): the same sum in
+# perhaps another order, scaled by the same 1 / n_params
+K1_MEAN_RTOL = 1e-6
 K2_TOL = dict(rtol=1e-4, atol=1e-5)
 # K3 against its plain version: the same arithmetic, sums over samples
 # and particles in another order; costs and weights at K1's tolerance,
@@ -210,6 +221,16 @@ def _check_close(name, got, want, rtol, atol):
     if not ok or not torch.isfinite(got).all():
         raise AssertionError(f"{name} disagrees with its plain version")
     return max_abs
+
+
+def _check_equal(name, got, want):
+    """got and want bit for bit."""
+    import torch
+
+    same = bool(torch.equal(got, want))
+    print(f"{name}: {'bit-equal' if same else 'FAIL: bits differ'}")
+    if not same:
+        raise AssertionError(f"{name} is not bit-equal to its plain version")
 
 
 def _call_ms(fn, reps=100, warmup=10):
@@ -298,15 +319,18 @@ def _k2_inputs(m, past_obs, loc, action, gen, dev, log_space=False):
     )
 
 
-def _k1_bound(n_params, n_act, n_pol, hz):
+def _k1_bound(n_params, n_act, n_pol, hz, mean=False):
     """Least time for K1's work on the card: each input read once, each
-    output written once; per trajectory and step 19 float32 operations
-    (cost 7: cos, -1, square, *50, om^2, 2 adds; dynamics 12: 2 clamps of
-    2, +pi, sin, 2 products, 2 adds, *dt, +), plus the terminal cost (7)
-    and the per-thread coefficients (6)."""
+    output written once (the costs, or with mean=True the draw mean in
+    their place); per trajectory and step 19 float32 operations (cost 7:
+    cos, -1, square, *50, om^2, 2 adds; dynamics 12: 2 clamps of 2, +pi,
+    sin, 2 products, 2 adds, *dt, +), plus the terminal cost (7) and the
+    per-thread coefficients (6); the mean adds one sum per trajectory and
+    one product per (sample, policy)."""
     n = n_params * n_act * n_pol
-    nbytes = 4 * (2 + n_act * n_pol * hz + 2 * n_params + n)
-    ops = n * (19 * hz + 7 + 6)
+    n_out = n_act * n_pol if mean else n
+    nbytes = 4 * (2 + n_act * n_pol * hz + 2 * n_params + n_out)
+    ops = n * (19 * hz + 7 + 6) + (n + n_act * n_pol if mean else 0)
     return _bound(nbytes, ops)
 
 
@@ -344,22 +368,81 @@ def phase_build():
     return info
 
 
+def _k1_columns(kind, lens, masses):
+    """K1's length and mass arguments for one case of phase 2: contiguous
+    [n_params] tensors, stride-2 columns of an [n_params, 2] draw array
+    (as `MultiDisco._sample_params` builds them), or the model's default
+    (1.0) as a number in place of one column or both."""
+    import torch
+
+    if kind == "contiguous":
+        return lens, masses
+    draws = torch.stack([lens, masses], dim=1)
+    cols = draws[:, 0], draws[:, 1]
+    return {"strided": cols, "default length": (1.0, cols[1]),
+            "default mass": (cols[0], 1.0), "no draws": (1.0, 1.0)}[kind]
+
+
 def phase_k1(dev):
+    """K1 against its plain version, bit for bit: at the main-path shapes
+    and an odd shape near the speed clamp, on contiguous, stride-2 and
+    default (number) draw columns, above MAX_STAGED_HORIZON (the actions
+    read from device memory), and at 11 and 17 draws (more than a block's
+    8 at a time: the draws loop in rounds, the mean carried across them).
+    Each case launches twice: the costs, then the draw mean alone (the
+    launch the MultiDisco hook makes), held bit for bit against
+    `draw_mean_plain` of the plain costs and against costs.mean(0) at
+    K1_MEAN_RTOL; the stride-2 cases also through the hook itself."""
     import torch
 
     from dust_tpu_torch.ops import rollout
 
     gen = torch.Generator(device=dev).manual_seed(SEED + 1)
-    errs = {}
-    for label, shape, state0 in (("main 8x128x3 H30", (8, 128, 3, 30),
-                                  (3.0, 0.0)),
-                                 ("odd 3x7x3 H11", (3, 7, 3, 11),
-                                  (0.2, 7.9))):
-        s0, acts, lens, masses = _k1_inputs(*shape, state0, gen, dev)
+    unstaged = 2 * rollout.MAX_STAGED_HORIZON
+    errs, mean_bits = {}, {}
+    for label, shape, state0, kind in (
+            ("main 8x128x3 H30", (8, 128, 3, 30), (3.0, 0.0), "contiguous"),
+            ("odd 3x7x3 H11", (3, 7, 3, 11), (0.2, 7.9), "contiguous"),
+            ("strided 8x128x3 H30", (8, 128, 3, 30), (3.0, 0.0), "strided"),
+            ("default length 8x128x3 H30", (8, 128, 3, 30), (3.0, 0.0),
+             "default length"),
+            ("default mass 3x7x3 H11", (3, 7, 3, 11), (0.2, 7.9),
+             "default mass"),
+            ("no draws 1x128x3 H30", (1, 128, 3, 30), (3.0, 0.0),
+             "no draws"),
+            (f"unstaged 2x5x3 H{unstaged}", (2, 5, 3, unstaged), (3.0, 0.0),
+             "strided"),
+            ("11 draws strided 11x128x3 H30", (11, 128, 3, 30), (3.0, 0.0),
+             "strided"),
+            ("17 draws strided 17x7x3 H11", (17, 7, 3, 11), (0.2, 7.9),
+             "strided"),
+            ("17 draws default mass 17x128x3 H30", (17, 128, 3, 30),
+             (3.0, 0.0), "default mass"),
+            (f"11 draws unstaged 11x5x3 H{unstaged}", (11, 5, 3, unstaged),
+             (3.0, 0.0), "strided"),
+            (f"17 draws unstaged 17x7x3 H{unstaged + 3}",
+             (17, 7, 3, unstaged + 3), (0.2, 7.9), "strided")):
+        s0, acts, lens0, masses0 = _k1_inputs(*shape, state0, gen, dev)
+        lens, masses = _k1_columns(kind, lens0, masses0)
         got = rollout.fused_pendulum_rollout_costs(s0, acts, lens, masses)
+        mean = rollout.fused_pendulum_rollout_cost_mean(s0, acts, lens,
+                                                        masses)
         torch.cuda.synchronize()
         want = rollout.pendulum_rollout_costs_plain(s0, acts, lens, masses)
         errs[label] = _check_close(f"K1 {label}", got, want, **K1_TOL)
+        _check_equal(f"K1 {label} costs", got, want)
+        _check_close(f"K1 {label} draw mean against costs.mean(0)", mean,
+                     want.mean(0), rtol=K1_MEAN_RTOL, atol=0.0)
+        _check_equal(f"K1 {label} draw mean", mean,
+                     rollout.draw_mean_plain(want))
+        if kind == "strided":
+            hooked = _k1_hook_call(s0, acts, lens0, masses0)()
+            torch.cuda.synchronize()
+            _check_equal(f"K1 {label} draw mean through the hook", hooked,
+                         rollout.draw_mean_plain(want))
+        mean_bits[label] = int((mean != want.mean(0)).sum().item())
+    print("K1 draw mean, elements whose bits differ from torch's "
+          f"costs.mean(0): {mean_bits}")
     return max(errs.values())
 
 
@@ -489,6 +572,7 @@ def phase_main_path(dev, config, fused_solve=False):
 
     from dust_tpu_torch.experiments import build_pendulum_stack
     from dust_tpu_torch.inference import FusedPendulumMPF
+    from dust_tpu_torch.ops import rollout
     from dust_tpu_torch.simulation import PendulumSimulation
 
     label = "path 2 (K3 + K2)" if fused_solve else "main path"
@@ -511,15 +595,38 @@ def phase_main_path(dev, config, fused_solve=False):
                            stack.init_policies, stack.policies_prior,
                            stack.dynamics_prior, stack.mpf_init)
 
+    # each call of the MultiDisco hook must launch K1 once (path 1) or
+    # never be called (path 2): the K1 launches of every call are kept
+    hook = stack.controller.fused_state_costs
+    hook_launches = []
+
+    def counted_hook(*args):
+        before = rollout.fused_pendulum_rollout_costs.launches
+        out = hook(*args)
+        hook_launches.append(
+            rollout.fused_pendulum_rollout_costs.launches - before)
+        return out
+
+    stack.controller.fused_state_costs = counted_hook
     run(5)  # warm-up: library handles, allocator, first-call set-up
 
     _reset_counts()
+    hook_launches.clear()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     cols = run(MAIN_STEPS)
     torch.cuda.synchronize()
     elapsed = time.perf_counter() - t0
     launches = _counts()
+    want_calls = 0 if fused_solve else MAIN_STEPS
+    if len(hook_launches) != want_calls or any(n != 1 for n in
+                                               hook_launches):
+        raise AssertionError(
+            f"{label}: {len(hook_launches)} hook calls (expected "
+            f"{want_calls}), K1 launches per call "
+            f"{sorted(set(hook_launches))} (expected 1)")
+    print(f"{label}: {len(hook_launches)} MultiDisco hook calls, each one "
+          f"K1 launch")
     print(f"{label}: {MAIN_STEPS} MPC steps "
           f"(8 draws x 128 samples x 3 policies, H 30; 50 MPF particles x "
           f"20 steps) in {elapsed:.3f} s; launches {launches}")
@@ -540,6 +647,7 @@ def phase_main_path(dev, config, fused_solve=False):
         "min_cost_second_half": second_half_min,
         "final_cost": float(cols["Cost"][-1]),
         "launches": launches,
+        "hook_calls": len(hook_launches),
     }
     print(f"{label}: {result['solves_per_s']:.1f} solves/s, "
           f"{result['ms_per_step']:.3f} ms per MPC step, lowest cost in "
@@ -643,10 +751,80 @@ def phase_timing(dev):
         print(f"time {name}: kernel device {_fmt(k_dev)} ms, per call "
               f"{_fmt(k_call)} ms; plain device {_fmt(p_dev)} ms, per call "
               f"{_fmt(p_call)} ms; bound {bound[0]:.2e} ms ({bound[1]})")
+    out["pendulum_rollout_costs"]["hook"] = _k1_hook_timing(s0, acts, lens,
+                                                            masses)
     # never on a timed path: the clock's marks add barriers
     out["pendulum_mpf_optimize"]["phase_clock"] = _phase_clock(
         "K2 (path 1)", k2, mpf.phase_clock, steps=1, calls=20, per="call")
     return out
+
+
+def _k1_hook_call(s0, acts, lens, masses):
+    """One call of path 1's MultiDisco hook
+    (`make_fused_pendulum_state_costs`), as a thunk, on its arguments as
+    `MultiDisco.forward` passes them: the state [1, 2],
+    the actions, and the draws as stride-2 columns [n_params, 1, 1, 1] of
+    an [n_params, 2] draw array (`MultiDisco._sample_params`)."""
+    import torch
+
+    from dust_tpu_torch.models import PendulumModel
+    from dust_tpu_torch.ops import rollout
+
+    draws = torch.stack([lens, masses], dim=1)
+    n = draws.shape[0]
+    params = {k: draws[:, i].reshape(n, 1, 1, 1)
+              for i, k in enumerate(("length", "mass"))}
+    hook = rollout.make_fused_pendulum_state_costs(PendulumModel())
+    state = s0.reshape(1, 2)
+    return lambda: hook(state, acts, params)
+
+
+def _device_ops(fn, calls=20):
+    """Device operations (kernels, copies, fills) per call of fn, counted
+    by torch.profiler over `calls` calls: (ops per call, {name: per
+    call})."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    ops = {e.key: e.count / calls for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA
+           and not getattr(e, "is_user_annotation", False)}
+    return sum(ops.values()), ops
+
+
+def _k1_hook_timing(s0, acts, lens, masses):
+    """Path 1's MultiDisco hook at the main-path shapes: its device ms per
+    call (20 calls in one CUDA graph), ms per call as the path pays it,
+    its device operations per call (torch.profiler: one, K1), beside its
+    bound (the draw mean in place of the costs); then 20 more calls under
+    K1's clocked build."""
+    from dust_tpu_torch.ops import rollout
+
+    hook = _k1_hook_call(s0, acts, lens, masses)
+    n_ops, names = _device_ops(hook)
+    print(f"K1 hook (path 1) device operations per call: {n_ops:g} "
+          f"{names}")
+    if n_ops != 1:
+        raise AssertionError(
+            f"K1 hook: {n_ops:g} device operations per call, expected one")
+    bound = _k1_bound(8, 128, 3, 30, mean=True)
+    dev_ms = [_device_ms(hook) for _ in range(2)]
+    call_ms = [_call_ms(hook) for _ in range(2)]
+    print(f"time K1 hook (path 1): device {_fmt(dev_ms)} ms, per call "
+          f"{_fmt(call_ms)} ms; bound {bound[0]:.2e} ms ({bound[1]})")
+    return {"ms": min(dev_ms), "call_ms": min(call_ms),
+            "device_ops_per_call": n_ops, "device_ops": names,
+            "bound_ms": bound[0], "bound_by": bound[1],
+            "phase_clock": _phase_clock("K1 (path 1)", hook,
+                                        rollout.phase_clock, steps=1,
+                                        calls=20, per="call")}
 
 
 # -- slice 2: the whole solve (K3), the whole episode (K4), sweeps (K5) ------

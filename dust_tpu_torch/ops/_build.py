@@ -44,6 +44,7 @@ NVCC_FLAGS = [
 
 _VOID_P = ctypes.c_void_p
 _INT = ctypes.c_int
+_LONG = ctypes.c_longlong
 _FLOAT = ctypes.c_float
 
 # K4 and K5 share one entry (csrc/pendulum_episode.cu)
@@ -57,6 +58,15 @@ _EPISODE_ARGS = (
     + [_FLOAT] * 2                # mpf_fixed_bw mpf_bw_scale
     + [_INT, _VOID_P]             # host_noise stream
 )
+
+_PENDULUM_ROLLOUT_ARGS = [
+    _VOID_P, _VOID_P,                              # state0 actions
+    _VOID_P, _LONG, _FLOAT,                        # lengths: ptr stride value
+    _VOID_P, _LONG, _FLOAT,                        # masses: ptr stride value
+    _VOID_P, _VOID_P,                              # costs cost_mean
+    _INT, _INT, _INT,                              # n_params n_traj hz
+    _FLOAT, _FLOAT, _FLOAT,                        # c_grav c_act dt
+]
 
 _PENDULUM_MPF_ARGS = [
     _VOID_P, _VOID_P, _VOID_P, _VOID_P,            # x centers scal x_out
@@ -95,12 +105,9 @@ _PARTICLE_SOLVE_ARGS = (
 
 # C signatures: name -> argtypes (every pointer and the stream as void*)
 _SIGNATURES = {
-    "dust_pendulum_rollout_costs": [
-        _VOID_P, _VOID_P, _VOID_P, _VOID_P, _VOID_P,   # state0 actions lengths masses costs
-        _INT, _INT, _INT,                              # n_params n_traj hz
-        _FLOAT, _FLOAT, _FLOAT,                        # c_grav c_act dt
-        _VOID_P,                                       # stream
-    ],
+    "dust_pendulum_rollout_costs": _PENDULUM_ROLLOUT_ARGS + [_VOID_P],  # stream
+    # the clocked build (inside rollout.phase_clock)
+    "dust_pendulum_rollout_costs_clock": _PENDULUM_ROLLOUT_ARGS + [_VOID_P, _VOID_P],  # clock stream
     "dust_pendulum_mpf_optimize": _PENDULUM_MPF_ARGS + [_VOID_P],  # stream
     # the clocked build (inside mpf.phase_clock)
     "dust_pendulum_mpf_optimize_clock": _PENDULUM_MPF_ARGS + [_VOID_P, _VOID_P],  # clock stream

@@ -195,3 +195,99 @@ def test_hook_rejects_unknown_parameter_columns():
     with pytest.raises(ValueError, match="length/mass"):
         hook(_t([0.0, 0.0]), torch.zeros(2, 1, 3, 1),
              {"g": torch.ones(1, 1, 1, 1)})
+
+
+@pytest.mark.parametrize("columns", [("length", "mass"), ("length",),
+                                     ("mass",), ()],
+                         ids=["length_and_mass", "length_only", "mass_only",
+                              "no_params"])
+def test_hook_on_draw_column_views_matches_jax_hook(columns):
+    """The hook's plain path on `draws[:, i]` column views, as
+    `MultiDisco._sample_params` builds them (stride 2), against JAX's
+    hook on the same arrays; an absent column (and params=None) takes the
+    model's default, which the port passes as a number."""
+    from dust_tpu.models import PendulumModel as JPendulum
+    from dust_tpu.ops.pallas_rollout import (
+        make_fused_pendulum_state_costs as j_make_hook,
+    )
+    from dust_tpu_torch.models import PendulumModel
+
+    rng = np.random.default_rng(11)
+    n_params = 5
+    actions = (2.5 * rng.normal(size=(9, 3, 12, 1))).astype(np.float32)
+    draws = rng.uniform(0.6, 1.3, size=(n_params, 2)).astype(np.float32)
+    state = np.asarray([[2.9, -0.4]], np.float32)
+    kw = dict(mass=1.1, length=0.9)
+    t_draws = _t(draws)
+    t_params = {k: t_draws[:, i].reshape(n_params, 1, 1, 1)
+                for i, k in enumerate(("length", "mass")) if k in columns}
+    j_params = {k: jnp.asarray(draws)[:, i].reshape(n_params, 1, 1, 1)
+                for i, k in enumerate(("length", "mass")) if k in columns}
+    for col in t_params.values():
+        assert col.reshape(-1).stride(0) == 2
+    got = trollout.make_fused_pendulum_state_costs(PendulumModel(**kw))(
+        _t(state), _t(actions), t_params or None)
+    want = j_make_hook(JPendulum(**kw), interpret=True)(
+        jnp.asarray(state), jnp.asarray(actions), j_params or None)
+    assert got.shape == (9, 3)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.parametrize("n_params", [17, 11, 8, 3, 1])
+def test_draw_mean_plain_equals_torch_mean(n_params):
+    """The kernel's draw mean (`draw_mean_plain`: the draws added in
+    order, times 1 / n_params) against torch's mean over the draws, at
+    rtol 1e-6 (torch may add in another order and divide); the mean entry
+    on CPU tensors is that plain version."""
+    rng = np.random.default_rng(20 + n_params)
+    s0 = _t([3.0, 0.0])
+    actions = _t(2.5 * rng.normal(size=(16, 3, 30, 1)))
+    lengths = _t(rng.uniform(0.6, 1.3, size=(n_params,)))
+    masses = _t(rng.uniform(0.6, 1.3, size=(n_params,)))
+    costs = trollout.pendulum_rollout_costs_plain(s0, actions, lengths,
+                                                  masses)
+    mean = trollout.draw_mean_plain(costs)
+    np.testing.assert_allclose(mean.numpy(), costs.mean(0).numpy(),
+                               rtol=1e-6, atol=0)
+    before = trollout.fused_pendulum_rollout_costs.launches
+    got = trollout.fused_pendulum_rollout_cost_mean(s0, actions, lengths,
+                                                    masses)
+    assert trollout.fused_pendulum_rollout_costs.launches == before
+    np.testing.assert_array_equal(got.numpy(), mean.numpy())
+
+
+def test_hook_makes_no_filled_tensor_and_reads_columns_in_place(monkeypatch):
+    """With both columns in `params` the hook calls no `torch.full` (nor
+    for the defaults: they travel as numbers), and the kernel's column
+    arguments address the caller's draws through their stride, with no
+    copy; a column of another dtype is refused, not converted."""
+    from dust_tpu_torch.models import PendulumModel
+
+    calls = []
+    full = torch.full
+
+    def counting_full(*args, **kwargs):
+        calls.append(args)
+        return full(*args, **kwargs)
+
+    monkeypatch.setattr(torch, "full", counting_full)
+    rng = np.random.default_rng(12)
+    draws = _t(rng.uniform(0.6, 1.3, size=(4, 2)))
+    params = {k: draws[:, i].reshape(4, 1, 1, 1)
+              for i, k in enumerate(("length", "mass"))}
+    hook = trollout.make_fused_pendulum_state_costs(PendulumModel())
+    actions = _t(rng.normal(size=(6, 3, 8, 1)))
+    out = hook(_t([[1.0, 0.5]]), actions, params)
+    assert out.shape == (6, 3) and torch.isfinite(out).all()
+    hook(_t([[1.0, 0.5]]), actions, None)
+    assert calls == []
+
+    for i, k in enumerate(("length", "mass")):
+        ptr, stride, value = trollout._kernel_column(
+            params[k].reshape(-1), draws.device)
+        assert (ptr, stride, value) == (draws.data_ptr() + 4 * i, 2, 0.0)
+    assert trollout._kernel_column(1.25, draws.device) == (0, 0, 1.25)
+    with pytest.raises(ValueError, match="float32"):
+        trollout._kernel_column(params["mass"].reshape(-1).double(),
+                                draws.device)
