@@ -137,7 +137,23 @@ Phases (any failure raises and exits non-zero):
  30. K10-K13 times beside their bounds, as phases 6 and 14, and K10's
      per-phase clock as phase 23 takes K9's; K12b and K13 also at
      m = 32768; K12's yardstick, one scaled_dot_product_attention call
-     (held once against the plain version), as its library time.
+     (held once against the plain version), as its library time;
+ 31. path 12: the DuSt paper's other three pendulum cases at the demo
+     width, 200 MPC steps of PendulumSimulation each (`dust` is path 1):
+     `svmpc` (each MultiDisco hook call one K1 launch, once per step, K2
+     never), `mppi` with the exact model and `disco_utf` (5 sigma points x
+     128 samples; neither launches a kernel); finite costs, actions and
+     states, and the swing-up check (dust_tpu's same cases swing up on the
+     CPU: `python -m tests.test_torch_paper_cases`);
+ 32. path 13: ScenarioSweep over the `dust` stack with the K1 hook and
+     FusedPendulumMPF (K2), 8 scenarios x 200 steps, true (length, mass)
+     drawn from the dynamics prior: seconds per sweep, healthy share,
+     mean_cost_healthy; scenario 0 bit-equal to one episode_fn run from its
+     seed; a NaN true length leaves its scenario unhealthy and the other
+     scenarios bit-equal;
+ 33. tests/test_cross_model.py's scenarios on the card: MultiDisco
+     balances the cart-pole and drives the skid-steer robot to its
+     waypoint, SVMPC on the cart-pole; no kernel launch.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. The line before the last is the kernels' JSON summary;
@@ -3406,6 +3422,320 @@ def phase_timing_slice4(dev, path8):
     return out
 
 
+# -- the paper's four pendulum cases, ScenarioSweep, the other models -----
+
+PATH13_SCENARIOS = 8
+# tests/test_cross_model.py's outcome checks: the pole within 0.1 rad of
+# upright after 60 steps; the robot at most half its start distance from
+# the waypoint after 200
+CARTPOLE_MAX_THETA = 0.1
+SKID_MAX_SHARE = 0.5
+
+
+def phase_paper_cases(dev, config):
+    """Path 12: the `svmpc`, `mppi` (exact model) and `disco_utf` cases of
+    `build_pendulum_stack` at the demo width, MAIN_STEPS steps of
+    PendulumSimulation each (`dust` is path 1). svmpc: each MultiDisco
+    hook call one K1 launch, once per step, K2 never; mppi and disco_utf
+    (5 sigma points x 128 samples): no kernel launch."""
+    import torch
+
+    from dust_tpu_torch.experiments import build_pendulum_stack
+    from dust_tpu_torch.ops import rollout
+    from dust_tpu_torch.simulation import PendulumSimulation
+
+    cfg = copy.deepcopy(config)
+    cfg["exp_params"]["fused_rollout"] = True
+    true_params = [{"length": 1.0, "mass": 1.0}]
+    out = {}
+    for case in ("svmpc", "mppi", "disco_utf"):
+        label = f"path 12 ({case})"
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        stack = build_pendulum_stack(cfg, gen, case=case, device=dev)
+        ctrl = stack.controller
+        if case == "disco_utf" and (ctrl._tf.pts, ctrl.n_actions,
+                                    ctrl.n_pol) != (5, 128, 1):
+            raise AssertionError(f"{label}: {ctrl._tf.pts} sigma points x "
+                                 f"{ctrl.n_actions} samples x {ctrl.n_pol}")
+        if (ctrl.fused_state_costs is None) != (case != "svmpc"):
+            raise AssertionError(f"{label}: hook wired "
+                                 f"{ctrl.fused_state_costs is not None}")
+        hook_launches = []
+        if case == "svmpc":
+            hook = ctrl.fused_state_costs
+
+            def counted_hook(*args, hook=hook):
+                before = rollout.fused_pendulum_rollout_costs.launches
+                res = hook(*args)
+                hook_launches.append(
+                    rollout.fused_pendulum_rollout_costs.launches - before)
+                return res
+
+            ctrl.fused_state_costs = counted_hook
+
+        def run(steps):
+            harness = PendulumSimulation(
+                controller=ctrl, svmpc=stack.svmpc, mpf=stack.mpf,
+                model=stack.model, steps=steps, warm_up=0,
+                use_svmpc=stack.svmpc is not None, mpf_bw=stack.mpf_bw,
+                mpf_steps=stack.mpf_steps,
+                use_exact_model=(case == "mppi"), device=dev)
+            return harness.run(stack.generator, true_params,
+                               stack.init_state, stack.init_policies,
+                               stack.policies_prior, stack.dynamics_prior,
+                               stack.mpf_init)
+
+        run(5)  # warm-up
+        _reset_counts()
+        hook_launches.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cols = run(MAIN_STEPS)
+        torch.cuda.synchronize()
+        elapsed = time.perf_counter() - t0
+        launches = _counts()
+        want = {"pendulum_rollout_costs": MAIN_STEPS} \
+            if case == "svmpc" else {}
+        _check_counts(label, launches, want)
+        want_calls = MAIN_STEPS if case == "svmpc" else 0
+        if len(hook_launches) != want_calls or any(n != 1 for n in
+                                                   hook_launches):
+            raise AssertionError(
+                f"{label}: {len(hook_launches)} hook calls, K1 launches "
+                f"per call {sorted(set(hook_launches))}")
+        for name in ("Cost", "Actions", "Position", "Speed"):
+            if not np.isfinite(cols[name]).all():
+                raise AssertionError(f"{label}: non-finite values in {name}")
+        low = float(cols["Cost"][MAIN_STEPS // 2:].min())
+        out[case] = {"steps": MAIN_STEPS, "seconds": elapsed,
+                     "ms_per_step": 1e3 * elapsed / MAIN_STEPS,
+                     "min_cost_second_half": low,
+                     "final_cost": float(cols["Cost"][-1]),
+                     "launches": launches, "hook_calls": len(hook_launches)}
+        print(f"{label}: {MAIN_STEPS} MPC steps in {elapsed:.3f} s "
+              f"({out[case]['ms_per_step']:.3f} ms per step); lowest cost "
+              f"in steps {MAIN_STEPS // 2}-{MAIN_STEPS - 1}: {low:.6f}; "
+              + (f"{len(hook_launches)} hook calls, each one K1 launch; "
+                 if case == "svmpc" else "no hook call; ")
+              + f"launches {launches}")
+        # dust_tpu's same case swings up on the CPU at this width (the
+        # lowest cost in steps 100-199 below SWINGUP_MAX_COST at seeds 0-2,
+        # `python -m tests.test_torch_paper_cases`), so the port's must
+        _check_swingup(label, low)
+    return out
+
+
+def phase_scenario_sweep_path(dev, config):
+    """Path 13: ScenarioSweep over the `dust` stack on the kernel path (K1
+    hook + FusedPendulumMPF, K2), PATH13_SCENARIOS scenarios x MAIN_STEPS
+    steps, true (length, mass) drawn from the dynamics prior with a numpy
+    seed. Scenario 0 must be bit-equal to one episode_fn run from its
+    seed; a NaN true length must leave its scenario unhealthy and the
+    others' bits alone."""
+    import torch
+
+    from dust_tpu_torch.experiments import build_pendulum_stack
+    from dust_tpu_torch.inference import FusedPendulumMPF
+    from dust_tpu_torch.parallel import ScenarioSweep, broadcast_scenarios
+    from dust_tpu_torch.simulation import PendulumSimulation
+
+    label = "path 13 (ScenarioSweep, K1 + K2)"
+    cfg = copy.deepcopy(config)
+    cfg["exp_params"]["fused_rollout"] = True
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    stack = build_pendulum_stack(cfg, gen, case="dust", device=dev)
+    stack.mpf = FusedPendulumMPF.from_mpf(stack.mpf)
+    harness = PendulumSimulation(
+        controller=stack.controller, svmpc=stack.svmpc, mpf=stack.mpf,
+        model=stack.model, steps=MAIN_STEPS, warm_up=0, mpf_bw=stack.mpf_bw,
+        mpf_steps=stack.mpf_steps, device=dev)
+    n = PATH13_SCENARIOS
+    # the dynamics prior, Uniform(0.6, 1.3) over (length, mass)
+    true = np.random.default_rng(SEED + 13).uniform(
+        0.6, 1.3, size=(n, 2)).astype(np.float32)
+    seeds = [SEED + 1300 + i for i in range(n)]
+    init_obs = stack.init_state.reshape(1, -1)
+    states = (stack.controller.init_state(stack.init_policies),
+              stack.svmpc.init_state(stack.init_policies,
+                                     stack.policies_prior),
+              stack.mpf.init_state(stack.mpf_init, init_obs[0], 1))
+    sweep = ScenarioSweep(harness, device=dev)
+
+    def run(rows, lengths):
+        k = len(rows)
+        return sweep.run(
+            [seeds[i] for i in rows],
+            {"length": torch.tensor(lengths, device=dev),
+             "mass": torch.tensor(true[rows, 1], device=dev)},
+            init_obs.expand(k, 1, 2),
+            *(broadcast_scenarios(st, k) for st in states))
+
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = run(list(range(n)), true[:, 0])
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _counts()
+    _check_counts(label, launches,
+                  {"pendulum_rollout_costs": n * MAIN_STEPS,
+                   "pendulum_mpf_optimize": n * MAIN_STEPS})
+    healthy = out["healthy"].cpu().numpy()
+    low = out["costs"][:, MAIN_STEPS // 2:].min(dim=1).values.cpu().numpy()
+    result = {"scenarios": n, "steps": MAIN_STEPS, "seconds": elapsed,
+              "solves_per_s": n * MAIN_STEPS / elapsed,
+              "true_length_mass": true.tolist(), "launches": launches,
+              "healthy_share": float(healthy.mean()),
+              "mean_cost_healthy": float(out["mean_cost_healthy"]),
+              "min_cost_second_half": low.tolist()}
+    print(f"{label}: {n} scenarios x {MAIN_STEPS} steps in {elapsed:.3f} s "
+          f"per sweep ({result['solves_per_s']:.1f} solves/s); healthy "
+          f"share {result['healthy_share']}; mean_cost_healthy "
+          f"{result['mean_cost_healthy']:.6f}; lowest cost in steps "
+          f"{MAIN_STEPS // 2}-{MAIN_STEPS - 1} per scenario {_fmt(low)}; "
+          f"launches {launches}")
+    if not healthy.all():
+        raise AssertionError(f"{label}: unhealthy scenarios {healthy}")
+    for name in ("costs", "states", "actions"):
+        if not torch.isfinite(out[name]).all():
+            raise AssertionError(f"{label}: non-finite {name}")
+
+    _, logs = harness.episode_fn(None)(
+        torch.Generator(device=dev).manual_seed(seeds[0]),
+        {"length": torch.tensor(true[0, 0], device=dev),
+         "mass": torch.tensor(true[0, 1], device=dev)},
+        init_obs, *states)
+    for name, j in (("states", 0), ("actions", 1), ("costs", 2)):
+        _check_equal(f"{label} scenario 0 {name} vs episode_fn",
+                     out[name][0], logs[j])
+
+    # NaN isolation: scenarios 0, 1 and 2 again, scenario 1's true length
+    # NaN
+    rows = [0, 1, 2]
+    nan_out = run(rows, [true[0, 0], np.nan, true[2, 0]])
+    nan_healthy = nan_out["healthy"].tolist()
+    if nan_healthy != [True, False, True]:
+        raise AssertionError(f"{label}: NaN run healthy {nan_healthy}")
+    for k, i in ((0, 0), (2, 2)):
+        for name in ("states", "actions", "costs"):
+            _check_equal(f"{label} NaN run, scenario {i} {name}",
+                         nan_out[name][k], out[name][i])
+    result["nan_run_healthy"] = nan_healthy
+    print(f"{label}: NaN true length in scenario 1: healthy {nan_healthy}, "
+          f"scenarios 0 and 2 bit-equal to the first sweep")
+    return result
+
+
+def phase_cross_model(dev):
+    """tests/test_cross_model.py's three scenarios on the card: MultiDisco
+    balances the cart-pole (60 steps) and drives the skid-steer robot to
+    its waypoint (200 steps, uncertain ICR offset), SVMPC composes with
+    the cart-pole (one solve); no kernel launches."""
+    import torch
+
+    from dust_tpu_torch.controllers import MultiDisco
+    from dust_tpu_torch.distributions import GMM, Uniform
+    from dust_tpu_torch.inference import SVMPC, ExponentiatedUtility
+    from dust_tpu_torch.models import CartPoleModel, SkidSteerRobot
+    from dust_tpu_torch.spaces import Box
+
+    label = "cross-model phase"
+    _reset_counts()
+    t0 = time.perf_counter()
+    model = CartPoleModel(dt=0.02, device=dev)
+
+    def pole_cost(s, a=None, **_):
+        return 10.0 * s[..., 2] ** 2 + 0.1 * s[..., 0] ** 2 \
+            + 0.1 * s[..., 3] ** 2
+
+    ctrl = MultiDisco(
+        observation_space=Box(dim=4), action_space=Box(dim=1, low=-1.0,
+                                                        high=1.0),
+        hz_len=20, n_policies=1, action_samples=128,
+        a_cov=0.25 * torch.eye(1), inst_cost_fn=pole_cost,
+        term_cost_fn=pole_cost, params_sampling="none", device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    dstate = ctrl.init_state()
+    obs = torch.tensor([[0.0, 0.0, 0.15, 0.0]], device=dev)
+    for _ in range(60):
+        dstate, *_ = ctrl.forward(dstate, obs, model, generator=gen)
+        dstate, act = ctrl.step(dstate, strategy="average")
+        obs = model.step(obs, act[0][None])
+    theta = float(obs[0, 2])
+    pole_finite = bool(torch.isfinite(obs).all())
+
+    robot = SkidSteerRobot(delta_t=0.1, uncertain_params=("x_icr",),
+                           device=dev)
+    target = torch.tensor([1.0, 0.5], device=dev)
+
+    def goal_cost(s, a=None, **_):
+        return ((s[..., :2] - target) ** 2).sum(dim=-1)
+
+    ctrl = MultiDisco(
+        observation_space=Box(dim=5), action_space=Box(dim=2, low=-0.5,
+                                                        high=0.5),
+        hz_len=15, n_policies=1, action_samples=64, params_samples=4,
+        a_cov=0.04 * torch.eye(2), inst_cost_fn=goal_cost,
+        term_cost_fn=goal_cost, params_sampling=True, device=dev)
+    icr = Uniform(torch.tensor([0.1], device=dev),
+                  torch.tensor([0.3], device=dev), event_ndims=1)
+    gen = torch.Generator(device=dev).manual_seed(SEED + 1)
+    dstate = ctrl.init_state()
+    obs = torch.zeros((1, 5), device=dev)
+    sim_icr = {"x_icr": torch.full((1, 1), 0.2, device=dev)}
+    d0 = float(torch.linalg.norm(obs[0, :2] - target))
+    for _ in range(200):
+        dstate, *_ = ctrl.forward(dstate, obs, robot, icr, gen)
+        dstate, act = ctrl.step(dstate, strategy="average")
+        obs = robot.step(obs, act[0][None], sim_icr)
+    d1 = float(torch.linalg.norm(obs[0, :2] - target))
+
+    def upright_cost(s, a=None, **_):
+        return 10.0 * s[..., 2] ** 2 + 0.1 * s[..., 3] ** 2
+
+    m, horizon = 2, 12
+    ctrl = MultiDisco(
+        observation_space=Box(dim=4), action_space=Box(dim=1, low=-1.0,
+                                                        high=1.0),
+        hz_len=horizon, n_policies=m, action_samples=32,
+        a_cov=0.25 * torch.eye(1), inst_cost_fn=upright_cost,
+        term_cost_fn=upright_cost, params_sampling="none", device=dev)
+    lik = ExponentiatedUtility(alpha=1.0, n_samples=32, controller=ctrl,
+                               model=model)
+    svmpc = SVMPC(likelihood=lik, n_particles=m, lr=0.5)
+    theta0 = torch.zeros((m, horizon, 1), device=dev)
+    prior = GMM.from_cov(theta0, torch.ones(m, device=dev),
+                         0.25 * torch.eye(1, device=dev))
+    sv = svmpc.init_state(theta0, prior)
+    sv, _, costs = svmpc.optimize(
+        sv, ctrl.init_state(), torch.tensor([[0.0, 0.0, 0.1, 0.0]],
+                                            device=dev),
+        None, torch.Generator(device=dev).manual_seed(SEED + 2))
+    sv, a_seq, _ = svmpc.forward(sv, costs)
+    svmpc_finite = bool(torch.isfinite(a_seq).all()
+                        and torch.isfinite(costs).all())
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _counts()
+    _check_counts(label, launches, {})
+    result = {"cartpole_theta": theta, "cartpole_finite": pole_finite,
+              "skid_distance_start": d0, "skid_distance_end": d1,
+              "svmpc_cartpole_finite": svmpc_finite, "seconds": elapsed}
+    print(f"{label}: cart-pole theta after 60 steps {theta:.5f} rad "
+          f"(|theta| < {CARTPOLE_MAX_THETA}); skid-steer distance to the "
+          f"waypoint {d0:.4f} -> {d1:.4f} m (< {SKID_MAX_SHARE} x start); "
+          f"SVMPC on the cart-pole finite {svmpc_finite}; {elapsed:.3f} s; "
+          f"no kernel launched")
+    if not (pole_finite and abs(theta) < CARTPOLE_MAX_THETA):
+        raise AssertionError(f"{label}: the pole fell (theta {theta})")
+    if not d1 < SKID_MAX_SHARE * d0:
+        raise AssertionError(f"{label}: no progress to the waypoint "
+                             f"({d0} -> {d1})")
+    if not svmpc_finite:
+        raise AssertionError(f"{label}: non-finite SVMPC plan or costs")
+    return result
+
+
 def _n_model(dev):
     """Floats of the demo model array the particle kernels read."""
     from dust_tpu_torch.ops import particle_rollout as pr
@@ -3472,6 +3802,13 @@ def main():
     path10 = phase_particle_large_path(dev)
     path11 = phase_fused_mpf_path(dev)
     times.update(phase_timing_slice4(dev, path8))
+
+    print(f"path 12 (dust): path 1 above, lowest cost in steps "
+          f"{MAIN_STEPS // 2}-{MAIN_STEPS - 1} "
+          f"{main_path['min_cost_second_half']:.6f}")
+    path12 = phase_paper_cases(dev, PENDULUM_DEMO_CONFIG)
+    path13 = phase_scenario_sweep_path(dev, PENDULUM_DEMO_CONFIG)
+    cross = phase_cross_model(dev)
 
     kernels = []
     for name, source, replaces, err, path in (
@@ -3545,7 +3882,9 @@ def main():
         "path7_k9_episode": path7, "path8_k10_sweep": path8,
         "path9_particle_scenario_sweep": path9,
         "path10_particle_large_fused_mpf": path10,
-        "path11_fused_mpf": path11, "kernels": kernels,
+        "path11_fused_mpf": path11, "path12_paper_cases": path12,
+        "path13_scenario_sweep": path13, "cross_model": cross,
+        "kernels": kernels,
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -7,15 +7,20 @@ module's counterpart is found under the same path:
     simulation.py          closed-loop pendulum and particle-navigation
                            episode harnesses (+ the whole-episode and
                            sweep kernel adapters)
-    experiments.py         config -> stack builders (pendulum, particle)
+    experiments.py         config -> stack builders (the pendulum's four
+                           cases, particle)
     parallel/              MegakernelGroupSweep (sweep groups, one
-                           launch), ParticleScenarioSweep
+                           launch), ScenarioSweep (pendulum),
+                           ParticleScenarioSweep
       inference/           likelihoods, SVMPC (+ FusedPendulumSVMPC,
-                           FusedParticleSVMPC), MPF (+ FusedPendulumMPF,
-                           FusedParticleMPF, the large-m FusedMPF)
-        controllers/       MultiDisco rollout and update engine
-          models/          batched pendulum and point-mass dynamics, the
-                           obstacle map
+                           FusedParticleSVMPC), MPF (+ ClosedFormPendulumMPF,
+                           FusedPendulumMPF, FusedParticleMPF, the large-m
+                           FusedMPF), generic SVGD
+        controllers/       MultiDisco rollout and update engine, AMPPI,
+                           derivative helpers (base.py)
+          models/          batched pendulum, point-mass, cart-pole and
+                           skid-steer dynamics, the obstacle map
+      utils/               Merwe sigma points (MerweScaledUTF)
       ops/                 distances, bandwidth rules, RBF kernels, the
                            rollout-cost, MPF-loop, whole-solve, episode and
                            sweep kernels of both tasks, the streamed SVGD,
@@ -25,8 +30,8 @@ module's counterpart is found under the same path:
     convert.py             state carried across from numpy arrays
 
 The package imports `torch` and `numpy` only. Its entry points
-(`build_pendulum_stack`, `PendulumSimulation`, `build_particle_stack`)
-run on the card unless the caller passes `device="cpu"`; the CUDA kernels are compiled on first use
+(`build_pendulum_stack`, `PendulumSimulation`, `build_particle_stack`,
+the controllers, models, SVGD and the sweeps) run on the card unless the caller passes `device="cpu"`; the CUDA kernels are compiled on first use
 (`ops/_build.py`), never at import.
 """
 
@@ -34,10 +39,20 @@ __version__ = "0.1.0"
 
 from .spaces import Box
 from .distributions import GMM, MVN, Normal, Uniform
-from .models import BaseModel, ObstacleMap, Particle, PendulumModel
-from .controllers import DiscoState, MultiDisco
+from .utils import MerweScaledUTF
+from .models import (
+    BaseModel,
+    CartPoleModel,
+    ObstacleMap,
+    Particle,
+    PendulumModel,
+    SkidSteerRobot,
+)
+from .controllers import AMPPI, AMPPIState, DiscoState, MultiDisco
 from .inference import (
     MPF,
+    SVGD,
+    ClosedFormPendulumMPF,
     MPFState,
     SVMPC,
     SVMPCState,
@@ -72,14 +87,18 @@ from .simulation import (
 from .parallel import (
     MegakernelGroupSweep,
     ParticleScenarioSweep,
+    ScenarioSweep,
     broadcast_scenarios,
 )
 
 __all__ = [
     "Box", "GMM", "MVN", "Normal", "Uniform",
-    "BaseModel", "ObstacleMap", "Particle", "PendulumModel",
-    "DiscoState", "MultiDisco",
-    "MPF", "MPFState", "SVMPC", "SVMPCState",
+    "MerweScaledUTF",
+    "BaseModel", "CartPoleModel", "ObstacleMap", "Particle", "PendulumModel",
+    "SkidSteerRobot",
+    "AMPPI", "AMPPIState", "DiscoState", "MultiDisco",
+    "MPF", "MPFState", "SVGD", "SVMPC", "SVMPCState",
+    "ClosedFormPendulumMPF",
     "CostLikelihood", "ExpectedCost", "ExponentiatedUtility",
     "FusedMPF", "FusedParticleMPF", "FusedParticleSVMPC",
     "FusedPendulumMPF", "FusedPendulumSVMPC", "FusedSVMPCState",
@@ -90,5 +109,6 @@ __all__ = [
     "megakernel_pendulum_sweep_fn", "megakernel_particle_episode_fn",
     "megakernel_particle_sweep_fn", "particle_episode_fn",
     "run_particle_episode", "to_dataframe",
-    "MegakernelGroupSweep", "ParticleScenarioSweep", "broadcast_scenarios",
+    "MegakernelGroupSweep", "ParticleScenarioSweep", "ScenarioSweep",
+    "broadcast_scenarios",
 ]

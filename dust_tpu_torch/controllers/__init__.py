@@ -1,3 +1,6 @@
+from .amppi import AMPPI, AMPPIState
+from .base import get_hessian, get_jacobian, linearize_model
 from .disco import DiscoState, MultiDisco
 
-__all__ = ["DiscoState", "MultiDisco"]
+__all__ = ["AMPPI", "AMPPIState", "DiscoState", "MultiDisco",
+           "get_hessian", "get_jacobian", "linearize_model"]

@@ -9,7 +9,8 @@ parameter set broadcasts over its whole block of rollouts.
 Parameter-handling modes:
   * none     — nominal model parameters (or `params_override`)
   * sampled  — `n_params` draws from the dynamics distribution per call
-  * utf      — not ported yet (ROADMAP Queue 1 item 9); raises.
+  * utf      — Merwe sigma points of the dynamics distribution (a
+               `MerweScaledUTF` instance), the costs weighted over them
 """
 
 from __future__ import annotations
@@ -19,6 +20,7 @@ from dataclasses import dataclass, replace
 import torch
 
 from ..device import resolve_device
+from ..utils.utf import MerweScaledUTF
 
 
 @dataclass(frozen=True)
@@ -75,18 +77,21 @@ class MultiDisco:
         self.a_pre = torch.linalg.inv(self.a_cov)
 
         self._params_log_space = bool(params_log_space)
+        self._tf = None
         if params_sampling in (False, None, "none"):
             self.n_params = 1
             self._params_mode = "none"
         elif params_sampling is True:
             self.n_params = int(params_samples)
             self._params_mode = "sampled"
-        elif params_sampling == "utf" or hasattr(params_sampling,
-                                                 "compute_sigma_points"):
-            raise NotImplementedError(
-                "MultiDisco UTF sigma-point mode is not ported yet "
-                "(ROADMAP Queue 1 item 9)"
-            )
+        elif isinstance(params_sampling, MerweScaledUTF):
+            if self._params_log_space:
+                raise ValueError(
+                    "Distribution must not be on log space if using UTF."
+                )
+            self.n_params = 1
+            self._params_mode = "utf"
+            self._tf = params_sampling
         else:
             raise ValueError(
                 f"Invalid value for 'params_sampling': {params_sampling}"
@@ -94,7 +99,9 @@ class MultiDisco:
         self.n_rollouts = self.n_params * self.n_actions * self.n_pol
         # optional fused rollout+state-cost hook (the pendulum CUDA kernel,
         # `ops/rollout.py`): (state, actions [I, P, H, A], params dict|None)
-        # -> state costs [I, P]; trajectories are then never materialized
+        # -> state costs [I, P]; trajectories are then never materialized.
+        # The sigma-point mode bypasses it: its weighting needs the cost
+        # of each sigma point.
         self.fused_state_costs = fused_state_costs
 
     # -- state ------------------------------------------------------------
@@ -153,17 +160,25 @@ class MultiDisco:
 
     # -- cost -------------------------------------------------------------
 
-    def compute_cost(self, dstate: DiscoState, states, actions):
-        """states [n_params, n_actions, n_pol, H+1, S], actions
-        [n_actions, n_pol, H, A] -> costs [n_actions, n_pol]. The control
-        penalty derives its eps from the planned sequence (actions -
-        a_seq)."""
+    def compute_cost(self, dstate: DiscoState, states, actions,
+                     utf_weights=None):
+        """states [n_params|pts, n_actions, n_pol, H+1, S], actions
+        [n_actions, n_pol, H, A] -> costs [n_actions, n_pol]: the mean
+        over the leading axis, or its `utf_weights`-weighted sum. The
+        control penalty derives its eps from the planned sequence
+        (actions - a_seq)."""
         head = states[..., :-1, :]
         inst = self.inst_cost_fn(
             head, actions.expand(*head.shape[:-1], self.dim_a)
         )
         term = self.term_cost_fn(states[..., -1, :])
-        state_cost = (inst.sum(dim=-1) + term).mean(dim=0)
+        if utf_weights is not None:
+            # sigma-weighted expectation over the leading sigma-point axis
+            inst = torch.tensordot(utf_weights, inst, dims=([0], [0]))
+            term = torch.tensordot(utf_weights, term, dims=([0], [0]))
+            state_cost = inst.sum(dim=-1) + term
+        else:
+            state_cost = (inst.sum(dim=-1) + term).mean(dim=0)
         return state_cost + self._ctrl_penalty(dstate, actions)
 
     def _ctrl_penalty(self, dstate: DiscoState, actions):
@@ -192,16 +207,30 @@ class MultiDisco:
             actions = ext_actions
             eps = actions - dstate.a_seq
 
+        utf_weights = None
         if self._params_mode == "sampled":
             params, params_log_p = self._sample_params(generator, model,
                                                        params_dist)
             batched = actions.unsqueeze(0).expand(self.n_params,
                                                   *actions.shape)
+        elif self._params_mode == "utf":
+            mean, cov = _dist_moments(params_dist)
+            sp = self._tf.compute_sigma_points(mean, cov)  # [d, pts]
+            pts = self._tf.pts
+            params = {
+                k: sp[i].reshape(pts, 1, 1, 1)
+                for i, k in enumerate(model.uncertain_params)
+            }
+            # the log-prob of each sigma point, averaged with the location
+            # weights
+            utf_weights, _ = self._tf.weights(sp.device)
+            params_log_p = params_dist.log_prob(sp.T) @ utf_weights
+            batched = actions.unsqueeze(0).expand(pts, *actions.shape)
         else:
             params, params_log_p = params_override, None
             batched = actions.unsqueeze(0)
 
-        if self.fused_state_costs is not None:
+        if self.fused_state_costs is not None and utf_weights is None:
             # fused rollout+cost kernel: trajectories never materialize
             state_cost = self.fused_state_costs(state, actions, params)
             costs = state_cost + self._ctrl_penalty(dstate, actions)
@@ -209,7 +238,7 @@ class MultiDisco:
         else:
             states = self.rollout(state, model, batched, params,
                                   generator=generator)
-            costs = self.compute_cost(dstate, states, actions)
+            costs = self.compute_cost(dstate, states, actions, utf_weights)
 
         # softmax weighting: per-policy normalizer over the action-sample
         # axis, max-subtracted by the global minimum cost
@@ -247,3 +276,26 @@ class MultiDisco:
         a_mat = torch.roll(dstate.a_mat, -steps, dims=1)
         a_mat[:, -steps:] = 0.0
         return replace(dstate, a_seq=a_seq, a_mat=a_mat), next_actions
+
+
+def _dist_moments(params_dist):
+    """(mean, covariance) of a distribution for the sigma points: its
+    `covariance` (a tensor or a method), else a diagonal of its
+    `variance`, of `scale` squared, or of a uniform's (high - low)^2 / 12."""
+    mean = params_dist.mean
+    cov = getattr(params_dist, "covariance", None)
+    if cov is None:
+        var = getattr(params_dist, "variance", None)
+        if var is None:
+            if hasattr(params_dist, "scale"):
+                var = torch.square(params_dist.scale)
+            elif hasattr(params_dist, "low"):
+                var = torch.square(params_dist.high - params_dist.low) / 12.0
+            else:
+                raise AttributeError(
+                    "params_dist exposes neither covariance nor variance"
+                )
+        cov = torch.diag(torch.atleast_1d(var))
+    elif callable(cov):
+        cov = cov()
+    return torch.atleast_1d(mean), cov

@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from .controllers import DiscoState
+from .controllers import AMPPIState, DiscoState
 from .device import resolve_device
 from .distributions import GMM
 from .experiments import assemble_particle_stack, assemble_stack
@@ -40,9 +40,10 @@ def _gmm(locs, scale_tril, logits, device):
 
 def stack_arrays_from_numpy(arrays, config, device="cuda", case="dust",
                             reference_compat=False):
-    """Build the port's stack from numpy arrays keyed by
-    `STACK_ARRAY_KEYS` (`mpf_init` only for case "dust") instead of
-    drawing them."""
+    """Build the port's stack of any pendulum case ("dust", "svmpc",
+    "mppi", "disco_utf") from numpy arrays keyed by `STACK_ARRAY_KEYS`
+    (`mpf_init` only for case "dust") instead of drawing them; the
+    disco_utf case's sigma points come from the config's `utf` block."""
     device = resolve_device(device)
     keys = [k for k in STACK_ARRAY_KEYS if k != "mpf_init" or case == "dust"]
     missing = [k for k in keys if k not in arrays]
@@ -80,6 +81,10 @@ def disco_state_from_numpy(a_seq, a_mat, a_mix, device="cuda"):
     return DiscoState(a_seq=_tensor(a_seq, device),
                       a_mat=_tensor(a_mat, device),
                       a_mix=_tensor(a_mix, device))
+
+
+def amppi_state_from_numpy(a_seq, device="cuda"):
+    return AMPPIState(a_seq=_tensor(a_seq, resolve_device(device)))
 
 
 PARTICLE_STACK_ARRAY_KEYS = (

@@ -54,6 +54,17 @@ def _tril_log_det(scale_tril):
     return torch.log(torch.diagonal(scale_tril, dim1=-2, dim2=-1)).sum(-1)
 
 
+def cholesky(a):
+    """Lower Cholesky factor of `a` [..., d, d]. Where a matrix is not
+    positive definite (a NaN in it included) the factor's lower triangle
+    is NaN, as `jnp.linalg.cholesky` gives it, instead of an error: a
+    diverged scenario stays in its own lane, and the card is not asked
+    for the error flag."""
+    factor, info = torch.linalg.cholesky_ex(a)
+    bad = (info != 0)[..., None, None]
+    return torch.where(bad, torch.full_like(factor, math.nan).tril(), factor)
+
+
 def _f32(value, device=None):
     return torch.as_tensor(value, dtype=torch.float32, device=device)
 
@@ -70,7 +81,7 @@ class MVN:
     def from_cov(cls, loc, cov):
         loc = _f32(loc)
         cov = _f32(cov, loc.device)
-        return cls(loc=loc, scale_tril=torch.linalg.cholesky(cov))
+        return cls(loc=loc, scale_tril=cholesky(cov))
 
     @property
     def event_shape(self):
@@ -177,7 +188,7 @@ class GMM:
         cov = _f32(cov, locs.device)
         log_w = torch.log(_f32(weights, locs.device))
         logits = log_w - torch.logsumexp(log_w, dim=0)
-        return cls(locs=locs, scale_tril=torch.linalg.cholesky(cov),
+        return cls(locs=locs, scale_tril=cholesky(cov),
                    logits=logits)
 
     @property

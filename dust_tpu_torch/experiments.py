@@ -29,6 +29,7 @@ from .inference import (
 from .models import Particle, PendulumModel
 from .ops.particle_rollout import make_fused_particle_state_costs
 from .ops.rollout import make_fused_pendulum_state_costs
+from .utils.utf import MerweScaledUTF
 
 _LIKELIHOODS = {
     "ExpectedCost": ExpectedCost,
@@ -72,7 +73,7 @@ PENDULUM_DEMO_CONFIG = {
     "utf": {"n": 2, "alpha": 0.5},
 }
 
-CASES = ("dust", "svmpc", "mppi")
+CASES = ("dust", "svmpc", "mppi", "disco_utf")
 
 
 def load_config(path):
@@ -97,11 +98,6 @@ def pendulum_cost_fns():
 
 
 def _check_case(config_data, case):
-    if case == "disco_utf":
-        raise NotImplementedError(
-            "the disco_utf case needs the UTF sigma-point mode, not ported "
-            "yet (ROADMAP Queue 1 item 9)"
-        )
     if case not in CASES:
         raise ValueError(f"unknown case {case!r}; expected one of {CASES}")
 
@@ -158,14 +154,25 @@ def assemble_stack(config_data, arrays, case="dust", reference_compat=False,
 
     inst_cost, term_cost = pendulum_cost_fns()
     model = PendulumModel(
-        uncertain_params=("length", "mass") if case == "dust" else None
+        uncertain_params=(("length", "mass") if case in ("dust", "disco_utf")
+                          else None)
     )
+
+    if case == "disco_utf":
+        utf = config_data["utf"]
+        params_sampling = MerweScaledUTF(
+            n=utf["n"], alpha=utf["alpha"],
+            correct_sqrt=utf.get("correct_sqrt", False),
+        )
+    else:
+        params_sampling = True if case == "dust" else "none"
 
     fused_state_costs = None
     if exp.get("fused_rollout", False) and use_svmpc:
         # fused rollout+cost kernel (ops/rollout.py): identical math,
-        # trajectories never materialized; mppi uses params_override, for
-        # which the hook has no column
+        # trajectories never materialized; disco_utf's sigma-point
+        # weighting needs the cost of each point, and mppi uses
+        # params_override, for which the hook has no column
         fused_state_costs = make_fused_pendulum_state_costs(model)
 
     controller = MultiDisco(
@@ -179,7 +186,7 @@ def assemble_stack(config_data, arrays, case="dust", reference_compat=False,
         a_cov=exp["ctrl_sigma"] ** 2 * torch.eye(ctrl_dim),
         inst_cost_fn=inst_cost,
         term_cost_fn=term_cost,
-        params_sampling=True if case == "dust" else "none",
+        params_sampling=params_sampling,
         params_log_space=exp["mpf_log_space"] if case == "dust" else False,
         fused_state_costs=fused_state_costs,
         device=device,
@@ -252,8 +259,10 @@ def build_pendulum_stack(config_data, generator, case="dust",
     * "dust"  — MultiDisco(sampled params) + SVMPC + MPF (dual loop)
     * "svmpc" — MultiDisco(mean params) + SVMPC, no MPF
     * "mppi"  — MultiDisco(n_pol=1, exact model), no SVMPC
+    * "disco_utf" — MultiDisco(n_pol=1, UTF sigma points of the dynamics
+      prior, from the config's `utf` block), no SVMPC
 
-    "disco_utf" raises until the UTF mode is ported. `fused_rollout:
+    `fused_rollout:
     true` selects the rollout-cost kernel (K1), `fused_solve: true` the
     whole-solve kernel (K3, `FusedPendulumSVMPC`).
     `generator` (a `torch.Generator` on `device`) draws the initial

@@ -12,7 +12,15 @@ from .svmpc import (
     FusedSVMPCState,
     SVMPCState,
 )
-from .mpf import MPF, FusedMPF, FusedParticleMPF, FusedPendulumMPF, MPFState
+from .mpf import (
+    MPF,
+    ClosedFormPendulumMPF,
+    FusedMPF,
+    FusedParticleMPF,
+    FusedPendulumMPF,
+    MPFState,
+)
+from .svgd import SVGD
 
 __all__ = [
     "CostLikelihood",
@@ -26,8 +34,10 @@ __all__ = [
     "FusedPendulumSVMPC",
     "FusedSVMPCState",
     "MPF",
+    "ClosedFormPendulumMPF",
     "FusedMPF",
     "FusedParticleMPF",
     "FusedPendulumMPF",
     "MPFState",
+    "SVGD",
 ]

@@ -1,6 +1,6 @@
 """MPF — Stein particle filter over dynamics parameters (counterpart of
-`dust_tpu/inference/mpf.py`: `MPF`, `FusedPendulumMPF`,
-`FusedParticleMPF` and `FusedMPF`).
+`dust_tpu/inference/mpf.py`: `MPF`, `ClosedFormPendulumMPF`,
+`FusedPendulumMPF`, `FusedParticleMPF` and `FusedMPF`).
 
 SVGD over parameter particles [n, dim], conditioned online on each new
 observation. The score is the gradient of (GMM prior around the particles)
@@ -15,6 +15,7 @@ sign); the default is the standard repulsion.
 
 from __future__ import annotations
 
+import math
 from dataclasses import dataclass, replace
 
 import torch
@@ -139,6 +140,53 @@ class MPF:
         grads = (torch.stack(norms) if norms
                  else torch.zeros((0,), device=mstate.x.device))
         return self._refresh_prior(mstate, mstate.x, bw), grads, bw
+
+
+class ClosedFormPendulumMPF(MPF):
+    """MPF with the Gaussian-likelihood gradient through the pendulum
+    transition written in closed form (K2's derivation, `ops/mpf.py`):
+    the speed clip gates the gradient, and under `log_space` the chain
+    rule multiplies by the parameters. Semantics =
+    `MPF(reference_compat=False)` with a pendulum `GaussianLikelihood`
+    over (length, mass); `reference_compat` is forced off."""
+
+    def __init__(self, likelihood, **kwargs):
+        kwargs.pop("reference_compat", None)
+        super().__init__(likelihood, reference_compat=False, **kwargs)
+
+    def _grad_lik(self, mstate, x):
+        lik = self.likelihood
+        model = lik.model
+        dt = model.dt
+        g = model.params_dict["g"]
+        sigma = lik.sigma
+        theta0, theta_d0 = mstate.lik.past_obs[0], mstate.lik.past_obs[1]
+        loc0, loc1 = mstate.lik.loc[0], mstate.lik.loc[1]
+        acts = torch.clamp(mstate.lik.past_action.reshape(-1)[0], -2.0, 2.0)
+        sin_t = torch.sin(theta0 + math.pi)
+
+        length = x[:, 0:1]
+        mass = x[:, 1:2]
+        if lik.log_space:
+            length = torch.exp(length)
+            mass = torch.exp(mass)
+        il = 1.0 / length
+        im = 1.0 / mass
+        tdd = -1.5 * g * il * sin_t + 3.0 * im * il * il * acts
+        theta_d_raw = theta_d0 + dt * tdd
+        theta_d = torch.clamp(theta_d_raw, -8.0, 8.0)
+        theta = theta0 + theta_d * dt
+        gate = ((theta_d_raw > -8.0) & (theta_d_raw < 8.0)).to(x.dtype)
+        dtd_dl = gate * dt * (1.5 * g * il * il * sin_t
+                              - 6.0 * im * il**3 * acts)
+        dtd_dm = gate * dt * (-3.0 * im * im * il * il * acts)
+        common = -((theta - loc0) * dt + (theta_d - loc1)) / sigma**2
+        gl_l = common * dtd_dl
+        gl_m = common * dtd_dm
+        if lik.log_space:
+            gl_l = gl_l * length
+            gl_m = gl_m * mass
+        return torch.cat([gl_l, gl_m], dim=1)
 
 
 class FusedPendulumMPF(MPF):

@@ -105,3 +105,12 @@ class BaseModel(ABC):
             key: samples[:, idx].reshape(-1, 1)
             for idx, key in enumerate(self._params_keys)
         }
+
+
+def check_device(model, states):
+    """Raise unless `states` lie on the device `model` was built for."""
+    if states.device.type != model.device.type:
+        raise ValueError(
+            f"{type(model).__name__} was built for {model.device}, got "
+            f"states on {states.device}"
+        )

@@ -14,6 +14,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..spaces import Box
 from .base import BaseModel
 from .obstacle_map import generate_obstacle_map, get_obst_preset
@@ -41,12 +42,12 @@ class Particle(BaseModel):
         verbose=False,
         deterministic=False,
         euler_steps=1,
-        device="cpu",
+        device="cuda",
         **kwargs,
     ):
         params_dict = {"mass": float(np.asarray(mass))}
         super().__init__(params_dict=params_dict, **kwargs)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.max_speed = float("inf") if max_speed is None else float(max_speed)
         self.max_acc = float("inf") if max_accel is None else float(max_accel)
         self.control_type = control_type

@@ -1,8 +1,9 @@
 from .sweep import (
     MegakernelGroupSweep,
     ParticleScenarioSweep,
+    ScenarioSweep,
     broadcast_scenarios,
 )
 
-__all__ = ["MegakernelGroupSweep", "ParticleScenarioSweep",
+__all__ = ["MegakernelGroupSweep", "ParticleScenarioSweep", "ScenarioSweep",
            "broadcast_scenarios"]

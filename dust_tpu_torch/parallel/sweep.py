@@ -1,21 +1,91 @@
 """Scenario sweeps (counterpart of `dust_tpu/parallel/sweep.py:
-MegakernelGroupSweep`, `ParticleScenarioSweep` and `broadcast_scenarios`,
-without a device mesh).
+ScenarioSweep`, `MegakernelGroupSweep`, `ParticleScenarioSweep` and
+`broadcast_scenarios`, without a device mesh).
 
 The sweep kernels (`ops/sweep_episode.py`, `ops/particle_sweep_episode.py`)
 run up to 16 scenarios x n_chains episodes per group; the group axis is
 the data-parallel unit. Here the G groups of one `run` fold into the
-kernel's grid: one launch runs all of them. `ParticleScenarioSweep` runs
-the step-by-step particle episode per scenario, one after another: the
-episode reads its done flag on the host every step, so the scenarios
-cannot be batched into one program as JAX's `vmap` does. The JAX classes'
-`mesh` argument (sharding over several cards) waits for the multi-device
-layer (ROADMAP Queue 1 item 10).
+kernel's grid: one launch runs all of them. `ScenarioSweep` and
+`ParticleScenarioSweep` run the step-by-step episodes (pendulum and
+particle) per scenario, one after another: the episodes are Python loops
+over steps (the particle one reads its done flag on the host every step),
+so the scenarios cannot be batched into one program as JAX's `vmap` does.
+The JAX classes' `mesh` argument (sharding over several cards) waits for
+the multi-device layer (ROADMAP Queue 1 item 10).
 """
 
 from __future__ import annotations
 
 import torch
+
+from ..device import resolve_device
+
+
+class ScenarioSweep:
+    """A `PendulumSimulation` episode over scenarios.
+
+    Usage:
+        sweep = ScenarioSweep(harness, dyn_dist)
+        out = sweep.run(seeds [N], true_params {k: [N]}, init_obs [N, 1, S],
+                        dstate, svstate, mstate)
+
+    Scenario i runs `harness.episode_fn(static_dyn_dist)` with a
+    `torch.Generator` on `device` seeded with seeds[i] (the counterpart of
+    JAX's per-lane keys), the true parameters {k: v[i]}, init_obs[i] and
+    the states dstate[i], svstate[i], mstate[i] (sequences of N, as
+    `broadcast_scenarios` makes them). Returns costs [N, steps], states
+    [N, steps, S], actions [N, steps, A], avg_cum_cost [N], healthy [N]
+    (a finite cumulative cost) and mean_cost_healthy (the mean of
+    avg_cum_cost over the healthy scenarios, NaN if none is): a diverged
+    scenario reports NaN for itself only. `mesh` raises
+    NotImplementedError: sharding scenarios over several cards waits for
+    the multi-device layer."""
+
+    def __init__(self, harness, static_dyn_dist=None, mesh=None,
+                 device="cuda"):
+        if mesh is not None:
+            raise NotImplementedError(
+                "ScenarioSweep takes no device mesh yet (the multi-device "
+                "layer is not ported)")
+        self.device = resolve_device(device)
+        if harness.device.type != self.device.type:
+            raise ValueError(
+                f"the harness runs on {harness.device}, the sweep on "
+                f"{self.device}")
+        self.harness = harness
+        self.episode = harness.episode_fn(static_dyn_dist)
+
+    def run(self, seeds, true_params, init_obs, dstate, svstate, mstate):
+        n = len(seeds)
+        for name, v in (("init_obs", init_obs), ("dstate", dstate),
+                        ("svstate", svstate), ("mstate", mstate),
+                        *((f"true_params[{k!r}]", v)
+                          for k, v in true_params.items())):
+            if len(v) != n:
+                raise ValueError(f"{name} must hold {n} scenarios, got "
+                                 f"{len(v)}")
+        logs = []
+        for i in range(n):
+            gen = torch.Generator(device=self.device).manual_seed(
+                int(seeds[i]))
+            true = {k: v[i] for k, v in true_params.items()}
+            _, log = self.episode(gen, true, init_obs[i], dstate[i],
+                                  svstate[i], mstate[i])
+            logs.append(log)
+        states, actions, costs = (torch.stack([log[j] for log in logs])
+                                  for j in range(3))
+        cum = costs.sum(dim=1)
+        avg_cum = cum / costs.shape[1]
+        healthy = torch.isfinite(cum)
+        return {
+            "costs": costs,              # [N, steps]
+            "states": states,            # [N, steps, S]
+            "actions": actions,          # [N, steps, A]
+            "avg_cum_cost": avg_cum,     # [N]
+            "healthy": healthy,          # [N]
+            "mean_cost_healthy": torch.nanmean(torch.where(
+                healthy, avg_cum, torch.full_like(avg_cum, float("nan")))),
+        }
 
 
 class MegakernelGroupSweep:

@@ -246,3 +246,29 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PendulumSimulation(controller=cpu.controller, svmpc=cpu.svmpc,
                            mpf=cpu.mpf, model=cpu.model)
+
+    from dust_tpu_torch import (
+        AMPPI,
+        SVGD,
+        CartPoleModel,
+        Particle,
+        ScenarioSweep,
+        SkidSteerRobot,
+    )
+
+    harness = PendulumSimulation(controller=cpu.controller, svmpc=cpu.svmpc,
+                                 mpf=cpu.mpf, model=cpu.model, device="cpu")
+    space = cpu.model.observation_space
+    entry_points = (
+        lambda **kw: Particle(**kw),
+        lambda **kw: AMPPI(space, cpu.model.action_space, hz_len=4,
+                           n_samples=2, inst_cost_fn=lambda s, *a: s, **kw),
+        lambda **kw: SVGD(**kw),
+        lambda **kw: ScenarioSweep(harness, **kw),
+        lambda **kw: CartPoleModel(**kw),
+        lambda **kw: SkidSteerRobot(delta_t=0.1, **kw),
+    )
+    for build in entry_points:
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            build()
+        assert build(device="cpu").device == torch.device("cpu")

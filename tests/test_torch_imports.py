@@ -48,7 +48,9 @@ def test_package_imports_without_jax_or_dust_tpu():
                  "ops.particle_rollout", "ops.particle_mpf",
                  "ops.particle_episode", "ops.particle_sweep_episode",
                  "ops.svgd", "ops.gmm", "ops.mpf_stream",
-                 "ops.stream_split"):
+                 "ops.stream_split", "utils", "utils.utf",
+                 "controllers.amppi", "controllers.base", "models.cartpole",
+                 "models.skid_steer", "inference.svgd"):
         assert f"dust_tpu_torch.{name}" in _modules()
 
 

@@ -49,7 +49,8 @@ def _t(a):
 def _models(**over):
     env = dict(ENV, **over)
     return (JParticle(uncertain_params=["mass"], mass=2.0, **env),
-            TParticle(uncertain_params=["mass"], mass=2.0, **env))
+            TParticle(uncertain_params=["mass"], mass=2.0, device="cpu",
+                      **env))
 
 
 def _states(rng, n=600):
@@ -87,7 +88,7 @@ def test_step_velocity_control_matches_jax(rng):
     env = dict(dt=0.05, control_type="velocity", deterministic=True,
                max_speed=2.0)
     jm = JParticle(uncertain_params=["mass"], **env)
-    tm = TParticle(uncertain_params=["mass"], **env)
+    tm = TParticle(uncertain_params=["mass"], device="cpu", **env)
     s = rng.normal(size=(50, 2)).astype(np.float32)
     a = (3.0 * rng.normal(size=(50, 2))).astype(np.float32)
     np.testing.assert_allclose(
@@ -132,7 +133,7 @@ def test_costs_and_weights_match_jax(rng):
         np.testing.assert_allclose(tm.to_map_coord(coord).numpy(),
                                    np.asarray(jm.to_map_coord(coord)),
                                    rtol=1e-6)
-    jd, td = (JParticle(), TParticle())  # default weights: all 1.0
+    jd, td = (JParticle(), TParticle(device="cpu"))  # default weights: all 1.0
     np.testing.assert_array_equal(td.w_term.numpy(), np.asarray(jd.w_term))
 
 

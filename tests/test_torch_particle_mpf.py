@@ -58,7 +58,7 @@ def _setup(rng, log_space=True, m=50, with_obstacle=True):
                   "map_type"):
             env.pop(k)
     jm = JParticle(uncertain_params=["mass"], mass=2.0, **env)
-    tm = TParticle(uncertain_params=["mass"], mass=2.0, **env)
+    tm = TParticle(uncertain_params=["mass"], mass=2.0, device="cpu", **env)
     init = rng.uniform(1.6, 2.4, size=(m, 1)).astype(np.float32)
     if log_space:
         init = np.log(init)
@@ -163,7 +163,7 @@ def test_conditioned_past_action_and_guards(rng):
     a, _, _ = f.optimize(ms, _t([99.0, 99.0]), None, bw=0.3)
     b, _, _ = f.optimize(ms, None, None, bw=0.3)
     np.testing.assert_array_equal(a.x.numpy(), b.x.numpy())
-    vel = TParticle(uncertain_params=["mass"], mass=2.0, dt=0.015,
+    vel = TParticle(uncertain_params=["mass"], mass=2.0, dt=0.015, device="cpu",
                     control_type="velocity", deterministic=True,
                     max_speed=5.0)
     with pytest.raises(ValueError, match="acceleration"):

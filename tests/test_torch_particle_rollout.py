@@ -50,7 +50,8 @@ def _t(a):
 def _models(**over):
     env = dict(copy.deepcopy(ENV), **over)
     return (JParticle(uncertain_params=["mass"], mass=2.0, **env),
-            TParticle(uncertain_params=["mass"], mass=2.0, **env))
+            TParticle(uncertain_params=["mass"], mass=2.0, device="cpu",
+                      **env))
 
 
 def _kw(model, statics):

@@ -108,7 +108,7 @@ def test_solve_plain_matches_jax_at_demo_shapes(start, exp_util):
 
     env = PARTICLE_DEMO_CONFIG["env_params"]
     jm = JParticle(uncertain_params=["mass"], mass=2.0, **env)
-    tm = TParticle(uncertain_params=["mass"], mass=2.0, **env)
+    tm = TParticle(uncertain_params=["mass"], mass=2.0, device="cpu", **env)
     inp = _solve_inputs(0, start)
     statics = dict(hz=H, m=M, n_params=NP, n_act=NA, dt=0.015, max_acc=10.0,
                    max_speed=5.0, exp_util=exp_util)
@@ -145,7 +145,7 @@ def test_plain_delta_sums_in_the_kernels_lane_order(monkeypatch):
     from dust_tpu_torch.models import Particle as TParticle
     from dust_tpu_torch.ops import particle_mpf
 
-    tm = TParticle(uncertain_params=["mass"], mass=2.0,
+    tm = TParticle(uncertain_params=["mass"], mass=2.0, device="cpu",
                    **PARTICLE_DEMO_CONFIG["env_params"])
     inp = _solve_inputs(3, (-9.0, -9.0))
     statics = dict(hz=H, m=M, n_params=NP, n_act=NA, dt=0.015, max_acc=10.0,

@@ -180,13 +180,34 @@ def test_multidisco_ext_actions_log_space_params():
 
 
 def test_multidisco_rejects_utf_and_bad_modes():
-    tm = TPendulum()
+    """The UTF mode takes a `MerweScaledUTF` instance only: the string
+    "utf", an unknown mode and UTF over a log-space distribution raise
+    ValueError, as in JAX."""
+    from dust_tpu.utils.utf import MerweScaledUTF as JUTF
+    from dust_tpu_torch.utils import MerweScaledUTF as TUTF
+
+    tm, jm = TPendulum(), JPendulum()
     ti, tt = t_cost_fns()
-    kw = dict(hz_len=4, n_policies=1, action_samples=2, inst_cost_fn=ti,
-              term_cost_fn=tt, device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
-        TDisco(tm.observation_space, tm.action_space, params_sampling="utf",
-               **kw)
-    with pytest.raises(ValueError):
-        TDisco(tm.observation_space, tm.action_space, params_sampling="x",
-               **kw)
+    ji, jt = j_cost_fns()
+    kw = dict(hz_len=4, n_policies=1, action_samples=2)
+    for mode in ("utf", "x"):
+        with pytest.raises(ValueError, match="params_sampling"):
+            JDisco(jm.observation_space, jm.action_space,
+                   params_sampling=mode, inst_cost_fn=ji, term_cost_fn=jt,
+                   **kw)
+        with pytest.raises(ValueError, match="params_sampling"):
+            TDisco(tm.observation_space, tm.action_space,
+                   params_sampling=mode, inst_cost_fn=ti, term_cost_fn=tt,
+                   device="cpu", **kw)
+    with pytest.raises(ValueError, match="log space"):
+        JDisco(jm.observation_space, jm.action_space,
+               params_sampling=JUTF(2), params_log_space=True,
+               inst_cost_fn=ji, term_cost_fn=jt, **kw)
+    with pytest.raises(ValueError, match="log space"):
+        TDisco(tm.observation_space, tm.action_space,
+               params_sampling=TUTF(2), params_log_space=True,
+               inst_cost_fn=ti, term_cost_fn=tt, device="cpu", **kw)
+    utf = TDisco(tm.observation_space, tm.action_space,
+                 params_sampling=TUTF(2), inst_cost_fn=ti, term_cost_fn=tt,
+                 device="cpu", **kw)
+    assert utf.n_params == 1 and utf.n_rollouts == 2
