@@ -178,6 +178,26 @@ Phases (any failure raises and exits non-zero):
  36. checkpoints: path 1's carry saved at step 100 with its CUDA generator,
      loaded and run to step 200, bit-equal to 200 uninterrupted steps;
      ten more steps timed by a Stopwatch.
+ 37. the entry points (`dust_tpu_torch.demo`) in-process, on the default
+     device (the card), each with the launch counts set to 0 just before
+     and read just after: `pendulum_example` (four cases, 200 steps, one
+     prior-drawn parameter set, `--save`) launches no kernel, its costs
+     are finite and its printed summaries equal the numbers from its
+     columns; `data.pkl` holds the rows and `config.yaml` hashes to the
+     CPU test's text (yaml.dump's); `plots_html.html_mean_results`
+     writes the page of its columns; then `run_cases` per case with
+     length 1.0, mass 1.0 and `fused_rollout: true`: every case swings
+     up, dust and svmpc launch 200 K1 each, mppi and disco_utf none;
+     `particle_example --steps 200` (its line parses, costs and the mass
+     estimate finite); `sweep_example` for both tasks at its defaults (16
+     scenarios, 100 steps): two K5 / K10 launches, every row equal to the
+     demo's row function on direct sweep calls on the same seeds (a check
+     of its seeds, grouping and printing); `pendulum_tuning --tail 9
+     --seeds 1` (one K5 per trial evaluation), `--trials 2` and
+     `--parallel-lr 4` (none) and
+     `particle_tuning --sweep --trials 4 --steps 200` (one K10 per trial
+     evaluation and held-out seed). plots.py and `--render` need
+     matplotlib and are not called.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. The line before the last is the kernels' JSON summary;
@@ -4364,6 +4384,338 @@ def phase_checkpoints(dev, config):
             "launches": launches, "stopwatch": summary}
 
 
+# -- the entry points (dust_tpu_torch.demo) ---------------------------------
+
+# phase 37: the demos' depths (the sweep demo at its defaults: 16
+# scenarios, 100 steps) and the configs of their searches
+DEMO_STEPS = 200
+DEMO_TAIL = ["--tail", "9", "--seeds", "1"]
+DEMO_PSWEEP = ["--sweep", "--trials", "4", "--steps", "200"]
+DEMO_SEARCH = ["--trials", "2"]
+DEMO_LANES = ["--parallel-lr", "4"]
+# SHA-256 of the config.yaml the pendulum demo's --save writes for
+# PENDULUM_DEMO_CONFIG: yaml.dump's text (tests/test_torch_configs.py
+# holds it)
+PENDULUM_CONFIG_YAML_SHA256 = \
+    "12024aca82619a0f06b87390e51d51acf0c8051ccbafba6a13f2ec64cf4f3919"
+
+
+def _demo_call(label, fn, *args, **kw):
+    """fn(*args, **kw) with every launch count set to 0 just before and
+    read just after; its printed text is kept, not echoed. Returns (result,
+    text, seconds, launches)."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        res = fn(*args, **kw)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {k: v for k, v in _counts().items() if v}
+    print(f"phase 37 {label}: {seconds:.3f} s, launches {launches}")
+    return res, buf.getvalue(), seconds, launches
+
+
+def _printed_block(text, head, name):
+    """{key: value text} of a pandas-Series-like block the pendulum demo
+    prints: the line `head`, one "key  value" line per item, then the
+    "Name: `name`" line."""
+    lines = text.splitlines()
+    start = lines.index(head)
+    out = {}
+    for line in lines[start + 1:]:
+        if line.startswith(f"Name: {name}"):
+            return out
+        key, value = line.rsplit(None, 1)
+        out[key.strip()] = value
+    raise AssertionError(f"no block {head!r} ... {name!r} in the report")
+
+
+def _finite_columns(label, cols):
+    for name in ("Cost", "Actions", "Position", "Speed"):
+        if not np.isfinite(cols[name]).all():
+            raise AssertionError(f"{label}: non-finite values in {name}")
+
+
+def _demo_pendulum(dev):
+    """The pendulum demo through main (four cases, prior-drawn parameters,
+    --save) and then through run_cases with length 1.0, mass 1.0 and
+    `fused_rollout: true`, one case per call."""
+    import hashlib
+    import pickle
+
+    from dust_tpu_torch.demo import pendulum_example as pe
+    from dust_tpu_torch.experiments import PENDULUM_DEMO_CONFIG
+    from dust_tpu_torch.utils.plots_html import html_mean_results
+
+    argv = ["--steps", str(DEMO_STEPS), "--episodes", "1", "--seed",
+            str(SEED), "--save"]
+    res, text, seconds, launches = _demo_call(
+        "pendulum_example " + " ".join(argv), pe.main, argv)
+    _check_counts("phase 37 pendulum_example", launches, {})
+    summary = _printed_block(text, "Case", "AvgCumCost")
+    out = {"main": {"argv": argv, "seconds": seconds, "launches": launches,
+                    "parameters_set": res["parameters_set"], "cases": {}}}
+    for label, cols in res["columns"].items():
+        _finite_columns(f"phase 37 pendulum_example {label}", cols)
+        # the printed numbers against the same numbers from the columns
+        last = cols["AvgCumCost"][cols["Timestep"] == DEMO_STEPS - 1]
+        tail = cols["Cost"][-max(DEMO_STEPS // 10, 1):].mean()
+        printed_tail = _printed_block(
+            text.split(f"{label}: mean terminal cost per episode:")[1],
+            "Iteration", "Cost")
+        if float(summary[label]) != float(last.mean()) or \
+                np.float32(printed_tail["0"]) != tail:
+            raise AssertionError(
+                f"phase 37 pendulum_example {label}: printed summary "
+                f"{summary[label]} / tail {printed_tail['0']}, from the "
+                f"columns {last.mean()!r} / {tail!r}")
+        out["main"]["cases"][label] = {
+            "min_cost_second_half":
+                float(cols["Cost"][DEMO_STEPS // 2:].min()),
+            "summary": float(last.mean()), "tail": float(tail)}
+    saved = res["saved"]
+    with (saved / "data.pkl").open("rb") as fh:
+        data = pickle.load(fh)
+    if len(data["Case"]) != 4 * DEMO_STEPS or not np.array_equal(
+            data["Cost"], np.concatenate([c["Cost"] for c in
+                                          res["columns"].values()])):
+        raise AssertionError("phase 37 --save: data.pkl holds other rows")
+    digest = hashlib.sha256((saved / "config.yaml").read_bytes()).hexdigest()
+    if digest != PENDULUM_CONFIG_YAML_SHA256:
+        raise AssertionError(f"phase 37 --save: config.yaml hashes to "
+                             f"{digest}")
+    print(f"phase 37 --save: data.pkl ({len(data['Case'])} rows) and "
+          f"config.yaml equal to the CPU test's (sha256 {digest[:16]}...)")
+    page = saved / "mean_results.html"
+    html = html_mean_results(pe.combine_cases(res["columns"]),
+                             save_path=page)
+    if not page.read_text().startswith("<!DOCTYPE html>") or \
+            page.read_text() != html:
+        raise AssertionError("phase 37: html_mean_results wrote no page")
+    print(f"phase 37 plots_html.html_mean_results on the demo's columns: "
+          f"{len(html)} characters -> {page}")
+    out["main"].update(saved=str(saved), config_sha256=digest,
+                       html_chars=len(html))
+
+    cfg = copy.deepcopy(PENDULUM_DEMO_CONFIG)
+    cfg["exp_params"]["fused_rollout"] = True
+    out["fused"] = {}
+    for case, label in pe.CASES.items():
+        res, _, seconds, launches = _demo_call(
+            f"run_cases({case}, fused_rollout, length 1.0, mass 1.0)",
+            pe.run_cases, cfg, cases=(case,), steps=DEMO_STEPS, seed=SEED,
+            device=dev, parameters_set=[{"length": 1.0, "mass": 1.0}])
+        want = {"pendulum_rollout_costs": DEMO_STEPS} \
+            if case in ("dust", "svmpc") else {}
+        _check_counts(f"phase 37 run_cases({case})", launches, want)
+        cols = res["columns"][label]
+        _finite_columns(f"phase 37 run_cases({case})", cols)
+        low = float(cols["Cost"][DEMO_STEPS // 2:].min())
+        _check_swingup(f"phase 37 run_cases({case})", low)
+        out["fused"][case] = {"seconds": seconds, "launches": launches,
+                              "min_cost_second_half": low}
+    print("phase 37 pendulum_example: lowest cost in steps "
+          f"{DEMO_STEPS // 2}-{DEMO_STEPS - 1} per case, main (drawn "
+          f"parameters {out['main']['parameters_set']}) "
+          + ", ".join(f"{k} {v['min_cost_second_half']:.6f}"
+                      for k, v in out["main"]["cases"].items())
+          + "; run_cases (1.0, 1.0, fused_rollout) "
+          + ", ".join(f"{k} {v['min_cost_second_half']:.6f}"
+                      for k, v in out["fused"].items()))
+    return out
+
+
+def _demo_particle():
+    import re
+
+    from dust_tpu_torch.demo import particle_example
+
+    argv = ["--steps", str(DEMO_STEPS)]
+    (res,), text, seconds, launches = _demo_call(
+        "particle_example " + " ".join(argv), particle_example.main, argv)
+    _check_counts("phase 37 particle_example", launches, {})
+    m = re.search(r"episode 0: steps=(\d+) crashed=(True|False) "
+                  r"success=(True|False) cum_cost=(\S+) final_state=", text)
+    if m is None or int(m.group(1)) != res["steps"] or \
+            m.group(2) != str(res["crashed"]):
+        raise AssertionError(f"phase 37 particle_example: report {text!r}")
+    est = res["mass_estimate"]
+    if not (np.isfinite(res["costs"]).all() and est is not None
+            and np.isfinite(est) and np.isfinite(res["trajectory"]).all()):
+        raise AssertionError("phase 37 particle_example: non-finite costs, "
+                             "states or mass estimate")
+    print(f"phase 37 particle_example: {res['steps']} steps, crashed "
+          f"{res['crashed']}, success {res['success']}, cum_cost "
+          f"{res['cum_cost']:.1f}, MPF mass estimate {est:.3f}")
+    return {"argv": argv, "seconds": seconds, "launches": launches,
+            "steps": res["steps"], "crashed": res["crashed"],
+            "success": res["success"], "cum_cost": res["cum_cost"],
+            "mass_estimate": est}
+
+
+def _demo_sweeps(dev):
+    """sweep_example at its defaults for both tasks: a plumbing check of
+    its seeds, grouping and printing. Each row is held against the demo's
+    own row function (`pendulum_rows` / `particle_rows`) on the outputs of
+    direct sweep calls on the same seeds and arguments; the kernels
+    themselves are held against their plain versions in paths 4 and 8."""
+    import torch
+
+    from dust_tpu_torch.demo import sweep_example as se
+    from dust_tpu_torch.experiments import (PARTICLE_DEMO_CONFIG,
+                                            PENDULUM_DEMO_CONFIG,
+                                            build_particle_stack,
+                                            build_pendulum_stack)
+    from dust_tpu_torch.simulation import (megakernel_particle_sweep_fn,
+                                           megakernel_pendulum_sweep_fn)
+
+    out = {}
+    for task, kernel in (("pendulum", "pendulum_sweep_episode"),
+                         ("particle", "particle_sweep_episode")):
+        res, text, seconds, launches = _demo_call(
+            f"sweep_example --task {task}", se.main, ["--task", task])
+        groups, steps = 2, 100
+        _check_counts(f"phase 37 sweep_example --task {task}", launches,
+                      {kernel: groups})
+        gen = torch.Generator(device=dev).manual_seed(SEED)
+        want = []
+        if task == "pendulum":
+            stack = build_pendulum_stack(PENDULUM_DEMO_CONFIG, gen,
+                                         case="dust", device=dev)
+            fn = megakernel_pendulum_sweep_fn(
+                stack, PENDULUM_DEMO_CONFIG["exp_params"], steps=steps,
+                n_sc=8)
+            lens = torch.linspace(0.7, 1.25, 8, device=dev)
+            mass = torch.linspace(1.25, 0.7, 8, device=dev)
+            for g in range(groups):
+                o = fn(torch.tensor([SEED + 1, g * 1000], device=dev),
+                       lens, mass)
+                want += se.pendulum_rows(o, lens, mass, g, steps)
+            lines = [f"{r[0]:>8} {r[1]:>7.3f} {r[2]:>6.3f} {r[3]:>18.4f} "
+                     f"{r[4]:>10.4f}" for r in want]
+            totals = {"solved": res["solved"]}
+        else:
+            stack = build_particle_stack(PARTICLE_DEMO_CONFIG, gen,
+                                         device=dev)
+            fn = megakernel_particle_sweep_fn(
+                stack, PARTICLE_DEMO_CONFIG["exp_params"], steps=steps,
+                n_sc=8)
+            masses = torch.linspace(1.5, 3.0, 8, device=dev)
+            for g in range(groups):
+                o = fn(torch.tensor([SEED + 1, g * 1000], device=dev),
+                       masses)
+                want += se.particle_rows(o, masses, g)
+            lines = [f"{r[0]:>8} {r[1]:>6.3f} {str(r[2]):>8} "
+                     f"{str(r[3]):>8} {r[4]:>12.1f}" for r in want]
+            totals = {"success": res["success"], "crashed": res["crashed"]}
+        printed = text.splitlines()
+        if res["rows"] != want or any(line not in printed for line in lines):
+            raise AssertionError(f"phase 37 sweep_example --task {task}: "
+                                 f"rows differ from the direct calls")
+        print(f"phase 37 sweep_example --task {task}: 16 rows equal to "
+              f"direct sweep calls on the same seeds (seeds, grouping and "
+              f"printing); {text.splitlines()[-1]}")
+        out[task] = {"seconds": seconds, "launches": launches, **totals}
+    return out
+
+
+def _evaluations(history):
+    """Finite-scored trial evaluations of a successive_halving history
+    (a trial its objective rejects scores +inf and launches nothing)."""
+    return sum(1 for _, rung in history for _, score in rung
+               if np.isfinite(score))
+
+
+def _demo_tuning():
+    from dust_tpu_torch.demo import particle_tuning, pendulum_tuning
+
+    out = {}
+    res, _, seconds, launches = _demo_call(
+        "pendulum_tuning " + " ".join(DEMO_TAIL), pendulum_tuning.main,
+        DEMO_TAIL)
+    _check_counts("phase 37 pendulum_tuning --tail", launches,
+                  {"pendulum_sweep_episode": _evaluations(res["history"])})
+    if not np.isfinite(res["value"]):
+        raise AssertionError("phase 37 pendulum_tuning --tail: no finite "
+                             "best value")
+    out["pendulum_tail"] = {
+        "seconds": seconds, "launches": launches, "value": res["value"],
+        "rungs": [(b, len(r)) for b, r in res["history"]]}
+    for key, argv in (("pendulum_search", DEMO_SEARCH),
+                      ("pendulum_parallel_lr", DEMO_LANES)):
+        res, _, seconds, launches = _demo_call(
+            "pendulum_tuning " + " ".join(argv), pendulum_tuning.main, argv)
+        _check_counts(f"phase 37 pendulum_tuning {argv[0]}", launches, {})
+        if not np.isfinite(res["value"]):
+            raise AssertionError(f"phase 37 pendulum_tuning {argv[0]}: no "
+                                 f"finite best value")
+        out[key] = {"seconds": seconds, "value": res["value"]}
+    res, _, seconds, launches = _demo_call(
+        "particle_tuning " + " ".join(DEMO_PSWEEP), particle_tuning.main,
+        DEMO_PSWEEP)
+    want = _evaluations(res["history"]) + len(res["held_out"])
+    _check_counts("phase 37 particle_tuning --sweep", launches,
+                  {"particle_sweep_episode": want})
+    if not np.isfinite(res["value"]) or len(res["held_out"]) != 3:
+        raise AssertionError("phase 37 particle_tuning --sweep: no finite "
+                             "best value")
+    out["particle_sweep"] = {"seconds": seconds, "launches": launches,
+                             "value": res["value"],
+                             "held_out": list(res["held_out"].values())}
+    print("phase 37 tuning: pendulum --tail rungs (budget, trials) "
+          f"{out['pendulum_tail']['rungs']}, best "
+          f"{out['pendulum_tail']['value']:.6f}; random search best "
+          f"{out['pendulum_search']['value']:.4f}; --parallel-lr best "
+          f"{out['pendulum_parallel_lr']['value']:.4f}; particle --sweep "
+          f"best {out['particle_sweep']['value']:.6f}, held-out "
+          f"{_fmt(out['particle_sweep']['held_out'])}")
+    return out
+
+
+def phase_demos(dev):
+    """Phase 37: the five demos of `dust_tpu_torch.demo` in-process through
+    `main` (default device, the card) or their config functions, each with
+    the launch counts set to 0 just before and read just after."""
+    import importlib.util
+
+    t0 = time.perf_counter()
+    out = {"pendulum_example": _demo_pendulum(dev),
+           "particle_example": _demo_particle(),
+           "sweep_example": _demo_sweeps(dev),
+           "tuning": _demo_tuning()}
+    missing = [m for m in ("matplotlib", "seaborn", "pandas")
+               if importlib.util.find_spec(m) is None]
+    print("phase 37: plots.py and the demos' --render are not called here ("
+          + (f"{', '.join(missing)} not installed" if missing else
+             "the CPU tests hold them against dust_tpu's") + ")")
+    out["seconds"] = time.perf_counter() - t0
+    launches = {}
+    for part in _walk_launches(out):
+        for k, v in part.items():
+            launches[k] = launches.get(k, 0) + v
+    out["launches"] = launches
+    print(f"phase 37 (the demos): every check passed in "
+          f"{out['seconds']:.3f} s; launches {launches}")
+    return out
+
+
+def _walk_launches(node):
+    """Every "launches" dict in a nested result."""
+    if isinstance(node, dict):
+        for k, v in node.items():
+            if k == "launches" and isinstance(v, dict):
+                yield v
+            else:
+                yield from _walk_launches(v)
+
+
 def _n_model(dev):
     """Floats of the demo model array the particle kernels read."""
     from dust_tpu_torch.ops import particle_rollout as pr
@@ -4441,6 +4793,7 @@ def main():
                                path9.pop("out"), path13.pop("out"))
     tuning = phase_tuning(dev, PENDULUM_DEMO_CONFIG)
     ckpt = phase_checkpoints(dev, PENDULUM_DEMO_CONFIG)
+    demos = phase_demos(dev)
 
     kernels = []
     for name, source, replaces, err, path in (
@@ -4517,7 +4870,7 @@ def main():
         "path11_fused_mpf": path11, "path12_paper_cases": path12,
         "path13_scenario_sweep": path13, "cross_model": cross,
         "multi_device": multi, "tuning": tuning, "checkpoints": ckpt,
-        "kernels": kernels,
+        "demos": demos, "kernels": kernels,
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

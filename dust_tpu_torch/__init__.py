@@ -4,6 +4,9 @@ kernels for an NVIDIA Hopper card.
 A port of `dust_tpu` (JAX/Pallas) that keeps its layout and names, so each
 module's counterpart is found under the same path:
 
+    demo/                  the entry points (`python -m
+                           dust_tpu_torch.demo.<name>`): the four pendulum
+                           cases, particle navigation, sweeps, tuning
     simulation.py          closed-loop pendulum and particle-navigation
                            episode harnesses (+ the whole-episode and
                            sweep kernel adapters)
@@ -27,8 +30,9 @@ module's counterpart is found under the same path:
           models/          batched pendulum, point-mass, cart-pole and
                            skid-steer dynamics, the obstacle map
       utils/               Merwe sigma points (MerweScaledUTF),
-                           checkpoints (helper.py), tracing and timing
-                           (profiling.py)
+                           checkpoints and results folders (helper.py),
+                           tracing and timing (profiling.py), plots
+                           (plots.py) and HTML reports (plots_html.py)
       ops/                 distances, bandwidth rules, RBF kernels, the
                            rollout-cost, MPF-loop, whole-solve, episode and
                            sweep kernels of both tasks, the streamed SVGD,
@@ -78,7 +82,9 @@ from .inference import (
 )
 from .experiments import (
     PARTICLE_DEMO_CONFIG,
+    PARTICLE_TUNED_CONFIG,
     PENDULUM_DEMO_CONFIG,
+    PENDULUM_TUNED_CONFIG,
     build_particle_stack,
     build_pendulum_stack,
 )
@@ -120,7 +126,8 @@ __all__ = [
     "FusedMPF", "FusedParticleMPF", "FusedParticleSVMPC",
     "FusedPendulumMPF", "FusedPendulumSVMPC", "FusedSVMPCState",
     "GaussianLikelihood", "LikelihoodState",
-    "PARTICLE_DEMO_CONFIG", "PENDULUM_DEMO_CONFIG", "build_particle_stack",
+    "PARTICLE_DEMO_CONFIG", "PARTICLE_TUNED_CONFIG", "PENDULUM_DEMO_CONFIG",
+    "PENDULUM_TUNED_CONFIG", "build_particle_stack",
     "build_pendulum_stack",
     "PendulumSimulation", "megakernel_pendulum_episode_fn",
     "megakernel_pendulum_sweep_fn", "megakernel_particle_episode_fn",

@@ -4,12 +4,15 @@ and particle-navigation stacks).
 
 The demo configurations are kept as Python dicts, `PENDULUM_DEMO_CONFIG`
 and `PARTICLE_DEMO_CONFIG`, equal to `demo/pendulum_config.yaml` and
-`demo/particle_config.yaml`, so the stacks build where no YAML parser is
-installed; `load_config` reads a YAML file when one is.
+`demo/particle_config.yaml`, and the tuned ones, `PENDULUM_TUNED_CONFIG`
+and `PARTICLE_TUNED_CONFIG`, equal to `demo/*_config_tuned.yaml`, so the
+stacks build where no YAML parser is installed; `load_config` reads a YAML
+file where PyYAML is.
 """
 
 from __future__ import annotations
 
+import copy
 from types import SimpleNamespace
 
 import torch
@@ -73,11 +76,26 @@ PENDULUM_DEMO_CONFIG = {
     "utf": {"n": 2, "alpha": 0.5},
 }
 
+# `demo/pendulum_config_tuned.yaml`, key for key: the demo config with the
+# learning rate, alpha, ctrl_sigma and prior_sigma of the worst-corner tail
+# search (`python -m dust_tpu_torch.demo.pendulum_tuning --tail`)
+PENDULUM_TUNED_CONFIG = copy.deepcopy(PENDULUM_DEMO_CONFIG)
+PENDULUM_TUNED_CONFIG["exp_params"].update(
+    alpha=1.3677, learning_rate=1.1857, ctrl_sigma=1.2633,
+    prior_sigma=2.1853)
+
 CASES = ("dust", "svmpc", "mppi", "disco_utf")
 
 
 def load_config(path):
-    import yaml
+    """The config dict of a YAML file (needs PyYAML)."""
+    try:
+        import yaml
+    except ImportError as exc:
+        raise ImportError(
+            "load_config reads YAML with PyYAML (the 'yaml' module), which "
+            "is not installed; pass one of the config dicts of "
+            "dust_tpu_torch.experiments instead") from exc
 
     with open(path) as f:
         return yaml.safe_load(f)
@@ -335,6 +353,17 @@ PARTICLE_DEMO_CONFIG = {
         "map_type": "direct",
     },
 }
+
+
+# `demo/particle_config_tuned.yaml`, key for key: the strict-success
+# config of the particle sweep search
+# (`python -m dust_tpu_torch.demo.particle_tuning --sweep --refine`)
+PARTICLE_TUNED_CONFIG = copy.deepcopy(PARTICLE_DEMO_CONFIG)
+PARTICLE_TUNED_CONFIG["sim_params"]["steps"] = 600
+PARTICLE_TUNED_CONFIG["exp_params"].update(
+    alpha=0.30768551424290735, learning_rate=292.22941649531174,
+    ctrl_sigma=9.67779876626442, prior_sigma=9.645154087438598)
+PARTICLE_TUNED_CONFIG["env_params"]["cost_params"]["w_qvel_T"] = 800.0
 
 
 def _dynamics_prior(exp, device):

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import math
 import random
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -92,6 +93,20 @@ class ObstacleMap:
             indexing="ij",
         )
         return torch.stack((xv, yv), dim=2)
+
+    def plot(self, save_dir=None, filename="obst_map.png"):
+        """Draw the occupancy grid (origin lower left) and save it as
+        `save_dir/filename` when `save_dir` is given (needs matplotlib)."""
+        import matplotlib
+
+        matplotlib.use("Agg")
+        import matplotlib.pyplot as plt
+
+        plt.figure()
+        plt.imshow(self.map.T, origin="lower")
+        if save_dir is not None:
+            plt.savefig(Path(save_dir) / filename)
+        plt.close()
 
     def get_collisions(self, x, use_gather=False):
         """Occupancy values at world positions x [..., 2]: floor to cell

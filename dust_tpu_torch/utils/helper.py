@@ -9,8 +9,9 @@ file holds only tensors, numbers, strings and containers (read back with
 `torch.load(weights_only=True)`); a dataclass is stored by its module and
 name and rebuilt from its fields.
 
-JAX's `create_video_from_plots` needs moviepy or OpenCV and goes with the
-plotting modules, which the port does not have yet.
+`save_progress` writes `config.yaml` with PyYAML.
+`create_video_from_plots` stitches PNG frames into an MP4 with moviepy or
+OpenCV.
 """
 
 from __future__ import annotations
@@ -138,6 +139,51 @@ def load_checkpoint(path, device=None):
     dev = None if device is None else str(resolve_device(device))
     return (_decode(payload["carry"], dev), payload["step"],
             _decode(payload["extra"], dev))
+
+
+def create_video_from_plots(save_path, plot_path=None, fps=20):
+    """Stitch the PNG frames of `plot_path` (default `save_path/plots`)
+    into `save_path/video.mp4`, with moviepy where it is installed, else
+    OpenCV's VideoWriter; returns the video's path, or None (with a
+    message) where neither is installed or there are no frames."""
+    save_path = Path(save_path)
+    if plot_path is None:
+        plot_path = save_path / "plots"
+    out = save_path / "video.mp4"
+    try:
+        import moviepy.editor as mpy
+    except ImportError:
+        pass
+    else:
+        video = mpy.ImageSequenceClip(str(plot_path), fps=fps)
+        video.write_videofile(str(out))
+        return out
+    try:
+        import cv2
+    except ImportError:
+        print("Neither MoviePy nor OpenCV available. Aborting video "
+              "creation.")
+        return None
+    frames = sorted(Path(plot_path).glob("*.png"))
+    if not frames:
+        print(f"No PNG frames in {plot_path}. Aborting video creation.")
+        return None
+    first = cv2.imread(str(frames[0]))
+    h, w = first.shape[:2]
+    writer = cv2.VideoWriter(
+        str(out), cv2.VideoWriter_fourcc(*"mp4v"), fps, (w, h))
+    if not writer.isOpened():
+        print("OpenCV VideoWriter failed to open. Aborting video creation.")
+        return None
+    try:
+        for frame in frames:
+            img = cv2.imread(str(frame))
+            if img.shape[:2] != (h, w):
+                img = cv2.resize(img, (w, h))
+            writer.write(img)
+    finally:
+        writer.release()
+    return out
 
 
 def to_np(x):

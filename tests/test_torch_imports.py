@@ -53,7 +53,10 @@ def test_package_imports_without_jax_or_dust_tpu():
                  "models.skid_steer", "inference.svgd", "parallel.mesh",
                  "parallel.stein", "parallel.rollout",
                  "parallel.svmpc_sharded", "tuning", "utils.helper",
-                 "utils.profiling"):
+                 "utils.profiling", "utils.plots", "utils.plots_html",
+                 "demo", "demo.pendulum_example", "demo.particle_example",
+                 "demo.sweep_example", "demo.pendulum_tuning",
+                 "demo.particle_tuning"):
         assert f"dust_tpu_torch.{name}" in _modules()
 
 
