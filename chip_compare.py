@@ -16,9 +16,9 @@ and K7 also at m = 1024), one 200-step K4 and K9 episode (paths 3 and 7)
 and one 256-episode K5 and K10 sweep (paths 4 and 8) between CUDA events
 (median of 3), and hashes the outputs of K1 (its costs, and the hook's
 draw means on their own), K2, K3 (its costs also on their own), K6, K7
-(m = 50 and 1024), K13, K8, a 20-step K5 sweep on fixed seeded inputs
-(host noise) and a 200-step K9 episode (device noise), so that two trees
-can be held bit for bit. Where the tree has them, it prints the per-phase
+(m = 50 and 1024), K13, K11a and K12a at d = 60, K8, a 20-step K5
+sweep on fixed seeded inputs (host noise) and a 200-step K9 episode
+(device noise), so that two trees can be held bit for bit. Where the tree has them, it prints the per-phase
 clocks of K1, K2, K3, K6 and K7 (their clocked builds,
 `chip_smoke._phase_clock`). It prints one line, `RESULT {json}`. To
 compare a parent and a change, unpack both (`git archive`) and run the
@@ -39,6 +39,7 @@ import statistics
 import sys
 
 sys.path.insert(0, os.getcwd())
+import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
@@ -155,6 +156,20 @@ for m, d in ((8192, 2), (2049, 3), (33, 8)):
     for out in mpf_stream.fused_mpf_stream_step(x, s, c, bw, pbw, lr):
         digest.update(out.cpu().numpy().tobytes())
 res["k13_sha256"] = digest.hexdigest()
+
+# K11a and K12a at d = 60 (their d <= 128 general path) on numpy-seeded
+# inputs: the same code as chip_smoke.py's _d60_sha256, kept here so that
+# the script runs in trees that lack it; chip_smoke.py's D60_SHA256 is
+# this hash of the tree before K11a/K12a's d-chunked path
+d60_rng = np.random.default_rng(60)
+d60_x, d60_s = (torch.tensor(a.astype(np.float32), device=dev) for a in (
+    d60_rng.normal(size=(300, 60)) + 0.8,
+    5.0 * d60_rng.normal(size=(300, 60))))
+d60_c = torch.tensor(d60_rng.normal(size=(130, 60)).astype(np.float32),
+                     device=dev)
+res["k11_k12_d60_sha256"] = sha256([
+    svgd.svgd_phi_streamed(d60_x, d60_s, 0.7 * 60 ** 0.5),
+    gmm.gmm_prior_score_streamed(d60_x, d60_c, 0.4 * 60 ** 0.5)])
 
 # the pendulum kernels K2-K5 at the demo's shapes
 pgen = torch.Generator(device=dev).manual_seed(cs.SEED + 5)

@@ -132,8 +132,10 @@ Phases (any failure raises and exits non-zero):
      step), 50 steps of run_particle_episode; the generic MPF on the same
      seed;
  29. path 11: FusedMPF.optimize in bench_mpf_large's form at m = 2048,
-     8192, 32768 and with fuse_streams at 8192 and 32768: conditioned
-     updates per second and the launches of each layout;
+     8192, 32768 and with fuse_streams at 8192 and 32768, and with Adam
+     (optimizer="adam") at 2048 (K11a + K12a) and 8192 (K11b + K12b):
+     conditioned updates per second (Adam's beside SGD's) and the
+     launches of each layout;
  30. K10-K13 times beside their bounds, as phases 6 and 14, and K10's
      per-phase clock as phase 23 takes K9's; K12b and K13 also at
      m = 32768; K12's yardstick, one scaled_dot_product_attention call
@@ -197,7 +199,23 @@ Phases (any failure raises and exits non-zero):
      `--parallel-lr 4` (none) and
      `particle_tuning --sweep --trials 4 --steps 200` (one K10 per trial
      evaluation and held-out seed). plots.py and `--render` need
-     matplotlib and are not called.
+     matplotlib and are not called;
+ 38. K11a and K12a above d = 128 (the d-chunked path,
+     csrc/stream_dchunk.cuh) against their plain versions at d = 129, 256
+     and 1024, m = 2048, K12 with k = 2048 and 130 centers, MPF-like and
+     normal inputs, normal inputs offset by 2000 at d = 256, two calls
+     bit-equal; their times at d = 256 and 1024 beside the bounds and the
+     plain versions'; K11a and K12a at d = 60 hashed against the bits of
+     the tree before this path (D60_SHA256);
+ 39. path 14: path 1's `dust` stack at full width (8 draws x 128 samples
+     x 3 policies, H 30; 50 MPF particles x 20 steps, 200 MPC steps) with
+     SVMPC(optimizer="adam", lr=0.1) on the K1 hook and
+     FusedMPF(optimizer="adam") at the config's MPF rate on K11a + K12a:
+     one K1 per hook call and 20 each of K11a and K12a per step, every
+     value finite, the lowest cost printed (swing-up reported, not
+     required: no configuration tunes Adam); then the kernel path against
+     the plain path (rollout loop + autograd MPF, both with Adam) for 10
+     steps re-synced per step, as phase 5.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. The line before the last is the kernels' JSON summary;
@@ -253,6 +271,8 @@ SWEEP_MAX_FAIL_SHARE = 1 / 64
 # the closed loop's tolerances (tests/test_equivalence_dual.py)
 EARLY_TOL = dict(rtol=1e-3, atol=5e-4)
 RUN_TOL = dict(rtol=5e-3, atol=1e-2)
+# path 14: SVMPC's Adam rate, that of tests/test_svmpc_sharded.py:126
+ADAM_SVMPC_LR = 0.1
 
 
 def _nvidia_smi():
@@ -543,11 +563,30 @@ def phase_k2(dev):
     return max(errs.values())
 
 
-def _kernel_harness(config, arrays, dev, fused, steps, fused_solve=False):
+def _with_adam(stack, fused):
+    """Path 14's optimizers on a built `dust` stack: SVMPC with Adam at
+    ADAM_SVMPC_LR (the rate of tests/test_svmpc_sharded.py:126's
+    optax.adam), the MPF with Adam at the config's MPF rate, as
+    FusedMPF (K11a + K12a) where `fused`, else the autograd MPF."""
+    from dust_tpu_torch.inference import FusedMPF
+    from dust_tpu_torch.inference.optim import make_optimizer
+
+    stack.svmpc.optimizer = make_optimizer("adam", ADAM_SVMPC_LR)
+    stack.mpf.optimizer = make_optimizer("adam", stack.mpf.lr)
+    if fused:
+        mpf = stack.mpf
+        stack.mpf = FusedMPF(mpf.likelihood, optimizer=mpf.optimizer,
+                             bw_scale=mpf.bw_scale, n_steps=mpf.n_steps)
+    return stack
+
+
+def _kernel_harness(config, arrays, dev, fused, steps, fused_solve=False,
+                    adam=False):
     """A stack and harness on the kernel path (fused=True: K1 hook, or K3
-    with fused_solve=True, + FusedPendulumMPF) or the plain path (rollout
-    loop + autograd MPF), wired around the same initial arrays, as
-    bench.py wires the JAX stack."""
+    with fused_solve=True, + FusedPendulumMPF; with adam=True K1 +
+    FusedMPF, both optimizers Adam) or the plain path (rollout loop +
+    autograd MPF), wired around the same initial arrays, as bench.py wires
+    the JAX stack."""
     from dust_tpu_torch.experiments import assemble_stack
     from dust_tpu_torch.inference import FusedPendulumMPF
     from dust_tpu_torch.simulation import PendulumSimulation
@@ -556,7 +595,9 @@ def _kernel_harness(config, arrays, dev, fused, steps, fused_solve=False):
     cfg["exp_params"]["fused_rollout"] = fused
     cfg["exp_params"]["fused_solve"] = fused and fused_solve
     stack = assemble_stack(cfg, arrays, case="dust", device=dev)
-    if fused:
+    if adam:
+        _with_adam(stack, fused)
+    elif fused:
         stack.mpf = FusedPendulumMPF.from_mpf(stack.mpf)
     harness = PendulumSimulation(
         controller=stack.controller, svmpc=stack.svmpc, mpf=stack.mpf,
@@ -624,10 +665,13 @@ def _check_counts(path, counts, want):
                 f"{want.get(name, 0)}")
 
 
-def phase_main_path(dev, config, fused_solve=False):
+def phase_main_path(dev, config, fused_solve=False, adam=False):
     """Path 1 (fused_solve=False): K1 hook + FusedPendulumMPF. Path 2
     (fused_solve=True): FusedPendulumSVMPC (K3) + FusedPendulumMPF; the
-    K1 hook stays wired and must not launch."""
+    K1 hook stays wired and must not launch. Path 14 (adam=True): the K1
+    hook and FusedMPF (K11a + K12a), SVMPC and MPF both stepping by Adam
+    (`_with_adam`); no swing-up is required (no configuration tunes
+    Adam), the lowest cost is reported."""
     import torch
 
     from dust_tpu_torch.experiments import build_pendulum_stack
@@ -635,14 +679,18 @@ def phase_main_path(dev, config, fused_solve=False):
     from dust_tpu_torch.ops import rollout
     from dust_tpu_torch.simulation import PendulumSimulation
 
-    label = "path 2 (K3 + K2)" if fused_solve else "main path"
+    label = ("path 14 (K1 + K11a + K12a, Adam)" if adam else
+             "path 2 (K3 + K2)" if fused_solve else "main path")
     cfg = copy.deepcopy(config)
     cfg["exp_params"]["fused_rollout"] = True
     cfg["exp_params"]["fused_solve"] = fused_solve
     gen = torch.Generator(device=dev).manual_seed(SEED)
     stack = build_pendulum_stack(cfg, gen, case="dust", device=dev)
-    # bench.py's kernel path: the single-kernel MPF
-    stack.mpf = FusedPendulumMPF.from_mpf(stack.mpf)
+    if adam:
+        _with_adam(stack, fused=True)
+    else:
+        # bench.py's kernel path: the single-kernel MPF
+        stack.mpf = FusedPendulumMPF.from_mpf(stack.mpf)
     true_params = [{"length": 1.0, "mass": 1.0}]
 
     def run(steps):
@@ -692,8 +740,14 @@ def phase_main_path(dev, config, fused_solve=False):
           f"20 steps) in {elapsed:.3f} s; launches {launches}")
     solve_kernel = "pendulum_solve" if fused_solve else \
         "pendulum_rollout_costs"
-    _check_counts(label, launches, {solve_kernel: MAIN_STEPS,
-                                    "pendulum_mpf_optimize": MAIN_STEPS})
+    if adam:
+        n_mpf = MAIN_STEPS * stack.mpf_steps
+        want = {solve_kernel: MAIN_STEPS, "svgd_phi": n_mpf,
+                "gmm_prior_score": n_mpf}
+    else:
+        want = {solve_kernel: MAIN_STEPS,
+                "pendulum_mpf_optimize": MAIN_STEPS}
+    _check_counts(label, launches, want)
     for name in ("Cost", "Actions", "DynParticles", "PolParticles",
                  "Position", "Speed"):
         if not np.isfinite(cols[name]).all():
@@ -712,7 +766,13 @@ def phase_main_path(dev, config, fused_solve=False):
     print(f"{label}: {result['solves_per_s']:.1f} solves/s, "
           f"{result['ms_per_step']:.3f} ms per MPC step, lowest cost in "
           f"steps {MAIN_STEPS // 2}-{MAIN_STEPS - 1}: {second_half_min:.4f}")
-    _check_swingup(label, second_half_min)
+    if adam:
+        result["lowest_cost"] = float(cols["Cost"].min())
+        result["swung_up"] = second_half_min < SWINGUP_MAX_COST
+        print(f"{label}: lowest cost {result['lowest_cost']:.4f}; swing-up "
+              f"(reported, not required) {result['swung_up']}")
+    else:
+        _check_swingup(label, second_half_min)
     return result
 
 
@@ -722,7 +782,10 @@ def _check_swingup(label, low):
                              f"second half {low:.4f})")
 
 
-def phase_kernel_vs_plain(dev, config):
+def phase_kernel_vs_plain(dev, config, adam=False):
+    """The kernel path (path 1, or path 14 with adam=True) against the
+    plain path for COMPARE_STEPS steps, the plain side re-synced to the
+    kernel side's carry (the optimizers' states included) every step."""
     import torch
 
     from dust_tpu_torch.experiments import draw_stack_arrays
@@ -732,9 +795,9 @@ def phase_kernel_vs_plain(dev, config):
         config, torch.Generator(device=dev).manual_seed(SEED + 3), "dust",
         dev)
     k_stack, k_harness = _kernel_harness(config, arrays, dev, True,
-                                         COMPARE_STEPS)
+                                         COMPARE_STEPS, adam=adam)
     p_stack, p_harness = _kernel_harness(config, arrays, dev, False,
-                                         COMPARE_STEPS)
+                                         COMPARE_STEPS, adam=adam)
     k_step = k_harness.step_fn(k_stack.dynamics_prior)
     p_step = p_harness.step_fn(p_stack.dynamics_prior)
     true = {"length": torch.tensor(1.0, device=dev),
@@ -760,16 +823,28 @@ def phase_kernel_vs_plain(dev, config):
         actions.append((k_log[1], p_log[1]))
         particles.append((k_log[5], p_log[5]))
     worst = 0.0
+    path = "path 14 (Adam) " if adam else ""
     for name, pairs in (("action", actions), ("MPF particles", particles)):
         got = torch.stack([p[0] for p in pairs])
         want = torch.stack([p[1] for p in pairs])
         worst = max(worst,
-                    _check_close(f"kernel vs plain path, {name}, steps 0-4",
-                                 got[:5], want[:5], **EARLY_TOL))
+                    _check_close(f"{path}kernel vs plain path, {name}, "
+                                 f"steps 0-4", got[:5], want[:5],
+                                 **EARLY_TOL))
         worst = max(worst,
-                    _check_close(f"kernel vs plain path, {name}, "
+                    _check_close(f"{path}kernel vs plain path, {name}, "
                                  f"{COMPARE_STEPS} steps", got, want,
                                  **RUN_TOL))
+    if adam:
+        from dust_tpu_torch.inference.optim import AdamState
+
+        for what, state in (("SVMPC", k_carry[3]), ("MPF", k_carry[4])):
+            if not isinstance(state.opt_state, AdamState):
+                raise AssertionError(f"path 14: the {what} carry holds no "
+                                     f"Adam state")
+        print(f"path 14: Adam counts after {COMPARE_STEPS} steps: SVMPC "
+              f"{k_carry[3].opt_state.count}, MPF "
+              f"{k_carry[4].opt_state.count}")
     return worst
 
 
@@ -2526,6 +2601,11 @@ PATH11_CASES = (
      ("gmm_prior_score_packed", "mpf_stream_step")),
     ("m=32768 fuse_streams", 32768, 5, _FUSE,
      ("gmm_prior_score_packed", "mpf_stream_step")),
+    # Adam on the two-kernel layouts (the packed one at 8192)
+    ("m=2048 adam", 2048, 10, dict(lr=1e-3, optimizer="adam"),
+     ("gmm_prior_score", "svgd_phi")),
+    ("m=8192 adam", 8192, 10, dict(lr=1e-3, optimizer="adam"),
+     ("gmm_prior_score_packed", "svgd_phi_packed")),
 )
 
 
@@ -3154,6 +3234,151 @@ def phase_stream_kernels(dev):
     return errs
 
 
+# phase 38: K11a and K12a above d = 128 (csrc/stream_dchunk.cuh) at m =
+# 2048, K12 with k = 2048 and 130 centers; the plain versions in row
+# chunks of DCHUNK_ROWS rows (their per-dimension [rows, m] terms at
+# d = 1024 take 1 GB a chunk); the timed dimensions
+DCHUNK_D = (129, 256, 1024)
+DCHUNK_M = 2048
+DCHUNK_K = (2048, 130)
+DCHUNK_ROWS = 128
+DCHUNK_TIMED_D = (256, 1024)
+# the d <= 128 general path's bits at d = 60 (SHA-256 of K11a's and K12a's
+# outputs from `_d60_sha256`'s inputs) as the kernels of commit 89829ac,
+# the tree before the d-chunked path, gave them on an NVIDIA H100 80GB
+# HBM3 (chip_compare.py's "k11_k12_d60_sha256" is the same hash)
+D60_SHA256 = ("92cfa9b73813cfe201b9c604cc6e28a94ff578f56715bcd4f149e735"
+              "dd3cf179")
+
+
+def _d60_sha256(dev):
+    """K11a and K12a at d = 60 on numpy-seeded inputs (m = 300, k = 130;
+    bandwidths 0.7 and 0.4 times sqrt(d)), hashed: the same code as
+    chip_compare.py's, so that the two trees can be held bit for bit."""
+    import hashlib
+
+    import torch
+
+    from dust_tpu_torch.ops import gmm, svgd
+
+    rng = np.random.default_rng(60)
+    x, s = (torch.tensor(a.astype(np.float32), device=dev) for a in (
+        rng.normal(size=(300, 60)) + 0.8, 5.0 * rng.normal(size=(300, 60))))
+    c = torch.tensor(rng.normal(size=(130, 60)).astype(np.float32),
+                     device=dev)
+    h = hashlib.sha256()
+    for out in (svgd.svgd_phi_streamed(x, s, 0.7 * 60 ** 0.5),
+                gmm.gmm_prior_score_streamed(x, c, 0.4 * 60 ** 0.5)):
+        h.update(out.cpu().numpy().tobytes())
+    return h.hexdigest()
+
+
+def phase_stream_dchunk(dev):
+    """K11a and K12a above d = 128 against their plain versions (in row
+    chunks) at d = DCHUNK_D, m = 2048: MPF-like inputs (particles
+    uniform(0.6, 1.3), scores ~50, centers 0.02 from the particles) with
+    K11's bandwidth 0.3 sqrt(d) (the kernel values near exp(-0.45)) and
+    K12's the MPF prior's 0.2 (each row's own center dominates; k = 130
+    leaves most rows without one); normal inputs with 0.7 sqrt(d) and
+    0.4 sqrt(d) (tests/test_torch_*_stream.py's); at d = 256 the normal
+    inputs offset by 2000 from the origin; two calls bit-equal. Times at
+    DCHUNK_TIMED_D beside the bounds; the d = 60 bits against
+    D60_SHA256."""
+    import torch
+
+    from dust_tpu_torch.ops import gmm, svgd
+
+    gen = torch.Generator(device=dev).manual_seed(SEED + 90)
+    m = DCHUNK_M
+    errs = {"svgd_phi": 0.0, "gmm_prior_score": 0.0}
+    chunks = [slice(r, min(r + DCHUNK_ROWS, m))
+              for r in range(0, m, DCHUNK_ROWS)]
+
+    def chk(name, label, got, want, tol):
+        errs[name] = max(errs[name], _check_close(
+            f"{name} {label}", got, want, **tol))
+
+    def twice(name, label, fn):
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        if not torch.equal(first, second):
+            raise AssertionError(f"{name} {label}: two calls with the same "
+                                 f"inputs differ")
+        return first
+
+    def phi_plain(x, s, bw):
+        return torch.cat([svgd.svgd_phi_plain(x, s, bw, rows=r)
+                          for r in chunks])
+
+    def score_plain(x, c, bw):
+        return torch.cat([gmm.gmm_prior_score_plain(x[r], c, bw)
+                          for r in chunks])
+
+    inputs = {}
+    for d in DCHUNK_D:
+        x, s, c = _stream_inputs(m, d, gen, dev)
+        xn = torch.randn((m, d), generator=gen, device=dev)
+        sn = 5.0 * torch.randn((m, d), generator=gen, device=dev)
+        cn = torch.randn((m, d), generator=gen, device=dev)
+        inputs[d] = (x, s, c)
+        root = d ** 0.5
+        cases = [("MPF-like", x, s, c, 0.3 * root, 0.2),
+                 ("normal", xn, sn, cn, 0.7 * root, 0.4 * root)]
+        if d == 256:
+            cases.append(("normal + 2000", xn + 2000.0, sn, cn + 2000.0,
+                          0.7 * root, 0.4 * root))
+        for kind, xx, ss, cc, bw, pbw in cases:
+            label = f"d={d} m={m} {kind}"
+            chk("svgd_phi", label,
+                twice("svgd_phi", label,
+                      lambda: svgd.svgd_phi_streamed(xx, ss, bw)),
+                phi_plain(xx, ss, bw), K11_TOL)
+            for k in DCHUNK_K:
+                klabel = f"d={d} m={m} k={k} {kind}"
+                chk("gmm_prior_score", klabel,
+                    twice("gmm_prior_score", klabel,
+                          lambda: gmm.gmm_prior_score_streamed(
+                              xx, cc[:k], pbw)),
+                    score_plain(xx, cc[:k], pbw), K12_TOL)
+    print(f"K11a and K12a at d = {DCHUNK_D}, m = {m}: within K11_TOL and "
+          f"K12_TOL of their plain versions, two calls bit-equal; largest "
+          f"d shown on the card: {max(DCHUNK_D)}")
+
+    times = {}
+    for d in DCHUNK_TIMED_D:
+        x, s, c = inputs[d]
+        # device scalars: a CUDA graph captures no host-to-device copy
+        bw = torch.tensor(0.3 * d ** 0.5, device=dev)
+        pbw = torch.tensor(0.2, device=dev)
+        for name, kern, plain, bound in (
+                ("svgd_phi", lambda: svgd.svgd_phi_streamed(x, s, bw),
+                 lambda: phi_plain(x, s, bw), _k11_bound(m, d)),
+                ("gmm_prior_score",
+                 lambda: gmm.gmm_prior_score_streamed(x, c, pbw),
+                 lambda: score_plain(x, c, pbw), _k12_bound(m, m, d))):
+            t = {"ms": min(_device_ms(kern) for _ in range(2)),
+                 "plain_ms": _call_ms(plain, reps=2, warmup=1),
+                 "bound_ms": bound[0], "bound_by": bound[1],
+                 "bound_bytes": bound[2], "bound_ops": bound[3],
+                 "timed_as": "kernel: device time per call, 20 calls in "
+                             "one CUDA graph; plain (in 128-row chunks): "
+                             "one call between CUDA events"}
+            times[f"{name} d={d}"] = t
+            print(f"time {name} d={d} m={m}: kernel {t['ms']:.4f} ms, plain "
+                  f"{t['plain_ms']:.4f} ms; bound {t['bound_ms']:.3e} ms "
+                  f"({t['bound_by']}), {t['bound_ms'] / t['ms']:.1%} of it")
+
+    digest = _d60_sha256(dev)
+    same = digest == D60_SHA256
+    print(f"K11a and K12a at d = 60: sha256 {digest} "
+          f"{'equal to' if same else 'FAIL: differs from'} commit "
+          f"89829ac's {D60_SHA256}")
+    if not same:
+        raise AssertionError("K11a/K12a at d = 60 changed their bits")
+    return {"max_abs_err": errs, "timing": times, "d60_sha256": digest,
+            "largest_d": max(DCHUNK_D)}
+
+
 def phase_particle_large_path(dev):
     """Path 10: bench/bench_all.py:209-245's particle_large stack (16
     policies x 512 samples x 8 mass draws, 2048 MPF particles x 20 steps)
@@ -3307,14 +3532,25 @@ def phase_fused_mpf_path(dev):
               f"{out[label]['updates_per_s']:.2f} updates/s; posterior mean "
               f"(length, mass) {_fmt(out[label]['posterior_mean'])}; "
               f"launches {launches}")
+    for label in [k for k in out if k.endswith(" adam")]:
+        sgd = label[:-len(" adam")]
+        print(f"path 11 Adam beside SGD, {sgd}: "
+              f"{out[label]['updates_per_s']:.2f} against "
+              f"{out[sgd]['updates_per_s']:.2f} updates/s")
     return out
 
 
+def _k11_ops(m, d):
+    """Per particle pair 5d + 3 float32 operations (the distance 3d, the
+    scale, exp, the kernel's row sum, a multiply-add per dimension of
+    sum_j K_ij (score_j - 2 x_j / bw^2)); per element of x 8 (that column
+    operand once, the row-sum term and the division by m)."""
+    return m * m * (5 * d + 3) + 8 * m * d
+
+
 def _k11_bound(m, d):
-    """Per particle pair 7d + 2 float32 operations of the float32 form (the
-    distance 3d, the scale, exp, two multiply-adds per dimension); x and
-    score read once, phi written once."""
-    return _bound(4 * (3 * m * d + 1), m * m * (7 * d + 2))
+    """x and score read once, phi written once."""
+    return _bound(4 * (3 * m * d + 1), _k11_ops(m, d))
 
 
 def _k12_ops(m, k, d):
@@ -3331,7 +3567,7 @@ def _k13_bound(m, d):
     """K11's and K12's operations at k == m and the SGD step; x, score and
     centers read once, x_new and gp_new written once."""
     return _bound(4 * (5 * m * d + 3),
-                  m * m * (7 * d + 3) + _k12_ops(m, m, d) + 2 * m * d)
+                  _k11_ops(m, d) + _k12_ops(m, m, d) + 2 * m * d)
 
 
 SDPA_BACKENDS = ("EFFICIENT_ATTENTION", "CUDNN_ATTENTION",
@@ -4794,6 +5030,11 @@ def main():
     tuning = phase_tuning(dev, PENDULUM_DEMO_CONFIG)
     ckpt = phase_checkpoints(dev, PENDULUM_DEMO_CONFIG)
     demos = phase_demos(dev)
+    dchunk = phase_stream_dchunk(dev)
+    path14 = phase_main_path(dev, PENDULUM_DEMO_CONFIG, adam=True)
+    loop14_err = phase_kernel_vs_plain(dev, PENDULUM_DEMO_CONFIG, adam=True)
+    for name, err in dchunk["max_abs_err"].items():
+        stream_errs[name] = max(stream_errs[name], err)
 
     kernels = []
     for name, source, replaces, err, path in (
@@ -4870,7 +5111,8 @@ def main():
         "path11_fused_mpf": path11, "path12_paper_cases": path12,
         "path13_scenario_sweep": path13, "cross_model": cross,
         "multi_device": multi, "tuning": tuning, "checkpoints": ckpt,
-        "demos": demos, "kernels": kernels,
+        "demos": demos, "stream_dchunk": dchunk, "path14_adam": path14,
+        "path14_vs_plain_path_max_abs_err": loop14_err, "kernels": kernels,
     }
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

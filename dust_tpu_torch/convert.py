@@ -17,6 +17,7 @@ from .device import resolve_device
 from .distributions import GMM
 from .experiments import assemble_particle_stack, assemble_stack
 from .inference import LikelihoodState, MPFState, SVMPCState
+from .inference.optim import AdamState
 
 STACK_ARRAY_KEYS = (
     "init_policies",
@@ -54,17 +55,23 @@ def stack_arrays_from_numpy(arrays, config, device="cuda", case="dust",
 
 
 def svmpc_state_from_numpy(theta, prior_locs, prior_scale_tril,
-                           prior_logits, prior_updated=False, device="cuda"):
+                           prior_logits, prior_updated=False, device="cuda",
+                           opt_state=()):
+    """`opt_state` is the optimizer's state in the port's form: () for
+    SGD, `adam_state_from_numpy(...)` for Adam."""
     device = resolve_device(device)
     return SVMPCState(
         theta=_tensor(theta, device),
         prior=_gmm(prior_locs, prior_scale_tril, prior_logits, device),
         prior_updated=bool(np.asarray(prior_updated)),
+        opt_state=opt_state,
     )
 
 
 def mpf_state_from_numpy(x, prior_locs, prior_scale_tril, prior_logits, loc,
-                         past_obs, past_action, prior_bw, device="cuda"):
+                         past_obs, past_action, prior_bw, device="cuda",
+                         opt_state=()):
+    """`opt_state` as in `svmpc_state_from_numpy`."""
     device = resolve_device(device)
     return MPFState(
         x=_tensor(x, device),
@@ -73,7 +80,16 @@ def mpf_state_from_numpy(x, prior_locs, prior_scale_tril, prior_logits, loc,
                             past_obs=_tensor(past_obs, device),
                             past_action=_tensor(past_action, device)),
         prior_bw=_tensor(prior_bw, device).reshape(()),
+        opt_state=opt_state,
     )
+
+
+def adam_state_from_numpy(count, mu, nu, device="cuda"):
+    """The port's `AdamState` from the arrays of optax's `ScaleByAdamState`
+    (`count`, `mu`, `nu`; the first element of `optax.adam`'s state)."""
+    device = resolve_device(device)
+    return AdamState(count=int(np.asarray(count)), mu=_tensor(mu, device),
+                     nu=_tensor(nu, device))
 
 
 def disco_state_from_numpy(a_seq, a_mat, a_mix, device="cuda"):

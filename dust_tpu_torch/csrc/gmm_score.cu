@@ -30,19 +30,27 @@
 // warps and then over the cluster through distributed shared memory, so
 // no atomics and the same bits every call. No tensor cores: the products
 // are d <= 8 deep, and bf16 or tf32 operands would break the f32
-// tolerances. d > 8 (on no path) keeps one thread per row walking tiles of
-// 32 centers (stream_tiles.cuh:gmm_sums).
+// tolerances. 8 < d <= 128 keeps one thread per row walking tiles of 32
+// centers (stream_tiles.cuh:gmm_sums). Above d = 128 a block of 16 rows
+// walks tiles of 32 centers and the dimensions in chunks of 128
+// (stream_dchunk.cuh): the distances in registers, the online softmax
+// rescaled once per tile (the running max and normalizer per row), then
+// the chunks again for the weighted sum of c_k - c_0, kept in the output
+// rows and rescaled there when the max grows; the last pass divides by the
+// normalizer and subtracts x_i - c_0.
 
 #include <math.h>
 
 #include <cuda_runtime.h>
 
+#include "stream_dchunk.cuh"
 #include "stream_split.cuh"
 #include "stream_tiles.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
+namespace dc = dust_dchunk;
 using namespace dust_split;
 
 template <int D, int RPT>
@@ -149,18 +157,88 @@ int launch_wide(const float* x, const float* centers, const float* bw,
   return static_cast<int>(cudaGetLastError());
 }
 
+// d > 128: a block per 16 rows, the dimensions in chunks of 128
+__global__ void __launch_bounds__(dust_dchunk::kThreads)
+    gmm_dchunk_kernel(const float* __restrict__ x,
+                      const float* __restrict__ centers,
+                      const float* __restrict__ bw, float* __restrict__ out,
+                      int m, int kc, int d) {
+  __shared__ dc::Smem sm;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * dc::kRows;
+  const int ia = row0 + 2 * warp;
+  const int ib = ia + 1;
+  const float b = bw[0];
+  const float inv2 = 0.5f / (b * b);
+  float mxa = -INFINITY, mxb = -INFINITY, la = 0.0f, lb = 0.0f;
+  for (int j0 = 0; j0 < kc; j0 += dc::kCols) {
+    float d2a, d2b;
+    dc::distances(x, m, centers, kc, j0, d, row0, sm, d2a, d2b);
+    const bool valid = j0 + lane < kc;
+    const float ga = valid ? -d2a * inv2 : -INFINITY;
+    const float gb = valid ? -d2b * inv2 : -INFINITY;
+    // lane 0's center is valid in every tile, so the new maxima are finite
+    const float na = fmaxf(mxa, dc::warp_max(ga));
+    const float nb = fmaxf(mxb, dc::warp_max(gb));
+    const float sa = expf(mxa - na);
+    const float sb = expf(mxb - nb);
+    const float pa = valid ? expf(ga - na) : 0.0f;
+    const float pb = valid ? expf(gb - nb) : 0.0f;
+    la = la * sa + dc::warp_sum(pa);
+    lb = lb * sb + dc::warp_sum(pb);
+    mxa = na;
+    mxb = nb;
+    for (int c0 = 0; c0 < d; c0 += dc::kChunk) {
+      const int nd = min(dc::kChunk, d - c0);
+      __syncthreads();  // the previous chunk has been read
+      // the centers shifted by the first one
+      for (int jj = warp; jj < dc::kCols; jj += dc::kWarps) {
+        const int j = j0 + jj;
+        for (int dd = lane; dd < dc::kChunk; dd += 32)
+          sm.col[jj * dc::kPitch + dd] =
+              j < kc && dd < nd
+                  ? centers[static_cast<size_t>(j) * d + c0 + dd] -
+                        centers[c0 + dd]
+                  : 0.0f;
+      }
+      __syncthreads();
+      float ta[dc::kPer], tb[dc::kPer];
+      dc::tile_sums(sm, pa, pb, ta, tb);
+      dc::add_tile(out, ia, m, d, c0, nd, sa, j0 == 0, ta);
+      dc::add_tile(out, ib, m, d, c0, nd, sb, j0 == 0, tb);
+    }
+  }
+  for (int q = 0; q < 2; ++q) {
+    const int i = q == 0 ? ia : ib;
+    const float l = q == 0 ? la : lb;
+    if (i >= m) continue;
+    for (int dd = lane; dd < d; dd += 32) {
+      const size_t e = static_cast<size_t>(i) * d + dd;
+      out[e] = (out[e] / l - (x[e] - centers[dd])) * (2.0f * inv2);
+    }
+  }
+}
+
+int launch_dchunk(const float* x, const float* centers, const float* bw,
+                  float* out, int m, int kc, int d, cudaStream_t stream) {
+  const int blocks = (m + dc::kRows - 1) / dc::kRows;
+  gmm_dchunk_kernel<<<blocks, dc::kThreads, 0, stream>>>(x, centers, bw, out,
+                                                          m, kc, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, out [m, d]; centers [kc, d]; bw [1] the prior bandwidth. Device
-// pointers, float32, contiguous. d <= 128; bf16 (round the weights p and
+// pointers, float32, contiguous. Any d; bf16 (round the weights p and
 // the shifted centers to bf16 before the products, f32 sums; each weight
 // against the running max of its warp's slice at tile granularity, see
 // ops/gmm.py:gmm_prior_score_plain) only for d <= 8.
 extern "C" int dust_gmm_score(const float* x, const float* centers,
                               const float* bw, float* out, int m, int kc,
                               int d, int bf16, void* stream) {
-  if (m < 1 || kc < 1 || d < 1 || d > dust_stream::kMaxWideD ||
-      (bf16 && d > 8))
+  if (m < 1 || kc < 1 || d < 1 || (bf16 && d > 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
@@ -172,6 +250,9 @@ extern "C" int dust_gmm_score(const float* x, const float* centers,
     case 6: return launch_split<6>(x, centers, bw, out, m, kc, bf16, s);
     case 7: return launch_split<7>(x, centers, bw, out, m, kc, bf16, s);
     case 8: return launch_split<8>(x, centers, bw, out, m, kc, bf16, s);
-    default: return launch_wide(x, centers, bw, out, m, kc, d, s);
+    default:
+      return d <= dust_stream::kMaxWideD
+                 ? launch_wide(x, centers, bw, out, m, kc, d, s)
+                 : launch_dchunk(x, centers, bw, out, m, kc, d, s);
   }
 }

@@ -16,12 +16,14 @@
 // the j >= i tiles and mirrors them, which on a GPU needs atomics across
 // blocks: not taken.
 //
-// Bound on this card: per particle pair 7d + 3 float32 operations (the
-// distance 3d, the scale, exp, the row sum and the 2d product sums, each a
-// multiply and an add) against reading x and score once and writing phi
-// once: operations bound at every m this path sees (chip_smoke.py:
-// _k11_bound). At m = 8192, d = 2 that is ~1.1 G operations, ~17 us; the
-// exp unit's 16 ex2 per clock per SM bounds it about as tightly.
+// Bound on this card: per particle pair 5d + 3 float32 operations (the
+// distance 3d, the scale, exp, the row sum and one multiply-add per
+// dimension of sum_j K_ij (score_j - 2 x_j / bw^2), the repulsion folded
+// into that column operand), plus 8 per element of x, against reading x
+// and score once and writing phi once: operations bound at every m this
+// path sees (chip_smoke.py:_k11_bound). At m = 8192, d = 2 that is ~0.87 G
+// operations, ~13 us; the exp unit's 16 ex2 per clock per SM gives ~16 us,
+// a tighter bound that _k11_bound does not count.
 //
 // Design, d <= 8 (stream_split.cuh:phi_sums, the walk K13's first half
 // runs too): a cluster of up to 8 blocks of 8 warps owns a tile of 32 or
@@ -37,17 +39,27 @@
 // The warps' sums merge in warp order, then the cluster's in rank order
 // through distributed shared memory; each block writes its share of the
 // tile's rows. No atomics, the same bits every call.
-// d > 8 (on no path but the general entry's tests) keeps one thread per
-// row walking column tiles of 32 (stream_tiles.cuh:svgd_sums).
+// 8 < d <= 128 keeps one thread per row walking column tiles of 32
+// (stream_tiles.cuh:svgd_sums). Above d = 128 (an MPF over many
+// parameters) a block of 16 rows walks column tiles of 32 and the
+// dimensions in chunks of 128 (stream_dchunk.cuh): the distances in
+// registers, then K once per pair, then the chunks again for
+// sum_j K_ij (score_j - (x_j - x_0) / bw^2), the tile's terms summed apart
+// and added to the row's running sums in phi itself; the last pass adds
+// rowsum_i (x_i - x_0) / bw^2 and divides by m. The repulsion is folded
+// into that column operand, so a pair costs the distance, K and one
+// multiply-add per dimension; the columns are read once per 16 rows.
 
 #include <cuda_runtime.h>
 
+#include "stream_dchunk.cuh"
 #include "stream_split.cuh"
 #include "stream_tiles.cuh"
 
 namespace {
 
 namespace cg = cooperative_groups;
+namespace dc = dust_dchunk;
 using namespace dust_split;
 
 template <int D, int RPT, bool BF16>
@@ -144,15 +156,81 @@ int launch_wide(const float* x, const float* score, const float* bw,
   return static_cast<int>(cudaGetLastError());
 }
 
+// d > 128: a block per 16 rows, the dimensions in chunks of 128
+__global__ void __launch_bounds__(dust_dchunk::kThreads)
+    svgd_dchunk_kernel(const float* __restrict__ x,
+                       const float* __restrict__ score,
+                       const float* __restrict__ bw, float* __restrict__ phi,
+                       int m, int d) {
+  __shared__ dc::Smem sm;
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  const int row0 = blockIdx.x * dc::kRows;
+  const int ia = row0 + 2 * warp;
+  const int ib = ia + 1;
+  const float b = bw[0];
+  const float inv2 = 0.5f / (b * b);
+  const float two = 2.0f * inv2;
+  float rows_a = 0.0f, rows_b = 0.0f;
+  for (int j0 = 0; j0 < m; j0 += dc::kCols) {
+    float d2a, d2b;
+    dc::distances(x, m, x, m, j0, d, row0, sm, d2a, d2b);
+    const bool valid = j0 + lane < m;
+    const float ka = valid ? expf(-d2a * inv2) : 0.0f;
+    const float kb = valid ? expf(-d2b * inv2) : 0.0f;
+    rows_a = rows_a + dc::warp_sum(ka);
+    rows_b = rows_b + dc::warp_sum(kb);
+    for (int c0 = 0; c0 < d; c0 += dc::kChunk) {
+      const int nd = min(dc::kChunk, d - c0);
+      __syncthreads();  // the previous chunk has been read
+      // the column operand score_j - (x_j - x_0) / bw^2
+      for (int jj = warp; jj < dc::kCols; jj += dc::kWarps) {
+        const int j = j0 + jj;
+        for (int dd = lane; dd < dc::kChunk; dd += 32) {
+          float w = 0.0f;
+          if (j < m && dd < nd) {
+            const size_t e = static_cast<size_t>(j) * d + c0 + dd;
+            w = score[e] - two * (x[e] - x[c0 + dd]);
+          }
+          sm.col[jj * dc::kPitch + dd] = w;
+        }
+      }
+      __syncthreads();
+      float ta[dc::kPer], tb[dc::kPer];
+      dc::tile_sums(sm, ka, kb, ta, tb);
+      dc::add_tile(phi, ia, m, d, c0, nd, 1.0f, j0 == 0, ta);
+      dc::add_tile(phi, ib, m, d, c0, nd, 1.0f, j0 == 0, tb);
+    }
+  }
+  const float inv_m = 1.0f / static_cast<float>(m);
+  for (int q = 0; q < 2; ++q) {
+    const int i = q == 0 ? ia : ib;
+    const float rows = q == 0 ? rows_a : rows_b;
+    if (i >= m) continue;
+    for (int dd = lane; dd < d; dd += 32) {
+      const size_t e = static_cast<size_t>(i) * d + dd;
+      phi[e] = (phi[e] + rows * (x[e] - x[dd]) * two) * inv_m;
+    }
+  }
+}
+
+int launch_dchunk(const float* x, const float* score, const float* bw,
+                  float* phi, int m, int d, cudaStream_t stream) {
+  const int blocks = (m + dc::kRows - 1) / dc::kRows;
+  svgd_dchunk_kernel<<<blocks, dc::kThreads, 0, stream>>>(x, score, bw, phi,
+                                                           m, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // x, score, phi [m, d]; bw [1] the kernel bandwidth. Device pointers,
-// float32, contiguous. d <= 128; bf16 (round K, the scores and the
-// shifted particles to bf16 before the products) only for d <= 8.
+// float32, contiguous. Any d; bf16 (round K, the scores and the shifted
+// particles to bf16 before the products) only for d <= 8.
 extern "C" int dust_svgd_phi(const float* x, const float* score,
                              const float* bw, float* phi, int m, int d,
                              int bf16, void* stream) {
-  if (m < 1 || d < 1 || d > dust_stream::kMaxWideD || (bf16 && d > 8))
+  if (m < 1 || d < 1 || (bf16 && d > 8))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (d) {
@@ -164,6 +242,9 @@ extern "C" int dust_svgd_phi(const float* x, const float* score,
     case 6: return launch_d<6>(m, bf16, s, x, score, bw, phi);
     case 7: return launch_d<7>(m, bf16, s, x, score, bw, phi);
     case 8: return launch_d<8>(m, bf16, s, x, score, bw, phi);
-    default: return launch_wide(x, score, bw, phi, m, d, s);
+    default:
+      return d <= dust_stream::kMaxWideD
+                 ? launch_wide(x, score, bw, phi, m, d, s)
+                 : launch_dchunk(x, score, bw, phi, m, d, s);
   }
 }

@@ -5,8 +5,13 @@
 SVGD over parameter particles [n, dim], conditioned online on each new
 observation. The score is the gradient of (GMM prior around the particles)
 + (Gaussian observation likelihood through a one-step model prediction);
-`torch.func.grad` takes the place of `jax.grad`. The optimizer is plain
-SGD, `x + lr * phi`.
+`torch.func.grad` takes the place of `jax.grad`. The optimizer is what
+`optim.make_optimizer` takes ("sgd", the default, `x + lr * phi`; "adam";
+or an optimizer object), its state carried in `MPFState.opt_state` across
+`optimize` calls, as JAX carries the optax state across MPC steps. The
+kernels that step inside themselves (K2 `FusedPendulumMPF`, K7
+`FusedParticleMPF`, K13 `FusedMPF(fuse_streams=True)`) step by SGD and
+take no other optimizer; `FusedMPF`'s two-kernel path applies any.
 
 Under `reference_compat=True` the kernel-gradient term is the attraction
 through the first kernel argument, not divided by n (the reference's
@@ -32,6 +37,7 @@ from ..ops.mpf_stream import fused_mpf_stream_step
 from ..ops.particle_mpf import fused_particle_mpf_optimize
 from ..ops.svgd import svgd_phi_streamed, svgd_phi_streamed_packed
 from .likelihoods import GaussianLikelihood, LikelihoodState
+from .optim import SGD, make_optimizer
 
 
 @dataclass(frozen=True)
@@ -42,6 +48,8 @@ class MPFState:
     # isotropic summary of the prior bandwidth (a vector bandwidth stores
     # its mean) — read by the fused kernel; the exact GMM stays in `prior`
     prior_bw: torch.Tensor
+    # the optimizer's state (() for SGD, an optim.AdamState for Adam)
+    opt_state: object = ()
 
 
 def _mean_bw(bw, device):
@@ -53,15 +61,26 @@ class MPF:
     def __init__(self, likelihood: GaussianLikelihood, lr=1e-3,
                  optimizer="sgd", bw_scale=1.0, n_steps=100,
                  reference_compat=False):
-        if optimizer != "sgd":
-            raise ValueError(
-                f"MPF supports plain SGD only, got optimizer={optimizer!r}"
-            )
+        self.optimizer = make_optimizer(optimizer, lr)
         self.likelihood = likelihood
-        self.lr = float(lr)
         self.bw_scale = float(bw_scale)
         self.n_steps = int(n_steps)
         self.reference_compat = bool(reference_compat)
+
+    @property
+    def lr(self):
+        """The optimizer's own rate (setting it sets the optimizer's)."""
+        return self.optimizer.lr
+
+    @lr.setter
+    def lr(self, value):
+        self.optimizer.lr = float(value)
+
+    def _require_sgd(self, what):
+        """The kernels that step inside themselves take SGD only."""
+        if not isinstance(self.optimizer, SGD):
+            raise ValueError(f"{what} steps by SGD inside its kernel; got "
+                             f"optimizer {self.optimizer!r}")
 
     def init_state(self, init_particles, initial_obs, dim_a, bw=None) -> MPFState:
         x = torch.as_tensor(init_particles, dtype=torch.float32)
@@ -80,6 +99,7 @@ class MPF:
                 torch.as_tensor(initial_obs, device=x.device), dim_a
             ),
             prior_bw=_mean_bw(bw, x.device),
+            opt_state=self.optimizer.init(x),
         )
 
     def make_prior(self, x, bw):
@@ -111,7 +131,9 @@ class MPF:
 
     def step(self, mstate: MPFState, bw):
         phi = self.phi(mstate, bw)
-        return (replace(mstate, x=mstate.x + self.lr * phi),
+        updates, opt_state = self.optimizer.update(-phi, mstate.opt_state,
+                                                   mstate.x)
+        return (replace(mstate, x=mstate.x + updates, opt_state=opt_state),
                 torch.linalg.norm(phi))
 
     def _condition(self, mstate, action, new_obs):
@@ -198,9 +220,12 @@ class FusedPendulumMPF(MPF):
     grad-norm trace (the kernel does not surface per-step norms). On CPU
     tensors the kernel's plain PyTorch version runs instead."""
 
-    def __init__(self, likelihood, lr=1e-3, bw_scale=1.0, n_steps=100):
-        super().__init__(likelihood, lr=lr, bw_scale=bw_scale,
-                         n_steps=n_steps, reference_compat=False)
+    def __init__(self, likelihood, lr=1e-3, bw_scale=1.0, n_steps=100,
+                 optimizer="sgd"):
+        super().__init__(likelihood, lr=lr, optimizer=optimizer,
+                         bw_scale=bw_scale, n_steps=n_steps,
+                         reference_compat=False)
+        self._require_sgd("FusedPendulumMPF")
 
     @classmethod
     def from_mpf(cls, mpf: MPF) -> "FusedPendulumMPF":
@@ -209,6 +234,7 @@ class FusedPendulumMPF(MPF):
         path swaps K2 into a built stack."""
         if mpf.reference_compat:
             raise ValueError("FusedPendulumMPF has no reference_compat mode")
+        mpf._require_sgd("FusedPendulumMPF")
         return cls(mpf.likelihood, lr=mpf.lr, bw_scale=mpf.bw_scale,
                    n_steps=mpf.n_steps)
 
@@ -244,7 +270,8 @@ class FusedParticleMPF(MPF):
     particle's prediction starts from the same past_obs. On CPU tensors
     the kernel's plain PyTorch version runs instead."""
 
-    def __init__(self, likelihood, lr=1e-2, bw_scale=1.0, n_steps=100):
+    def __init__(self, likelihood, lr=1e-2, bw_scale=1.0, n_steps=100,
+                 optimizer="sgd"):
         model = likelihood.model
         if model.control_type != "acceleration":
             raise ValueError(
@@ -256,8 +283,10 @@ class FusedParticleMPF(MPF):
                 "FusedParticleMPF supports exactly one uncertain param: "
                 f"('mass',), got {tuple(model.uncertain_params)}"
             )
-        super().__init__(likelihood, lr=lr, bw_scale=bw_scale,
-                         n_steps=n_steps, reference_compat=False)
+        super().__init__(likelihood, lr=lr, optimizer=optimizer,
+                         bw_scale=bw_scale, n_steps=n_steps,
+                         reference_compat=False)
+        self._require_sgd("FusedParticleMPF")
 
     @classmethod
     def from_mpf(cls, mpf: MPF) -> "FusedParticleMPF":
@@ -266,6 +295,7 @@ class FusedParticleMPF(MPF):
         path swaps K7 into a built stack."""
         if mpf.reference_compat:
             raise ValueError("FusedParticleMPF has no reference_compat mode")
+        mpf._require_sgd("FusedParticleMPF")
         return cls(mpf.likelihood, lr=mpf.lr, bw_scale=mpf.bw_scale,
                    n_steps=mpf.n_steps)
 
@@ -305,13 +335,16 @@ class FusedMPF(MPF):
     `packed="auto"` takes the packed entries (K11b, K12b) for m >= 4096
     and d <= 8, the gram entries (K11a, K12a) otherwise (True/False force
     them, d > 8 always takes the gram entries); on the card both launch
-    the same kernels. `use_bf16` rounds the packed entries' products to
-    bf16. `fuse_streams=True` runs each SVGD iteration as one launch (K13,
-    `ops/mpf_stream.py`) that also returns the next iteration's prior
-    score; it applies the SGD step inside the kernel, so it needs
-    `fused_lr`, and an `lr` other than `fused_lr` raises; it ignores
-    `use_bf16`, as JAX's does. The `optimize` of `fuse_streams` returns
-    the norms of (x_new - x) / lr, as JAX's does."""
+    the same kernels, at any d. The optimizer (SGD or Adam) is applied to
+    the kernels' phi outside them, as JAX's is. `use_bf16` rounds the
+    packed entries' products to bf16. `fuse_streams=True` runs each SVGD
+    iteration as one launch (K13, `ops/mpf_stream.py`) that also returns
+    the next iteration's prior score; it applies the SGD step inside the
+    kernel, so it needs `fused_lr`, and an `lr` other than `fused_lr` or
+    another optimizer than SGD raises (JAX replaces the optimizer with
+    SGD); it ignores `use_bf16`, as JAX's does. The `optimize` of
+    `fuse_streams` returns the norms of (x_new - x) / lr, as JAX's
+    does."""
 
     def __init__(self, likelihood, packed="auto", use_bf16=False,
                  fuse_streams=False, fused_lr=None, **kwargs):
@@ -329,6 +362,8 @@ class FusedMPF(MPF):
                     f"{fused_lr}; lr={kwargs['lr']} would not be applied")
             kwargs["lr"] = fused_lr
         super().__init__(likelihood, reference_compat=False, **kwargs)
+        if self._fuse_streams:
+            self._require_sgd("FusedMPF(fuse_streams=True)")
         if packed != "auto" and not isinstance(packed, bool):
             raise ValueError("packed must be 'auto', True or False")
         self._packed = packed

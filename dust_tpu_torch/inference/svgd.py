@@ -5,66 +5,19 @@ A functional SVGD over a user `log_p_fn`: the particles are the tensor
 you pass in, the score is `torch.func.grad` of sum(log_p_fn), and the
 repulsion is the standard -G (G_i = grad_{x_i} sum_j k(x_i, x_j), the
 gradient through the first kernel argument), divided by n with the
-driving term. The optimizer is taken by name: "adam" (the default, the
-arithmetic of `optax.adam(lr)`: b1 0.9, b2 0.999, eps 1e-8, bias
-corrected) or "sgd" (`x + lr * phi`).
+driving term. The optimizer is what `optim.make_optimizer` takes: "adam"
+(the default, the arithmetic of `optax.adam(lr)`: b1 0.9, b2 0.999, eps
+1e-8, bias corrected), "sgd" (`x + lr * phi`) or an optimizer object.
 """
 
 from __future__ import annotations
-
-from dataclasses import dataclass
 
 import torch
 
 from ..device import resolve_device
 from ..ops.bandwidth import bw_median
 from ..ops.kernels import rbf_gram, rbf_gram_and_grad
-
-
-@dataclass(frozen=True)
-class AdamState:
-    count: int
-    mu: torch.Tensor
-    nu: torch.Tensor
-
-
-class Adam:
-    """`optax.adam(lr)` on one tensor: `update(grads, state)` returns
-    (updates, state), the updates to add to the parameters."""
-
-    def __init__(self, lr, b1=0.9, b2=0.999, eps=1e-8):
-        self.lr, self.b1, self.b2, self.eps = float(lr), b1, b2, eps
-
-    def init(self, x):
-        return AdamState(count=0, mu=torch.zeros_like(x),
-                         nu=torch.zeros_like(x))
-
-    def update(self, grads, state):
-        mu = (1 - self.b1) * grads + self.b1 * state.mu
-        nu = (1 - self.b2) * (grads * grads) + self.b2 * state.nu
-        count = state.count + 1
-        # the bias corrections in float32, as optax computes them
-        k = torch.tensor(float(count), device=grads.device)
-        mu_hat = mu / (1 - torch.tensor(self.b1, device=grads.device) ** k)
-        nu_hat = nu / (1 - torch.tensor(self.b2, device=grads.device) ** k)
-        updates = -self.lr * (mu_hat / (torch.sqrt(nu_hat) + self.eps))
-        return updates, AdamState(count=count, mu=mu, nu=nu)
-
-
-class SGD:
-    """`optax.sgd(lr)`: the updates are -lr * grads; its state is empty."""
-
-    def __init__(self, lr):
-        self.lr = float(lr)
-
-    def init(self, x):
-        return ()
-
-    def update(self, grads, state):
-        return -self.lr * grads, state
-
-
-_OPTIMIZERS = {"adam": Adam, "sgd": SGD}
+from .optim import SGD, Adam, AdamState, make_optimizer  # noqa: F401
 
 
 class SVGD:
@@ -74,16 +27,11 @@ class SVGD:
 
     def __init__(self, bw_scale=1.0, n_particles=None, n_steps=100,
                  optimizer="adam", lr=1e-2, device="cuda"):
-        if optimizer not in _OPTIMIZERS:
-            raise ValueError(
-                f"optimizer must be one of {sorted(_OPTIMIZERS)}, got "
-                f"{optimizer!r}"
-            )
         self.device = resolve_device(device)
         self.bw_scale = float(bw_scale)
         self.n_particles = n_particles
         self.n_steps = int(n_steps)
-        self.optimizer = _OPTIMIZERS[optimizer](lr)
+        self.optimizer = make_optimizer(optimizer, lr)
 
     def score_matrix(self, x, log_p_fn):
         return torch.func.grad(lambda xs: log_p_fn(xs).sum())(x)

@@ -6,10 +6,15 @@ whole-solve classes `FusedPendulumSVMPC` (K3) and `FusedParticleSVMPC`
 Policy particles theta [m, horizon, ctrl_dim] follow the Stein direction
 of the control posterior: a GMM prior around the previous particles plus
 a cost pseudo-likelihood evaluated by the DISCO controller's batched
-rollouts. The optimizer is plain SGD, `theta + lr * phi`; `lr` is the
-SVMPC's, or the state's own where `SVMPCState.lr` is set (a per-scenario
-learning rate: `tuning.parallel_lr_sweep` gives each lane its rate on its
-state, where JAX carries it in `optax.inject_hyperparams` state).
+rollouts. The optimizer is what `optim.make_optimizer` takes ("sgd", the
+default, `theta + lr * phi`; "adam"; or an optimizer object), its state
+carried in `SVMPCState.opt_state` as JAX carries the optax state; `roll`
+leaves that state as it is, as JAX's does. The rate is the SVMPC's, or
+the state's own where `SVMPCState.lr` is set (a per-scenario learning
+rate: `tuning.parallel_lr_sweep` gives each lane its rate on its state,
+where JAX carries it in `optax.inject_hyperparams` state). The whole-solve
+classes (K3, K8) step by SGD inside the kernel and take no other
+optimizer.
 
 Kernel paths:
 
@@ -34,6 +39,7 @@ import torch
 from ..distributions import GMM
 from ..ops.bandwidth import silvermans_rule
 from ..ops.kernels import iid_mp, rbf_gram_and_grad
+from .optim import SGD, make_optimizer, opt_update
 
 # gpytorch RBFKernel default lengthscale: softplus(raw=0) = ln 2
 _GPYTORCH_DEFAULT_LENGTHSCALE = math.log(2.0)
@@ -46,8 +52,10 @@ class SVMPCState:
     # True once update_prior has run — drives the reference_compat
     # live-prior quirk in get_weights (PARITY #19)
     prior_updated: bool = False
-    # this state's SGD learning rate; None takes the SVMPC's `lr`
+    # this state's learning rate; None takes the SVMPC's `lr`
     lr: float | None = None
+    # the optimizer's state (() for SGD, an optim.AdamState for Adam)
+    opt_state: object = ()
 
 
 class SVMPC:
@@ -66,10 +74,7 @@ class SVMPC:
         weighted_prior=False,
         reference_compat=False,
     ):
-        if optimizer != "sgd":
-            raise ValueError(
-                f"SVMPC supports plain SGD only, got optimizer={optimizer!r}"
-            )
+        self.optimizer = make_optimizer(optimizer, lr)
         self.likelihood = likelihood
         self.controller = likelihood.controller
         self.kernel = kernel
@@ -77,7 +82,6 @@ class SVMPC:
         self.indep_controls = bool(indep_controls)
         self.n_particles = int(n_particles)
         self.n_steps = int(n_steps)
-        self.lr = float(lr)
         self.bw_scale = float(bw_scale)
         self.roll_strategy = roll_strategy
         self.weighted_prior = bool(weighted_prior)
@@ -85,9 +89,19 @@ class SVMPC:
         # sigma for the analytic likelihood gradient
         self.sigma = torch.sqrt(torch.diagonal(self.controller.a_cov))
 
+    @property
+    def lr(self):
+        """The optimizer's own rate (setting it sets the optimizer's)."""
+        return self.optimizer.lr
+
+    @lr.setter
+    def lr(self, value):
+        self.optimizer.lr = float(value)
+
     def init_state(self, init_particles, prior: GMM) -> SVMPCState:
         theta = torch.as_tensor(init_particles, dtype=torch.float32)
-        return SVMPCState(theta=theta, prior=prior, prior_updated=False)
+        return SVMPCState(theta=theta, prior=prior, prior_updated=False,
+                          opt_state=self.optimizer.init(theta))
 
     # -- Stein direction --------------------------------------------------
 
@@ -138,9 +152,11 @@ class SVMPC:
         phi, new_dstate, costs = self.phi(
             svstate, dstate, state, params_dist, generator, bw, noise=noise
         )
-        lr = self.lr if svstate.lr is None else svstate.lr
-        theta = svstate.theta + lr * phi
-        return replace(svstate, theta=theta), new_dstate, costs
+        updates, opt_state = opt_update(self.optimizer, -phi,
+                                        svstate.opt_state, svstate.theta,
+                                        svstate.lr)
+        return (replace(svstate, theta=svstate.theta + updates,
+                        opt_state=opt_state), new_dstate, costs)
 
     def optimize(self, svstate, dstate, state, params_dist, generator,
                  bw=None, n_steps=None):
@@ -230,7 +246,9 @@ class _FusedSolveSVMPC(SVMPC):
     kernel launch.
 
     Supported semantics (asserted): kernel="rbf", reference_compat=False,
-    n_steps=1, roll_strategy="repeat", SGD, isotropic action covariance
+    n_steps=1, roll_strategy="repeat", SGD (the kernel takes its rate; any
+    other optimizer raises, where JAX takes Adam's first step as an SGD
+    rate), isotropic action covariance
     and policy prior, controller a_reg == 0 (the demo temperature and
     ctrl_penalty make the control penalty vanish), params mode
     none|sampled, ExpectedCost|ExponentiatedUtility. `optimize` draws from
@@ -243,6 +261,9 @@ class _FusedSolveSVMPC(SVMPC):
         from .likelihoods import ExpectedCost, ExponentiatedUtility
 
         ctrl = self.controller
+        if not isinstance(self.optimizer, SGD):
+            raise ValueError("fused solve steps by SGD inside the kernel; "
+                             f"got optimizer {self.optimizer!r}")
         if self.kernel != "rbf" or self.reference_compat:
             raise ValueError("fused solve: kernel='rbf', no compat mode")
         if self.n_steps != 1:

@@ -13,7 +13,9 @@ storing the [m, k] responsibilities.
   `dust_tpu/ops/pallas_gmm.py`): for d <= 8 a thread-block cluster per row
   tile, every warp walking its own slice of the centers
   (`ops/stream_split.py`) with an online softmax rescaled once per tile of
-  TILE_COLS centers, the warps' states merged in a fixed order; each entry
+  TILE_COLS centers, the warps' states merged in a fixed order; for 8 < d
+  <= 128 a thread per row; above d = 128 (the general entry only) a block
+  per 16 rows over d-chunks of 128 (`csrc/stream_dchunk.cuh`); each entry
   counted in its own `.launches`.
 * On CPU tensors they run `gmm_prior_score_plain`, the same function in
   plain PyTorch: explicit per-dimension distances, a softmax, and the
@@ -34,7 +36,7 @@ import torch
 
 from .distance import squared_distance
 from .stream_split import TILE_COLS, column_split
-from .svgd import MAX_D, MAX_PACKED_D, _bf16, _check_blocks
+from .svgd import MAX_PACKED_D, _bf16, _check_blocks
 
 
 def gmm_prior_score_reference(x, centers, bw):
@@ -85,10 +87,10 @@ def _bf16_weights(logits):
     return _bf16(torch.exp(logits - run)) * torch.exp(run - top)
 
 
-def _launch(wrapper, x, centers, bw, use_bf16, what, max_d):
+def _launch(wrapper, x, centers, bw, use_bf16, what, max_d=None):
     if x.ndim != 2 or centers.ndim != 2 or centers.shape[1] != x.shape[1]:
         raise ValueError(f"{what}: x [m, d] and centers [k, d]")
-    if x.shape[1] > max_d:
+    if max_d is not None and x.shape[1] > max_d:
         raise ValueError(f"{what}: requires d <= {max_d}")
     if x.device.type == "cpu":
         return gmm_prior_score_plain(x, centers, bw, use_bf16=use_bf16)
@@ -116,12 +118,12 @@ def _launch(wrapper, x, centers, bw, use_bf16, what, max_d):
 
 def gmm_prior_score_streamed(x, centers, bw, block_i=256, block_k=1024):
     """Counterpart of `gmm_prior_score_pallas` (pallas_gmm.py:97): the
-    score for x [m, d] (d <= 128), centers [k, d], bw scalar.
+    score for x [m, d] (any d), centers [k, d], bw scalar.
     `block_i`/`block_k` are TPU tile sizes: validated, no effect. Counted
     in `gmm_prior_score_streamed.launches`."""
     _check_blocks(block_i=block_i, block_k=block_k)
     return _launch(gmm_prior_score_streamed, x, centers, bw, False,
-                   "gmm_prior_score_streamed", MAX_D)
+                   "gmm_prior_score_streamed")
 
 
 def gmm_prior_score_streamed_packed(x, centers, bw, block_i=256,

@@ -14,7 +14,9 @@ storing K.
   `dust_tpu/ops/pallas_svgd.py`; they differ only in their TPU layouts):
   for d <= 8 a thread-block cluster per row tile, every warp walking its
   own slice of the particles (`ops/stream_split.py`), the sums merged in a
-  fixed order; each entry counted in its own `.launches`.
+  fixed order; for 8 < d <= 128 a thread per row; above d = 128 (the
+  general entry only) a block per 16 rows over d-chunks of 128
+  (`csrc/stream_dchunk.cuh`); each entry counted in its own `.launches`.
 * On CPU tensors they run `svgd_phi_plain`, the kernel's arithmetic in
   plain PyTorch: explicit per-dimension differences, which give both the
   distances and, in float32, the repulsion sum_j K_ij (x_i - x_j), so far
@@ -35,8 +37,6 @@ from .kernels import rbf_gram_and_grad
 
 # the TPU wrappers' packed operand holds [score | x | ones] in 128 lanes
 MAX_PACKED_D = 8
-# the kernel's general path keeps each row's vectors in shared memory
-MAX_D = 128
 
 
 def svgd_phi_reference(x, score, bw):
@@ -78,10 +78,10 @@ def svgd_phi_plain(x, score, bw, use_bf16=False, rows=slice(None)):
     return (drive + repel) * (1.0 / m)
 
 
-def _check(x, score, what, max_d):
+def _check(x, score, what, max_d=None):
     if x.ndim != 2 or score.shape != x.shape:
         raise ValueError(f"{what}: x and score must both be [m, d]")
-    if x.shape[1] > max_d:
+    if max_d is not None and x.shape[1] > max_d:
         raise ValueError(f"{what}: requires d <= {max_d}")
 
 
@@ -119,10 +119,10 @@ def _launch(wrapper, x, score, bw, use_bf16):
 
 def svgd_phi_streamed(x, score, bw, block_i=256, block_j=1024):
     """Counterpart of `svgd_phi_pallas` (pallas_svgd.py:100): phi for x,
-    score [m, d] (d <= 128), bw scalar. `block_i`/`block_j` are TPU tile
+    score [m, d] (any d), bw scalar. `block_i`/`block_j` are TPU tile
     sizes: validated, no effect. Counted in
     `svgd_phi_streamed.launches`."""
-    _check(x, score, "svgd_phi_streamed", MAX_D)
+    _check(x, score, "svgd_phi_streamed")
     _check_blocks(block_i=block_i, block_j=block_j)
     return _launch(svgd_phi_streamed, x, score, bw, False)
 

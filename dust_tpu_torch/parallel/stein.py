@@ -122,7 +122,10 @@ class ShardedMPF(MPF):
     (the kernel Gram, the GMM prior's responsibilities) is computed in row
     blocks, one per rank. The state stays whole on every rank (global in,
     global out); a step costs two collectives, the gather of the scores
-    and the gather of the direction."""
+    and the gather of the direction. The whole direction then goes
+    through `MPF.step`'s optimizer on every rank alike, so an optimizer
+    state (Adam's moments and count) stays whole and the same on every
+    rank."""
 
     def __init__(self, likelihood, mesh, axis="particle", **kwargs):
         kwargs.pop("reference_compat", None)

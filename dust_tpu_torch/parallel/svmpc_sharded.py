@@ -14,11 +14,13 @@ collectives:
 * the RBF kernel term: the gathered particles and scores, the rank's row
   block of the Gram.
 
-Semantics = `SVMPC(kernel="rbf", reference_compat=False)`, whose optimizer
-is plain SGD (`SVMPC` raises on another, so this class takes no
-optimizer). The message-passing kernel is not supported: its per-slice
-median bandwidth needs the full pairwise matrix per slice. Nor is a UTF
-controller: the sigma-weighted cost path is not sharded.
+Semantics = `SVMPC(kernel="rbf", reference_compat=False)` with the
+SVMPC's optimizer: each rank updates its rows of the optimizer state's
+per-particle leaves (Adam's moments, `optim.is_per_particle`) and keeps
+the others (Adam's count) whole, the same on every rank. The
+message-passing kernel is not supported: its per-slice median bandwidth
+needs the full pairwise matrix per slice. Nor is a UTF controller: the
+sigma-weighted cost path is not sharded.
 
 Randomness: JAX folds the device index into the key. Here the parameter
 draws come from the caller's generator, the same on every rank, and each
@@ -34,6 +36,8 @@ from dataclasses import replace
 import torch
 
 from ..controllers.disco import DiscoState
+from ..inference.optim import is_per_particle, opt_update
+from ..utils.helper import _map_tree
 from .mesh import all_gather_rows, all_reduce, axis_index, block
 from .rollout import rollout_costs
 
@@ -70,13 +74,25 @@ class ShardedSVMPC:
 
     def shard_states(self, svstate, dstate):
         """Check that the particle axis splits over the mesh (theta,
-        a_mat and a_mix share it). The port keeps the states whole on
-        every rank and shards the work, so they are returned as they
-        are."""
+        a_mat, a_mix and the optimizer state's per-particle leaves share
+        it) and that every other optimizer-state leaf is a scalar, which
+        each rank updates alike. The port keeps the states whole on every
+        rank and shards the work, so they are returned as they are."""
         m = svstate.theta.shape[0]
         if dstate.a_mat.shape[0] != m or dstate.a_mix.shape[0] != m:
             raise ValueError("ShardedSVMPC needs n_policies == n_particles")
         block(m, self.mesh, self.axis)
+
+        def check(leaf):
+            if isinstance(leaf, torch.Tensor) and leaf.ndim > 0 \
+                    and not is_per_particle(leaf, m):
+                raise ValueError(
+                    f"ShardedSVMPC: an optimizer-state leaf of shape "
+                    f"{tuple(leaf.shape)} is neither per particle ({m} "
+                    f"rows) nor a scalar")
+            return leaf
+
+        _map_tree(check, svstate.opt_state)
         return svstate, dstate
 
     def _params(self, params_dist, generator):
@@ -89,14 +105,17 @@ class ShardedSVMPC:
             return params
         return None
 
-    def local_step(self, theta, a_seq, a_mat, a_mix, prior, state, params,
-                   bw, noise, lr, generator=None, flat_all=None):
-        """The rank's body on its own particle rows: theta [ml, H, A],
-        a_mat [ml, H, A], a_mix [ml], noise [n_samples, ml, H, A] (the
-        standard-normal draw), the whole prior and the shared parameter
-        draws. Returns (theta, a_mat, a_mix, costs [n_samples, ml]) of
-        the rank's rows. `flat_all` (the whole flattened particles) saves
-        their gather where the caller holds them."""
+    def local_step(self, theta, opt_state, a_seq, a_mat, a_mix, prior,
+                   state, params, bw, noise, lr=None, generator=None,
+                   flat_all=None):
+        """The rank's body on its own particle rows: theta [ml, H, A], the
+        optimizer state's rows (its per-particle leaves cut to the rank's
+        rows), a_mat [ml, H, A], a_mix [ml], noise [n_samples, ml, H, A]
+        (the standard-normal draw), the whole prior and the shared
+        parameter draws; `lr` a state's own rate or None. Returns (theta,
+        opt_state, a_mat, a_mix, costs [n_samples, ml]) of the rank's
+        rows. `flat_all` (the whole flattened particles) saves their
+        gather where the caller holds them."""
         svmpc, ctrl, mesh, axis = (self.svmpc, self.controller, self.mesh,
                                    self.axis)
         ml = theta.shape[0]
@@ -143,7 +162,9 @@ class ShardedSVMPC:
         repel = (kmat.sum(dim=1, keepdim=True) * flat_l
                  - kmat @ flat_all) / bw**2
         phi = ((drive + repel) / m_total).reshape(theta.shape)
-        return theta + lr * phi, a_mat, a_mix, costs
+        updates, opt_state = opt_update(svmpc.optimizer, -phi, opt_state,
+                                        theta, lr)
+        return theta + updates, opt_state, a_mat, a_mix, costs
 
     def svgd_step(self, svstate, dstate, state, params_dist, generator, bw,
                   noise=None):
@@ -171,22 +192,40 @@ class ShardedSVMPC:
         else:
             noise_l = noise[:, rows]
         params = self._params(params_dist, generator)
-        lr = self.svmpc.lr if svstate.lr is None else svstate.lr
-        th, a_mat, a_mix, costs = self.local_step(
-            theta[rows], dstate.a_seq, dstate.a_mat[rows],
+        # which optimizer leaves are per particle, in the order _map_tree
+        # walks them
+        flags = []
+        _map_tree(lambda leaf: flags.append(is_per_particle(leaf, m)),
+                  svstate.opt_state)
+        it = iter(flags)
+        opt_local = _map_tree(lambda leaf: leaf[rows] if next(it) else leaf,
+                              svstate.opt_state)
+        th, opt_local, a_mat, a_mix, costs = self.local_step(
+            theta[rows], opt_local, dstate.a_seq, dstate.a_mat[rows],
             dstate.a_mix[rows], svstate.prior, state, params, bw, noise_l,
-            lr, generator=gen_rank, flat_all=theta.reshape(m, -1))
+            svstate.lr, generator=gen_rank, flat_all=theta.reshape(m, -1))
         ml = th.shape[0]
+        opt_rows = []
+        it = iter(flags)
+        _map_tree(lambda leaf: opt_rows.append(leaf) if next(it) else None,
+                  opt_local)
         # one gather of everything the rank's rows produced
-        packed = torch.cat([th.reshape(ml, -1), a_mat.reshape(ml, -1),
-                            a_mix[:, None], costs.T], dim=1)
-        packed = all_gather_rows(packed, mesh, axis)
-        n_th = hz * a
-        theta = packed[:, :n_th].reshape(m, hz, a)
-        a_mat = packed[:, n_th:2 * n_th].reshape(m, hz, a)
-        a_mix = packed[:, 2 * n_th]
-        costs = packed[:, 2 * n_th + 1:].T.contiguous()
-        return (replace(svstate, theta=theta),
+        parts = [th, a_mat, a_mix[:, None], costs.T, *opt_rows]
+        widths = [p[0].numel() for p in parts]
+        packed = all_gather_rows(
+            torch.cat([p.reshape(ml, -1) for p in parts], dim=1), mesh,
+            axis)
+        cols = packed.split(widths, dim=1)
+        theta = cols[0].reshape(m, hz, a)
+        a_mat = cols[1].reshape(m, hz, a)
+        a_mix = cols[2][:, 0]
+        costs = cols[3].T.contiguous()
+        whole = iter(c.reshape(m, *p.shape[1:])
+                     for c, p in zip(cols[4:], opt_rows))
+        it = iter(flags)
+        opt_state = _map_tree(lambda leaf: next(whole) if next(it) else leaf,
+                              opt_local)
+        return (replace(svstate, theta=theta, opt_state=opt_state),
                 replace(dstate, a_mat=a_mat, a_mix=a_mix), costs)
 
     def forward(self, svstate, costs, generator=None, steps=-1):

@@ -126,8 +126,9 @@ def successive_halving(batch_objective, space, n_configs, eta=3,
 
 
 def set_injected_lr(svstate, lr):
-    """`svstate` with its own SGD learning rate (`SVMPCState.lr`; JAX
-    overwrites the rate inside `optax.inject_hyperparams` state)."""
+    """`svstate` with its own learning rate (`SVMPCState.lr`, the rate of
+    whichever optimizer the SVMPC steps by; JAX overwrites the rate inside
+    `optax.inject_hyperparams` state)."""
     return replace(svstate, lr=float(lr))
 
 

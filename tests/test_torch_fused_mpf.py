@@ -5,11 +5,11 @@ tensors) against the JAX `FusedMPF(interpret=True)` and
 tests/test_pallas_gmm.py:45-208), the guards, and a reduced particle
 closed loop with `FusedMPF` held against JAX's step by step.
 
-Tolerances are tests/test_pallas_gmm.py's: FusedMPF trajectories rtol
-1e-3, atol 1e-4 and their gradient norms rtol 1e-3 (atol 1e-4 with
-fuse_streams); the raw fused step x_new rtol 1e-4, atol 1e-5 and gp_new
-rtol/atol 1e-4; the closed loop tests/test_equivalence_dual.py's per-step
-rtol 1e-3, atol 5e-4."""
+Tolerances are tests/test_pallas_gmm.py's: FusedMPF trajectories (with
+SGD or Adam) rtol 1e-3, atol 1e-4 and their gradient norms rtol 1e-3
+(atol 1e-4 with fuse_streams); the raw fused step x_new rtol 1e-4, atol
+1e-5 and gp_new rtol/atol 1e-4; the closed loop
+tests/test_equivalence_dual.py's per-step rtol 1e-3, atol 5e-4."""
 
 import jax
 import jax.numpy as jnp
@@ -96,6 +96,43 @@ def test_fused_mpf_matches_jax_fused_mpf(packed):
     np.testing.assert_allclose(t[0], p[0], **MPF_TOL)
     np.testing.assert_allclose(t[1], p[1], rtol=1e-3)
     assert np.abs(t[0] - init).max() > 1e-4
+
+
+@pytest.mark.parametrize("packed", [False, True])
+def test_fused_mpf_adam_matches_jax_fused_mpf(packed):
+    """Adam on the two-kernel path (gram K11a + K12a, or packed K11b +
+    K12b forced at m = 64): the kernels give phi and `optax.adam(1e-2)`'s
+    arithmetic is applied outside them, as in JAX's `FusedMPF` (its
+    interpret mode). Two `optimize` calls of 4 steps, the moments carried
+    from the first to the second; particles and the first moment at
+    MPF_TOL, the gradient norms at rtol 1e-3, the count exactly; the
+    port's plain MPF with Adam agrees as well."""
+    init = _init(64, seed=4)
+    jl, tl = _liks()
+    jm = JFusedMPF(likelihood=jl, optimizer=optax.adam(1e-2),
+                   interpret=True, packed=packed)
+    tm = FusedMPF(tl, optimizer="adam", lr=1e-2, packed=packed)
+    pm = MPF(tl, optimizer="adam", lr=1e-2)
+    js = jm.init_state(init, np.asarray(OBS, np.float32), dim_a=1, bw=0.2)
+    ts = tm.init_state(_t(init), _t(OBS), dim_a=1, bw=0.2)
+    ps = pm.init_state(_t(init), _t(OBS), dim_a=1, bw=0.2)
+    first = tm.phi(tm._condition(ts, _t(ACTION), _t(NEW_OBS)), 0.3)
+    assert int((first.abs() < 1e-5).sum()) == 0
+    for new_obs in (NEW_OBS, [2.6, -0.1]):
+        js, jg, _ = jm.optimize(js, jnp.array(ACTION), jnp.array(new_obs),
+                                bw=0.3, n_steps=4)
+        ts, tg, _ = tm.optimize(ts, _t(ACTION), _t(new_obs), bw=0.3,
+                                n_steps=4)
+        ps, pg, _ = pm.optimize(ps, _t(ACTION), _t(new_obs), bw=0.3,
+                                n_steps=4)
+        for x, g in ((ts.x, tg), (ps.x, pg)):
+            np.testing.assert_allclose(x.numpy(), np.asarray(js.x),
+                                       **MPF_TOL)
+            np.testing.assert_allclose(g.numpy(), np.asarray(jg), rtol=1e-3)
+        np.testing.assert_allclose(ts.opt_state.mu.numpy(),
+                                   np.asarray(js.opt_state[0].mu), **MPF_TOL)
+    assert ts.opt_state.count == int(js.opt_state[0].count) == 8
+    assert np.abs(ts.x.numpy() - init).max() > 1e-2
 
 
 @pytest.mark.parametrize("m", [64, 333])

@@ -204,6 +204,27 @@ def test_ragged_counts(m, k):
     np.testing.assert_allclose(kernel, oracle, **TOL)
 
 
+@pytest.mark.parametrize("d", [129, 200])
+def test_streamed_score_above_d128_matches_jax(d):
+    """The general entry above d = 128 (the card's d-chunked path,
+    csrc/stream_dchunk.cuh) against JAX's `gmm_prior_score_pallas` in
+    interpret mode and the oracle: m = 40 rows, k = 56 centers, a
+    bandwidth of 0.4 sqrt(d) so that no one center takes all the
+    weight."""
+    x, c = _inputs(40, 56, d, seed=d)
+    bw = 0.4 * float(np.sqrt(d))
+    got = gmm.gmm_prior_score_streamed(_t(x), _t(c), bw).numpy()
+    kernel = np.asarray(gmm_prior_score_pallas(x, c, bw, block_i=128,
+                                               block_k=128, interpret=True))
+    oracle = np.asarray(gmm_prior_score_reference(jnp.asarray(x),
+                                                  jnp.asarray(c), bw))
+    np.testing.assert_allclose(got, kernel, **TOL)
+    np.testing.assert_allclose(got, oracle, **TOL)
+    logits = -((x[:, None] - c[None]) ** 2).sum(-1) / (2 * bw * bw)
+    r = np.exp(logits - logits.max(1, keepdims=True))
+    assert (r / r.sum(1, keepdims=True)).max() < 0.9
+
+
 def test_general_d_and_guards():
     x, c = _inputs(100, 50, 12, seed=5)
     got = gmm.gmm_prior_score_streamed(_t(x), _t(c), 0.9).numpy()

@@ -50,7 +50,8 @@ def test_package_imports_without_jax_or_dust_tpu():
                  "ops.svgd", "ops.gmm", "ops.mpf_stream",
                  "ops.stream_split", "utils", "utils.utf",
                  "controllers.amppi", "controllers.base", "models.cartpole",
-                 "models.skid_steer", "inference.svgd", "parallel.mesh",
+                 "models.skid_steer", "inference.svgd", "inference.optim",
+                 "parallel.mesh",
                  "parallel.stein", "parallel.rollout",
                  "parallel.svmpc_sharded", "tuning", "utils.helper",
                  "utils.profiling", "utils.plots", "utils.plots_html",

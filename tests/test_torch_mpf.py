@@ -260,6 +260,50 @@ def test_fused_reads_the_conditioned_past_action():
 
 
 def test_mpf_rejects_other_optimizers():
+    """An unknown optimizer name raises (SGD, Adam and optimizer objects
+    are taken: test_mpf_adam_matches_jax)."""
     _, tl = _liks(False)
-    with pytest.raises(ValueError, match="SGD"):
-        TMPF(likelihood=tl, optimizer="adam")
+    with pytest.raises(ValueError, match="optimizer must be one of"):
+        TMPF(likelihood=tl, optimizer="rmsprop")
+
+
+@pytest.mark.parametrize("closed_form", [False, True])
+@pytest.mark.parametrize("log_space", [False, True])
+def test_mpf_adam_matches_jax(log_space, closed_form):
+    """`MPF(optimizer="adam")` (and `ClosedFormPendulumMPF`) against JAX's
+    with `optax.adam(1e-2)` over three `optimize` calls of 5 steps, each
+    conditioned on a new observation, Adam's moments carried from call to
+    call as JAX carries `opt_state` across MPC steps. Particles and the
+    first moment at RTOL/ATOL, the count exactly; the first phi has no
+    element below 1e-5 in magnitude (counted: Adam's first step is
+    lr * g / (|g| + eps), which turns an ulp of a tiny g into up to 2
+    lr)."""
+    from dust_tpu.inference.mpf import ClosedFormPendulumMPF as JClosed
+    from dust_tpu_torch.inference import ClosedFormPendulumMPF as TClosed
+
+    jl, tl = _liks(log_space)
+    jcls, tcls = (JClosed, TClosed) if closed_form else (JMPF, TMPF)
+    jm = jcls(likelihood=jl, optimizer=optax.adam(1e-2))
+    tm = tcls(likelihood=tl, optimizer="adam", lr=1e-2)
+    init = _init(log_space, seed=3)
+    obs = np.array([2.8, -0.3], np.float32)
+    js = jm.init_state(init, obs, dim_a=1, bw=0.2)
+    ts = tm.init_state(_t(init), _t(obs), dim_a=1, bw=0.2)
+    steps = [([0.9], [2.7, -0.6]), ([2.5], [2.6, -0.1]), ([-1.4], [2.7, 0.4])]
+    first = tm.phi(tm._condition(ts, _t(steps[0][0]), _t(steps[0][1])), 0.3)
+    small = int((first.abs() < 1e-5).sum())
+    assert small == 0, f"{small} elements of the first phi below 1e-5"
+    for call, (action, new_obs) in enumerate(steps):
+        js, jg, _ = jm.optimize(js, jnp.array(action), jnp.array(new_obs),
+                                bw=0.3, n_steps=5)
+        ts, tg, _ = tm.optimize(ts, _t(action), _t(new_obs), bw=0.3,
+                                n_steps=5)
+        np.testing.assert_allclose(ts.x.numpy(), np.asarray(js.x),
+                                   rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(tg.numpy(), np.asarray(jg), rtol=RTOL)
+        jadam = js.opt_state[0]
+        assert ts.opt_state.count == int(jadam.count) == 5 * (call + 1)
+        np.testing.assert_allclose(ts.opt_state.mu.numpy(),
+                                   np.asarray(jadam.mu), rtol=RTOL,
+                                   atol=ATOL)
+    assert np.abs(ts.x.numpy() - init).max() > 1e-2   # the particles moved

@@ -7,8 +7,11 @@ the same numpy-seeded inputs.
 
 Tolerances are tests/test_stein_sharded.py's: rtol 1e-4, atol 1e-5 for
 the direction, the score and the particles (:27, :57), rtol 1e-3 for the
-gradient norms (:60). The global form and the local body agree bit for
-bit (the same row arithmetic), and every rank returns the same bits."""
+gradient norms (:60); with Adam (optax.adam(1e-2), two optimize calls,
+the moments carried) the particles and the first moment at rtol 1e-4,
+atol 1e-5, the count exactly. The global form and the local body agree
+bit for bit (the same row arithmetic), and every rank returns the same
+bits."""
 
 import jax
 import jax.numpy as jnp
@@ -32,6 +35,7 @@ BW, M_PHI, M_GMM, M_MPF = 0.9, 64, 32, 64
 MPF_OBS = np.array([2.8, -0.2], np.float32)
 MPF_ACTION = np.array([0.8], np.float32)
 MPF_NEW_OBS = np.array([2.7, -0.5], np.float32)
+MPF_NEW_OBS2 = np.array([2.6, -0.1], np.float32)
 
 WORKER = """
 from dust_tpu_torch.inference import MPF, GaussianLikelihood
@@ -72,6 +76,15 @@ save("mpf_x", ms1.x)
 save("mpf_grads", grads)
 save("mpf_collectives", np.array([counts["all_reduce"],
                                   counts["all_gather"]]))
+# Adam: two optimize calls, the moments carried from one to the next
+adam = ShardedMPF(likelihood=lik, mesh=mesh, lr=1e-2, optimizer="adam")
+ms = adam.shard_state(adam.init_state(t["init"], t["obs"], dim_a=1, bw=0.2))
+for i, new_obs in enumerate((t["new_obs"], t["new_obs2"])):
+    ms, grads, _ = adam.optimize(ms, t["action"], new_obs, bw=0.3,
+                                 n_steps=3)
+    save(f"adam_x{i}", ms.x)
+    save(f"adam_mu{i}", ms.opt_state.mu)
+    save(f"adam_count{i}", np.array(ms.opt_state.count))
 try:
     sharded.shard_state(sharded.init_state(t["init"][:world + 1],
                                            t["obs"], dim_a=1, bw=0.2))
@@ -103,7 +116,8 @@ def ranks(tmp_path_factory):
         tril=np.linalg.cholesky(a @ a.T + 0.5 * np.eye(2)).astype(
             np.float32),
         init=rng.uniform(0.6, 1.3, size=(M_MPF, 2)).astype(np.float32),
-        obs=MPF_OBS, action=MPF_ACTION, new_obs=MPF_NEW_OBS)
+        obs=MPF_OBS, action=MPF_ACTION, new_obs=MPF_NEW_OBS,
+        new_obs2=MPF_NEW_OBS2)
     np.savez(tmp / "inputs.npz", **inp)
     run_ranks(tmp, WORKER)
     return tmp, inp
@@ -186,3 +200,41 @@ def test_sharded_mpf_matches_jax_and_unsharded(ranks, world):
     # 65 particles do not split over the ranks
     assert read_same_on_every_rank(tmp, "mpf_raised", world)
 
+
+
+@pytest.mark.parametrize("world", WORLDS)
+def test_sharded_mpf_adam_matches_jax_and_unsharded(ranks, world):
+    """ShardedMPF(optimizer="adam") over two optimize calls of 3 steps ==
+    JAX's ShardedMPF(optimizer=optax.adam(1e-2)) and the port's MPF with
+    Adam; the moments are whole and the same on every rank."""
+    from dust_tpu_torch.inference import MPF, GaussianLikelihood
+    from dust_tpu_torch.models import PendulumModel
+
+    tmp, inp = ranks
+    jlik = JLik(obs_std=0.1, model=JPendulum(uncertain_params=("length",
+                                                               "mass")))
+    jsh = JShardedMPF(likelihood=jlik, mesh=_jax_mesh(world),
+                      optimizer=optax.adam(1e-2))
+    js = jsh.shard_state(jsh.init_state(inp["init"], inp["obs"], dim_a=1,
+                                        bw=0.2))
+    plain = MPF(likelihood=GaussianLikelihood(
+        obs_std=0.1, model=PendulumModel(uncertain_params=("length",
+                                                           "mass"))),
+        lr=1e-2, optimizer="adam")
+    ps = plain.init_state(torch.tensor(inp["init"]), torch.tensor(MPF_OBS),
+                          dim_a=1, bw=0.2)
+    for i, new_obs in enumerate((MPF_NEW_OBS, MPF_NEW_OBS2)):
+        js, _, _ = jsh.optimize(js, jnp.asarray(MPF_ACTION),
+                                jnp.asarray(new_obs), bw=0.3, n_steps=3)
+        ps, _, _ = plain.optimize(ps, torch.tensor(MPF_ACTION),
+                                  torch.tensor(new_obs), bw=0.3, n_steps=3)
+        x = read_same_on_every_rank(tmp, f"adam_x{i}", world)
+        mu = read_same_on_every_rank(tmp, f"adam_mu{i}", world)
+        for want_x, want_mu in ((np.asarray(js.x),
+                                 np.asarray(js.opt_state[0].mu)),
+                                (ps.x.numpy(), ps.opt_state.mu.numpy())):
+            np.testing.assert_allclose(x, want_x, rtol=RTOL, atol=ATOL)
+            np.testing.assert_allclose(mu, want_mu, rtol=RTOL, atol=ATOL)
+        assert read_same_on_every_rank(tmp, f"adam_count{i}", world) == \
+            int(js.opt_state[0].count) == ps.opt_state.count == 3 * (i + 1)
+    assert np.abs(x - inp["init"]).max() > 1e-2

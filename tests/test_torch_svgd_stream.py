@@ -146,12 +146,35 @@ def test_dispatcher_and_guards():
     for fn in (svgd.svgd_phi_streamed_packed, svgd.svgd_phi_streamed_symm):
         with pytest.raises(ValueError, match="d <= 8"):
             fn(x9, s9, 0.7)
-    with pytest.raises(ValueError, match="d <= 128"):
-        svgd.svgd_phi_streamed(torch.zeros(4, 129), torch.zeros(4, 129), 1.0)
+    # any d: above 128 the general entry takes the same plain version
+    # (test_streamed_phi_above_d128_matches_jax holds it against JAX)
+    x129, s129 = _inputs(4, 129, seed=10)
+    np.testing.assert_allclose(
+        svgd.svgd_phi_streamed(_t(x129), _t(s129), 9.0).numpy(),
+        svgd.svgd_phi_reference(_t(x129), _t(s129), 9.0).numpy(), **TOL)
     with pytest.raises(ValueError, match=r"\[m, d\]"):
         svgd.svgd_phi_streamed(torch.zeros(4, 2), torch.zeros(4, 3), 1.0)
     with pytest.raises(ValueError, match="block_j"):
         svgd.svgd_phi_streamed(_t(x), _t(score), 0.7, block_j=0)
+
+
+@pytest.mark.parametrize("d", [129, 200])
+def test_streamed_phi_above_d128_matches_jax(d):
+    """The general entry above d = 128 (the card's d-chunked path,
+    csrc/stream_dchunk.cuh) against JAX's `svgd_phi_pallas` in interpret
+    mode and the oracle, m = 40, with a bandwidth of 0.7 sqrt(d) so that
+    the kernel values stay away from 0 and 1."""
+    x, score = _inputs(40, d, seed=d)
+    bw = 0.7 * float(np.sqrt(d))
+    got = svgd.svgd_phi_streamed(_t(x), _t(score), bw).numpy()
+    kernel = np.asarray(svgd_phi_pallas(x, score, bw, block_i=128,
+                                        block_j=128, interpret=True))
+    oracle = np.asarray(svgd_phi_reference(jnp.asarray(x),
+                                           jnp.asarray(score), bw))
+    np.testing.assert_allclose(got, kernel, **TOL)
+    np.testing.assert_allclose(got, oracle, **TOL)
+    k = np.exp(-((x[:, None] - x[None]) ** 2).sum(-1) / (2 * bw * bw))
+    assert 0.01 < k[~np.eye(40, dtype=bool)].mean() < 0.9
 
 
 @pytest.mark.parametrize("offset", [0.0, 1.5, 2000.0])

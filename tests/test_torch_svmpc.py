@@ -8,7 +8,9 @@ after a Stein step at the closed loop's per-step tolerance, rtol 1e-3,
 atol 5e-4 (the likelihood gradient weights samples by softmax(-costs),
 which turns one-ulp cost differences into ~1e-4 relative weight
 differences); weights, rolls and priors of identical particles at
-rtol 1e-5, atol 1e-6."""
+rtol 1e-5, atol 1e-6. With Adam (optax.adam(0.1)) theta and the first
+moment at the Stein step's tolerance, the second moment (squares of the
+gradients) at twice its rtol."""
 
 import jax
 import jax.numpy as jnp
@@ -72,7 +74,7 @@ class _TStub:
 
 
 def _pair(kernel, reference_compat, weighted_prior=False,
-          roll_strategy="repeat"):
+          roll_strategy="repeat", adam_lr=None):
     kw = dict(hz_len=H, n_policies=M, action_samples=N_S,
               params_samples=N_P, params_sampling=True)
     jm = JPendulum(uncertain_params=("length", "mass"))
@@ -86,10 +88,15 @@ def _pair(kernel, reference_compat, weighted_prior=False,
     skw = dict(kernel=kernel, n_particles=M, n_steps=1,
                reference_compat=reference_compat,
                weighted_prior=weighted_prior, roll_strategy=roll_strategy)
+    if adam_lr is None:
+        jopt, topt = dict(optimizer=optax.sgd(2.0)), dict(lr=2.0)
+    else:
+        jopt = dict(optimizer=optax.adam(adam_lr))
+        topt = dict(optimizer="adam", lr=adam_lr)
     js = JSVMPC(JExpUtil(alpha=1.0, n_samples=N_S, controller=jc, model=jm),
-                optimizer=optax.sgd(2.0), **skw)
+                **jopt, **skw)
     ts = TSVMPC(TExpUtil(alpha=1.0, n_samples=N_S, controller=tc, model=tm),
-                lr=2.0, **skw)
+                **topt, **skw)
     return js, ts
 
 
@@ -191,6 +198,94 @@ def test_resample_roll_draws_from_the_prior():
 
 
 def test_svmpc_rejects_other_optimizers():
+    """An unknown optimizer name raises (SGD, Adam and optimizer objects
+    are taken: test_svmpc_adam_matches_jax)."""
     js, ts = _pair("rbf", False)
-    with pytest.raises(ValueError, match="SGD"):
-        TSVMPC(ts.likelihood, n_particles=M, optimizer="adam")
+    with pytest.raises(ValueError, match="optimizer must be one of"):
+        TSVMPC(ts.likelihood, n_particles=M, optimizer="rmsprop")
+
+
+def _adam_leaves(jstate):
+    """(count, mu, nu) of JAX's optax.adam state."""
+    s = jstate[0]
+    return int(s.count), np.asarray(s.mu), np.asarray(s.nu)
+
+
+@pytest.mark.parametrize("kernel", ["rbf", "message_passing"])
+def test_svmpc_adam_matches_jax(kernel):
+    """`SVMPC(optimizer="adam", lr=0.1)` against JAX's
+    `SVMPC(optimizer=optax.adam(0.1))`, fresh injected noise each step:
+    three svgd_steps, then forward (which rolls theta and leaves Adam's
+    moments unrolled, as JAX's does) and one more step on the unrolled
+    moments. theta at STEP_TOL, the moments at STEP_TOL scaled by Adam's
+    (1 - b) weights, the count exactly. Adam's first step is lr *
+    g / (|g| + eps): no element of the first gradient is below 1e-5 in
+    magnitude here (counted, so a change of inputs that makes one shows)."""
+    rng = np.random.default_rng(11)
+    inp = _inputs(4)
+    js, ts = _pair(kernel, False, adam_lr=0.1)
+    jprior = JGMM.from_cov(inp["theta"], jnp.ones(M), 4.0 * jnp.eye(1))
+    tprior = TGMM.from_cov(inp["theta"], torch.ones(M), 4.0 * torch.eye(1))
+    jsv = js.init_state(inp["theta"], jprior)
+    tsv = ts.init_state(_t(inp["theta"]), tprior)
+    assert tsv.opt_state.count == 0
+    jd = js.controller.init_state(inp["theta"])
+    td = ts.controller.init_state(_t(inp["theta"]))
+    bw = np.asarray(j_silverman(jsv.theta))
+
+    def step(jsv, tsv, jd, td):
+        noise = rng.normal(size=(N_S, M, H, 1)).astype(np.float32)
+        jsv, jd, jc = js.svgd_step(jsv, jd, jnp.asarray(inp["state"]),
+                                   _JStub(inp["draws"], inp["log_p"]),
+                                   jax.random.key(0), jnp.asarray(bw),
+                                   noise=jnp.asarray(noise))
+        tsv, td, tc = ts.svgd_step(tsv, td, _t(inp["state"]),
+                                   _TStub(inp["draws"], inp["log_p"]), None,
+                                   torch.tensor(bw), noise=_t(noise))
+        np.testing.assert_allclose(tsv.theta.numpy(), np.asarray(jsv.theta),
+                                   **STEP_TOL)
+        count, mu, nu = _adam_leaves(jsv.opt_state)
+        assert tsv.opt_state.count == count
+        np.testing.assert_allclose(tsv.opt_state.mu.numpy(), mu, **STEP_TOL)
+        np.testing.assert_allclose(tsv.opt_state.nu.numpy(), nu,
+                                   rtol=2 * STEP_TOL["rtol"],
+                                   atol=STEP_TOL["atol"] ** 2)
+        return jsv, tsv, jd, td, jc, tc
+
+    for i in range(3):
+        jsv, tsv, jd, td, jc, tc = step(jsv, tsv, jd, td)
+        if i == 0:
+            # the first moment is (1 - b1) * g: |phi| = |mu| / 0.1
+            small = int((np.abs(tsv.opt_state.mu.numpy()) / 0.1
+                         < 1e-5).sum())
+            assert small == 0, f"{small} elements with |phi| < 1e-5"
+    jsv, ja, _ = js.forward(jsv, jc)
+    tsv, ta, _ = ts.forward(tsv, tc)
+    np.testing.assert_allclose(ta.numpy(), np.asarray(ja), **STEP_TOL)
+    np.testing.assert_allclose(tsv.theta.numpy(), np.asarray(jsv.theta),
+                               **STEP_TOL)
+    # the moments stay where they were; theta moved one step along H
+    assert tsv.opt_state.count == 3
+    jsv, tsv, jd, td, _, _ = step(jsv, tsv, jd, td)
+    assert tsv.opt_state.count == 4
+
+
+def test_svmpc_state_rate_with_adam():
+    """`SVMPCState.lr` replaces the rate of Adam too: a state at rate 0.02
+    steps as an SVMPC built at 0.02."""
+    inp = _inputs(5)
+    _, ts = _pair("rbf", False, adam_lr=0.5)
+    _, ts_at = _pair("rbf", False, adam_lr=0.02)
+    prior = TGMM.from_cov(inp["theta"], torch.ones(M), 4.0 * torch.eye(1))
+    outs = []
+    for s, lr in ((ts, 0.02), (ts_at, None)):
+        sv = s.init_state(_t(inp["theta"]), prior)
+        sv = type(sv)(theta=sv.theta, prior=sv.prior, lr=lr,
+                      opt_state=sv.opt_state)
+        sv, _, _ = s.svgd_step(sv, s.controller.init_state(
+            _t(inp["theta"])), _t(inp["state"]),
+            _TStub(inp["draws"], inp["log_p"]), None,
+            t_silverman(sv.theta), noise=_t(inp["noise"]))
+        outs.append(sv.theta)
+    assert torch.equal(outs[0], outs[1])
+    assert not torch.equal(outs[0], _t(inp["theta"]))

@@ -16,7 +16,8 @@ from dust_tpu.utils.helper import from_np as j_from_np
 from dust_tpu.utils.helper import to_np as j_to_np
 from dust_tpu_torch.experiments import PENDULUM_DEMO_CONFIG, \
     build_pendulum_stack
-from dust_tpu_torch.inference import FusedPendulumMPF
+from dust_tpu_torch.inference import FusedMPF, FusedPendulumMPF
+from dust_tpu_torch.inference.optim import AdamState, make_optimizer
 from dust_tpu_torch.simulation import PendulumSimulation
 from dust_tpu_torch.utils.helper import (
     from_np,
@@ -38,14 +39,23 @@ def _one_torch_thread():
     torch.set_num_threads(n)
 
 
-def _harness():
+def _harness(adam=False):
+    """The reduced `dust` stack on the K1 hook and K2, or with adam=True
+    on Adam at 0.1 (SVMPC) and FusedMPF (K11a + K12a) with Adam at the
+    config's MPF rate."""
     cfg = copy.deepcopy(PENDULUM_DEMO_CONFIG)
     cfg["exp_params"].update(horizon=8, action_samples=16, params_samples=4,
                              mpf_n_particles=12, mpf_steps=3,
                              fused_rollout=True)
     stack = build_pendulum_stack(cfg, torch.Generator().manual_seed(0),
                                  device="cpu")
-    stack.mpf = FusedPendulumMPF.from_mpf(stack.mpf)
+    if adam:
+        stack.svmpc.optimizer = make_optimizer("adam", 0.1)
+        stack.mpf = FusedMPF(stack.mpf.likelihood, optimizer="adam",
+                             lr=stack.mpf.lr, bw_scale=stack.mpf.bw_scale,
+                             n_steps=stack.mpf.n_steps)
+    else:
+        stack.mpf = FusedPendulumMPF.from_mpf(stack.mpf)
     harness = PendulumSimulation(
         controller=stack.controller, svmpc=stack.svmpc, mpf=stack.mpf,
         model=stack.model, steps=STEPS, warm_up=1, mpf_bw=stack.mpf_bw,
@@ -106,7 +116,20 @@ def test_checkpoint_round_trip(tmp_path):
 
 
 def test_resumed_episode_equals_uninterrupted(tmp_path):
-    harness, carry = _harness()
+    _resume_check(tmp_path, adam=False)
+
+
+def test_resumed_adam_episode_equals_uninterrupted(tmp_path):
+    """With Adam the carry holds both optimizers' AdamState (count,
+    moments); the checkpoint keeps them and the resumed run is bit-equal
+    to the uninterrupted one."""
+    _resume_check(tmp_path, adam=True)
+
+
+def _resume_check(tmp_path, adam):
+    """Saved at step CUT and resumed: bit-equal to the uninterrupted
+    run."""
+    harness, carry = _harness(adam)
     step = harness.step_fn(None)
     true = {"length": torch.tensor(1.1), "mass": torch.tensor(0.9)}
     full, logs_full = carry, []
@@ -114,11 +137,18 @@ def test_resumed_episode_equals_uninterrupted(tmp_path):
         full, log = step(full, t, true)
         logs_full.append(log)
 
-    _, carry2 = _harness()
+    _, carry2 = _harness(adam)
     for t in range(CUT):
         carry2, _ = step(carry2, t, true)
     path = save_checkpoint(tmp_path / "carry.pt", carry2, step=CUT)
     resumed, start, _ = load_checkpoint(path)
+    if adam:
+        for state in (resumed[3], resumed[4]):
+            assert isinstance(state.opt_state, AdamState)
+        # one SVMPC update and mpf_steps MPF updates per step
+        assert resumed[3].opt_state.count == CUT
+        assert resumed[4].opt_state.count == 3 * CUT
+        _assert_same(resumed, carry2)
     logs = []
     for t in range(start, STEPS):
         resumed, log = step(resumed, t, true)
