@@ -2436,22 +2436,14 @@ def _phase_clock(label, fn, clock, steps=MAIN_STEPS, calls=1, per="step"):
         for _ in range(calls):
             fn()
     torch.cuda.synchronize()
-    clk = torch.cat(rows).double().cpu()        # [blocks, phases + 2]
-    n = len(clock.phases)
-    ns_per_cycle = clk[:, n + 1] / clk[:, n]    # per block
-    us = (clk[:, :n] * ns_per_cycle[:, None]).mean(0) / (1e3 * steps)
-    loop_us = float(clk[:, n + 1].mean()) / (1e3 * steps)
-    phases = {k: {f"us_per_{per}": float(v),
-                  "share": float(clk[:, i].sum() / clk[:, :n].sum())}
-              for i, (k, v) in enumerate(zip(clock.phases, us))}
-    print(f"{label} per-phase clock, us per {per} (mean of {clk.shape[0]} "
+    out = clock.summary(rows, steps, per=per)
+    print(f"{label} per-phase clock, us per {per} (mean of {out['blocks']} "
           f"blocks; share): " + ", ".join(
               f"{k} {v[f'us_per_{per}']:.2f} ({100 * v['share']:.1f}%)"
-              for k, v in phases.items())
-          + f"; the loop {loop_us:.2f} us per {per}, "
-          f"{float(ns_per_cycle.mean()):.4f} ns per cycle")
-    return {"blocks": int(clk.shape[0]), f"loop_us_per_{per}": loop_us,
-            "ns_per_cycle": float(ns_per_cycle.mean()), "phases": phases}
+              for k, v in out["phases"].items())
+          + f"; the loop {out[f'loop_us_per_{per}']:.2f} us per {per}, "
+          f"{out['ns_per_cycle']:.4f} ns per cycle")
+    return out
 
 
 def phase_timing_slice3(dev, path7):

@@ -36,6 +36,7 @@ from ..ops.mpf import fused_pendulum_mpf_optimize
 from ..ops.mpf_stream import fused_mpf_stream_step
 from ..ops.particle_mpf import fused_particle_mpf_optimize
 from ..ops.svgd import svgd_phi_streamed, svgd_phi_streamed_packed
+from ..utils.profiling import span
 from .likelihoods import GaussianLikelihood, LikelihoodState
 from .optim import SGD, make_optimizer
 
@@ -150,18 +151,23 @@ class MPF:
     def optimize(self, mstate: MPFState, action, new_obs, bw=None,
                  n_steps=None):
         """Condition on the newest observation and run n_steps SVGD
-        updates. Returns (new_mstate, grad_norms [n_steps], bw)."""
-        mstate = self._condition(mstate, action, new_obs)
-        if bw is None:
-            bw = silvermans_rule(mstate.x) * self.bw_scale
+        updates. Returns (new_mstate, grad_norms [n_steps], bw). Its
+        phases run in the spans `mpf.condition` (with the bandwidth),
+        `mpf.stein_steps` and `mpf.prior_refresh`."""
+        with span("mpf.condition"):
+            mstate = self._condition(mstate, action, new_obs)
+            if bw is None:
+                bw = silvermans_rule(mstate.x) * self.bw_scale
         n = self.n_steps if n_steps is None else n_steps
-        norms = []
-        for _ in range(n):
-            mstate, gnorm = self.step(mstate, bw)
-            norms.append(gnorm)
-        grads = (torch.stack(norms) if norms
-                 else torch.zeros((0,), device=mstate.x.device))
-        return self._refresh_prior(mstate, mstate.x, bw), grads, bw
+        with span("mpf.stein_steps"):
+            norms = []
+            for _ in range(n):
+                mstate, gnorm = self.step(mstate, bw)
+                norms.append(gnorm)
+            grads = (torch.stack(norms) if norms
+                     else torch.zeros((0,), device=mstate.x.device))
+        with span("mpf.prior_refresh"):
+            return self._refresh_prior(mstate, mstate.x, bw), grads, bw
 
 
 class ClosedFormPendulumMPF(MPF):

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .particle_episode import (
     LOG_FIELDS,
     episode_plain,
@@ -81,50 +82,55 @@ def _sweep_groups(
         host_eps=None, host_pdz=None, host_pdu=None, probe_skip=(),
         n_chains=1, **statics):
     """`fused_particle_sweep_groups`, with the runner of the canonical
-    inputs (the kernel or the plain version) first."""
-    check_particle_sweep_dims(n_sc, statics["hz"], statics["m"],
-                              statics["n_params"], statics["n_act"],
-                              statics["m_mpf"], probe_skip)
-    sp = episode_statics(**statics)
-    steps, hz, m, m_mpf = sp["steps"], sp["hz"], sp["m"], sp["m_mpf"]
-    dev = torch.as_tensor(theta0).device
-    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
-    seeds = chain_seeds(torch.as_tensor(seeds, device=dev), n_chains)
-    G, C = seeds.shape[0], n_chains
-    B = G * C * n_sc
-    ev = 2 * hz
-    mass = f32(true_masses).expand(G, n_sc)
-    mpfx0 = f32(mpfx0).reshape(-1, m_mpf).expand(n_sc, m_mpf)
-    per_ep = lambda v: f32(v).reshape(1, m, ev).expand(B, m, ev)
-    inputs = dict(
-        scal=episode_scal(state0, ctrl_sigma, lr, alpha, temp, prior_sigma,
-                          load, mpf_lr, mpf_sigma, prior_bw0,
-                          mpf_fixed_bw_val, dev),
-        base_mass=mass[:, None].expand(G, C, n_sc).reshape(B),
-        seeds=seeds[:, :, None].expand(G, C, n_sc, 2).reshape(B, 2),
-        scenario=torch.arange(n_sc, device=dev).repeat(G * C),
-        log_mix0=f32(log_mix0).reshape(m),
-        theta0=per_ep(theta0), locs0=per_ep(locs0), amat0=per_ep(a_mat0),
-        a_seq=torch.zeros((ev,), device=dev),
-        mpfx0=mpfx0[None].expand(G * C, n_sc, m_mpf).reshape(B, m_mpf),
-        eps=None, pdz=None, pdu=None,
-    )
-    if host_eps is not None:
-        inputs["eps"], inputs["pdz"], inputs["pdu"] = _host_noise(
-            host_eps, host_pdz, host_pdu, G, C, n_sc, steps, hz, m,
-            sp["n_params"], sp["n_act"], dev)
-    log, theta, locs, amat, mpf_x, logmix = runner(inputs, sp)
-    lead = (G, C) if n_chains > 1 else (G,)
-    log = log.reshape(*lead, n_sc, steps, len(LOG_FIELDS))
-    out = {k: log[..., i].transpose(-1, -2)
-           for i, k in enumerate(LOG_FIELDS)}
-    out.update(
-        theta=theta.reshape(*lead, n_sc, m, hz, 2),
-        locs=locs.reshape(*lead, n_sc, m, hz, 2),
-        a_mat=amat.reshape(*lead, n_sc, m, hz, 2),
-        log_mix=logmix.reshape(*lead, n_sc, m),
-        mpf_x=mpf_x.reshape(*lead, n_sc, m_mpf, 1),
-    )
+    inputs (the kernel or the plain version) first; the
+    `sweep.inputs`, `sweep.launch` and `sweep.outputs` spans."""
+    with span("sweep.inputs"):
+        check_particle_sweep_dims(n_sc, statics["hz"], statics["m"],
+                                  statics["n_params"], statics["n_act"],
+                                  statics["m_mpf"], probe_skip)
+        sp = episode_statics(**statics)
+        steps, hz, m, m_mpf = sp["steps"], sp["hz"], sp["m"], sp["m_mpf"]
+        dev = torch.as_tensor(theta0).device
+        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
+        seeds = chain_seeds(torch.as_tensor(seeds, device=dev), n_chains)
+        G, C = seeds.shape[0], n_chains
+        B = G * C * n_sc
+        ev = 2 * hz
+        mass = f32(true_masses).expand(G, n_sc)
+        mpfx0 = f32(mpfx0).reshape(-1, m_mpf).expand(n_sc, m_mpf)
+        per_ep = lambda v: f32(v).reshape(1, m, ev).expand(B, m, ev)
+        inputs = dict(
+            scal=episode_scal(state0, ctrl_sigma, lr, alpha, temp,
+                              prior_sigma, load, mpf_lr, mpf_sigma,
+                              prior_bw0, mpf_fixed_bw_val, dev),
+            base_mass=mass[:, None].expand(G, C, n_sc).reshape(B),
+            seeds=seeds[:, :, None].expand(G, C, n_sc, 2).reshape(B, 2),
+            scenario=torch.arange(n_sc, device=dev).repeat(G * C),
+            log_mix0=f32(log_mix0).reshape(m),
+            theta0=per_ep(theta0), locs0=per_ep(locs0),
+            amat0=per_ep(a_mat0), a_seq=torch.zeros((ev,), device=dev),
+            mpfx0=mpfx0[None].expand(G * C, n_sc, m_mpf).reshape(
+                B, m_mpf),
+            eps=None, pdz=None, pdu=None,
+        )
+        if host_eps is not None:
+            inputs["eps"], inputs["pdz"], inputs["pdu"] = _host_noise(
+                host_eps, host_pdz, host_pdu, G, C, n_sc, steps, hz, m,
+                sp["n_params"], sp["n_act"], dev)
+    with span("sweep.launch"):
+        log, theta, locs, amat, mpf_x, logmix = runner(inputs, sp)
+    with span("sweep.outputs"):
+        lead = (G, C) if n_chains > 1 else (G,)
+        log = log.reshape(*lead, n_sc, steps, len(LOG_FIELDS))
+        out = {k: log[..., i].transpose(-1, -2)
+               for i, k in enumerate(LOG_FIELDS)}
+        out.update(
+            theta=theta.reshape(*lead, n_sc, m, hz, 2),
+            locs=locs.reshape(*lead, n_sc, m, hz, 2),
+            a_mat=amat.reshape(*lead, n_sc, m, hz, 2),
+            log_mix=logmix.reshape(*lead, n_sc, m),
+            mpf_x=mpf_x.reshape(*lead, n_sc, m_mpf, 1),
+        )
     return out
 
 

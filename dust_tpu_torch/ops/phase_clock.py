@@ -7,6 +7,7 @@ the block barriers that close the phases of a step and writes one int64
 row per block, each phase's cycles summed over the steps, then the whole
 loop's cycles and its %globaltimer nanoseconds. The results are the
 unclocked build's; the time is not (the marks add barriers).
+`PhaseClock.summary` turns the rows into time per step.
 """
 
 from __future__ import annotations
@@ -46,3 +47,25 @@ class PhaseClock:
                             dtype=torch.int64, device=device)
         self._open[-1].append(clock)
         return clock
+
+    def summary(self, rows, steps, per="step"):
+        """The time of each phase from the clock rows of launches (the
+        context's list, each [blocks, len(phases) + 2]), each block's
+        cycles at its own cycles-to-%globaltimer rate, the mean over the
+        blocks, over `steps` per launch: {"blocks", "loop_us_per_<per>"
+        (the loop's %globaltimer time), "ns_per_cycle" (the blocks' mean),
+        "phases": {phase: {"us_per_<per>", "share" (of all phases'
+        cycles)}}}."""
+        clk = torch.cat(rows).double().cpu()
+        n = len(self.phases)
+        ns_per_cycle = clk[:, n + 1] / clk[:, n]    # per block
+        us = (clk[:, :n] * ns_per_cycle[:, None]).mean(0) / (1e3 * steps)
+        total = clk[:, :n].sum()
+        return {
+            "blocks": int(clk.shape[0]),
+            f"loop_us_per_{per}": float(clk[:, n + 1].mean()) / (1e3 * steps),
+            "ns_per_cycle": float(ns_per_cycle.mean()),
+            "phases": {k: {f"us_per_{per}": float(us[i]),
+                           "share": float(clk[:, i].sum() / total)}
+                       for i, k in enumerate(self.phases)},
+        }

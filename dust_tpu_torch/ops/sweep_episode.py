@@ -25,6 +25,7 @@ from __future__ import annotations
 
 import torch
 
+from ..utils.profiling import span
 from .episode import (
     episode_plain,
     episode_scal,
@@ -109,49 +110,53 @@ def _sweep_groups(
         host_eps=None, host_pdz=None, host_pdu=None,
         mpf_drive_layout="colbcast", probe_skip=(), n_chains=1):
     """`fused_pendulum_sweep_groups`, with the runner of the canonical
-    inputs (the kernel or the plain version) first."""
-    check_sweep_dims(n_sc, hz, m, n_params, n_act, m_mpf, mpf_drive_layout,
-                     probe_skip)
-    dev = torch.as_tensor(theta0).device
-    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
-    seeds = chain_seeds(torch.as_tensor(seeds, device=dev), n_chains)
-    G, C = seeds.shape[0], n_chains
-    B = G * C * n_sc
-    st = episode_statics(steps, warm_up, hz, m, n_params, n_act, m_mpf,
-                         mpf_steps, dt, g_model, g_sim, exp_util,
-                         mpf_log_space, mpf_fixed_bw, mpf_bw_scale)
-    lens = f32(true_lengths).expand(G, n_sc)
-    mass = f32(true_masses).expand(G, n_sc)
-    ep_f = torch.stack([1.0 / lens, 1.0 / mass], dim=-1)     # [G, n_sc, 2]
-    mpfx0 = f32(mpfx0)
-    mpfx0 = mpfx0.reshape(-1, m_mpf, 2).expand(n_sc, m_mpf, 2)
-    per_ep = lambda v: f32(v).reshape(1, m, hz).expand(B, m, hz)
-    inputs = dict(
-        scal=episode_scal(state0, ctrl_sigma, lr, alpha, temp, prior_sigma,
-                          mpf_lr, mpf_sigma, prior_bw0, m, dev),
-        ep_f=ep_f[:, None].expand(G, C, n_sc, 2).reshape(B, 2),
-        seeds=seeds[:, :, None].expand(G, C, n_sc, 2).reshape(B, 2),
-        scenario=torch.arange(n_sc, device=dev).repeat(G * C),
-        theta0=per_ep(theta0), locs0=per_ep(locs0), amat0=per_ep(a_mat0),
-        a_seq=None,
-        mpfx0=mpfx0[None].expand(G * C, n_sc, m_mpf, 2).reshape(
-            B, m_mpf, 2),
-        eps=None, pdz=None, pdu=None,
-    )
-    if host_eps is not None:
-        inputs["eps"], inputs["pdz"], inputs["pdu"] = _host_noise(
-            host_eps, host_pdz, host_pdu, G, C, n_sc, steps, hz, m,
-            n_params, n_act, dev)
-    log, theta, locs, amat, mpf_x = runner(inputs, st)
-    lead = (G, C) if n_chains > 1 else (G,)
-    out = {k: v.reshape(*lead, n_sc, steps).transpose(-1, -2)
-           for k, v in split_log(log).items()}
-    out.update(
-        theta=theta.reshape(*lead, n_sc, m, hz),
-        locs=locs.reshape(*lead, n_sc, m, hz),
-        a_mat=amat.reshape(*lead, n_sc, m, hz),
-        mpf_x=mpf_x.reshape(*lead, n_sc, m_mpf, 2),
-    )
+    inputs (the kernel or the plain version) first; the
+    `sweep.inputs`, `sweep.launch` and `sweep.outputs` spans."""
+    with span("sweep.inputs"):
+        check_sweep_dims(n_sc, hz, m, n_params, n_act, m_mpf, mpf_drive_layout,
+                         probe_skip)
+        dev = torch.as_tensor(theta0).device
+        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
+        seeds = chain_seeds(torch.as_tensor(seeds, device=dev), n_chains)
+        G, C = seeds.shape[0], n_chains
+        B = G * C * n_sc
+        st = episode_statics(steps, warm_up, hz, m, n_params, n_act, m_mpf,
+                             mpf_steps, dt, g_model, g_sim, exp_util,
+                             mpf_log_space, mpf_fixed_bw, mpf_bw_scale)
+        lens = f32(true_lengths).expand(G, n_sc)
+        mass = f32(true_masses).expand(G, n_sc)
+        ep_f = torch.stack([1.0 / lens, 1.0 / mass], dim=-1)     # [G, n_sc, 2]
+        mpfx0 = f32(mpfx0)
+        mpfx0 = mpfx0.reshape(-1, m_mpf, 2).expand(n_sc, m_mpf, 2)
+        per_ep = lambda v: f32(v).reshape(1, m, hz).expand(B, m, hz)
+        inputs = dict(
+            scal=episode_scal(state0, ctrl_sigma, lr, alpha, temp, prior_sigma,
+                              mpf_lr, mpf_sigma, prior_bw0, m, dev),
+            ep_f=ep_f[:, None].expand(G, C, n_sc, 2).reshape(B, 2),
+            seeds=seeds[:, :, None].expand(G, C, n_sc, 2).reshape(B, 2),
+            scenario=torch.arange(n_sc, device=dev).repeat(G * C),
+            theta0=per_ep(theta0), locs0=per_ep(locs0), amat0=per_ep(a_mat0),
+            a_seq=None,
+            mpfx0=mpfx0[None].expand(G * C, n_sc, m_mpf, 2).reshape(
+                B, m_mpf, 2),
+            eps=None, pdz=None, pdu=None,
+        )
+        if host_eps is not None:
+            inputs["eps"], inputs["pdz"], inputs["pdu"] = _host_noise(
+                host_eps, host_pdz, host_pdu, G, C, n_sc, steps, hz, m,
+                n_params, n_act, dev)
+    with span("sweep.launch"):
+        log, theta, locs, amat, mpf_x = runner(inputs, st)
+    with span("sweep.outputs"):
+        lead = (G, C) if n_chains > 1 else (G,)
+        out = {k: v.reshape(*lead, n_sc, steps).transpose(-1, -2)
+               for k, v in split_log(log).items()}
+        out.update(
+            theta=theta.reshape(*lead, n_sc, m, hz),
+            locs=locs.reshape(*lead, n_sc, m, hz),
+            a_mat=amat.reshape(*lead, n_sc, m, hz),
+            mpf_x=mpf_x.reshape(*lead, n_sc, m_mpf, 2),
+        )
     return out
 
 

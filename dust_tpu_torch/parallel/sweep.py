@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ..device import resolve_device
+from ..utils.profiling import span
 from .mesh import all_gather_rows, block, check_axis
 
 
@@ -156,23 +157,35 @@ class MegakernelGroupSweep:
         self.mesh = mesh
         self.axis = axis
 
+    @property
+    def phase_clock(self):
+        """The sweep kernel's `ops.phase_clock.PhaseClock` (the adapter's):
+        calls inside `with sweep.phase_clock() as rows:` launch its
+        clocked build."""
+        return self.sweep_fn.phase_clock
+
     def local(self, seeds, *mapped, **kw):
         """The rank's groups in one launch (the adapter's `groups`)."""
         return self.sweep_fn.groups(seeds, *mapped, **kw)
 
     def run(self, seeds, *mapped, **kw):
-        if self.mesh is None:
-            return self.local(seeds, *mapped, **kw)
-        rows = block(len(seeds), self.mesh, self.axis)
+        """One call, in a `sweep.run` span; inside it the adapter's
+        `sweep.inputs`, `sweep.launch` and `sweep.outputs` spans and, with
+        a mesh, `sweep.gather`."""
+        with span("sweep.run"):
+            if self.mesh is None:
+                return self.local(seeds, *mapped, **kw)
+            rows = block(len(seeds), self.mesh, self.axis)
 
-        def split(v):
-            if v is None or torch.as_tensor(v).ndim < 2:
-                return v
-            return v[rows]
+            def split(v):
+                if v is None or torch.as_tensor(v).ndim < 2:
+                    return v
+                return v[rows]
 
-        out = self.local(seeds[rows], *map(split, mapped),
-                         **{k: split(v) for k, v in kw.items()})
-        return _gather_fields(out, self.mesh, self.axis)
+            out = self.local(seeds[rows], *map(split, mapped),
+                             **{k: split(v) for k, v in kw.items()})
+            with span("sweep.gather"):
+                return _gather_fields(out, self.mesh, self.axis)
 
 
 def broadcast_scenarios(tree, n):

@@ -22,6 +22,7 @@ import torch
 
 from .device import resolve_device
 from .models.pendulum import PendulumModel
+from .utils.profiling import span
 
 COLUMNS = (
     "Cost", "Position", "Speed", "Actions", "Timestep", "Iteration",
@@ -57,7 +58,9 @@ class PendulumSimulation:
         """The per-step function
         (carry, t, true_params) -> (carry, log), with carry =
         (generator, obs [1, S], dstate, svstate, mstate) and log =
-        (obs, action, cost, theta, weights, dyn_particles, bw)."""
+        (obs, action, cost, theta, weights, dyn_particles, bw). Its
+        phases run in the spans `svmpc.optimize`, `svmpc.forward`,
+        `simulator.step` and `mpf.optimize`."""
         ctrl, svmpc, mpf = self.controller, self.svmpc, self.mpf
         dev = self.device
 
@@ -66,13 +69,15 @@ class PendulumSimulation:
             dyn_dist = mstate.prior if mpf is not None else static_dyn_dist
 
             if self.use_svmpc:
-                svstate, dstate, costs = svmpc.optimize(
-                    svstate, dstate, obs, dyn_dist, generator
-                )
-                if t >= self.warm_up:
-                    svstate, a_seq, weights = svmpc.forward(
-                        svstate, costs, generator=generator
+                with span("svmpc.optimize"):
+                    svstate, dstate, costs = svmpc.optimize(
+                        svstate, dstate, obs, dyn_dist, generator
                     )
+                if t >= self.warm_up:
+                    with span("svmpc.forward"):
+                        svstate, a_seq, weights = svmpc.forward(
+                            svstate, costs, generator=generator
+                        )
                     action = a_seq[0]
                 else:
                     action = torch.zeros((ctrl.dim_a,), device=dev)
@@ -94,13 +99,15 @@ class PendulumSimulation:
                 action = next_actions.reshape(-1)
                 weights = dstate.a_mix
 
-            obs = self.sim_model.step(obs, action[None], true_params)
+            with span("simulator.step"):
+                obs = self.sim_model.step(obs, action[None], true_params)
 
             if mpf is not None:
-                mstate, _, bw = mpf.optimize(
-                    mstate, action, obs[0], bw=self.mpf_bw,
-                    n_steps=self.mpf_steps,
-                )
+                with span("mpf.optimize"):
+                    mstate, _, bw = mpf.optimize(
+                        mstate, action, obs[0], bw=self.mpf_bw,
+                        n_steps=self.mpf_steps,
+                    )
             else:
                 bw = 0.0
 
@@ -270,7 +277,8 @@ def megakernel_pendulum_sweep_fn(stack, exp_params, steps, n_sc,
     true_masses [n_sc], host_eps=None, host_pdz=None, host_pdu=None) ->
     per-scenario logs; `sweep.groups(seeds [G, 2], true_lengths,
     true_masses, ...)` runs G groups in one launch (the
-    `parallel.MegakernelGroupSweep` path).
+    `parallel.MegakernelGroupSweep` path); `sweep.phase_clock` is the
+    kernel's clock (`ops.episode.phase_clock`).
 
     Rejected, as the kernel does not model them: a nonzero controller
     a_seq (the kernel drops the a_seq term), `weighted_prior`, and
@@ -281,6 +289,7 @@ def megakernel_pendulum_sweep_fn(stack, exp_params, steps, n_sc,
     MPF particle at the default (length, mass), zero prior bandwidth and
     zero MPF steps make every dynamics draw exactly the default
     parameters and freeze the posterior."""
+    from .ops.episode import phase_clock as episode_clock
     from .ops.sweep_episode import fused_pendulum_sweep_groups
 
     exp = exp_params
@@ -346,6 +355,7 @@ def megakernel_pendulum_sweep_fn(stack, exp_params, steps, n_sc,
         return {k: v[0] for k, v in out.items()}
 
     sweep.groups = groups
+    sweep.phase_clock = episode_clock
     return sweep
 
 
@@ -371,7 +381,9 @@ def particle_episode_fn(model, controller, svmpc=None, mpf=None,
     step t; the state frozen once done; the MPF update when t >= warm_up
     and not done; the cost of the new state added to the sum unless done;
     then crash and success detection against the pre-detection done. The
-    done flag is read on the host every step (it gates the MPF)."""
+    done flag is read on the host every step (it gates the MPF). The
+    phases run in the spans `svmpc.optimize`, `svmpc.forward`,
+    `simulator.step` and `mpf.optimize`."""
     ctrl = controller
     dev = ctrl.device
     target = model.target
@@ -388,11 +400,13 @@ def particle_episode_fn(model, controller, svmpc=None, mpf=None,
         for t in range(steps):
             dyn_dist_t = mstate.prior if mpf is not None else dyn_dist
             if use_svmpc:
-                svstate, dstate, costs = svmpc.optimize(
-                    svstate, dstate, state[None], dyn_dist_t, generator)
+                with span("svmpc.optimize"):
+                    svstate, dstate, costs = svmpc.optimize(
+                        svstate, dstate, state[None], dyn_dist_t, generator)
                 if t >= warm_up:
-                    svstate, a_seq, _ = svmpc.forward(svstate, costs,
-                                                      generator=generator)
+                    with span("svmpc.forward"):
+                        svstate, a_seq, _ = svmpc.forward(
+                            svstate, costs, generator=generator)
                     action = a_seq[0]
                 else:
                     action = torch.zeros((ctrl.dim_a,), device=dev)
@@ -404,11 +418,14 @@ def particle_episode_fn(model, controller, svmpc=None, mpf=None,
 
             mass = base_mass + load if t >= change_at else base_mass
             if not done:
-                state = model.step(state[None], action[None],
-                                   {"mass": mass})[0]
+                with span("simulator.step"):
+                    state = model.step(state[None], action[None],
+                                       {"mass": mass})[0]
                 if mpf is not None and t >= warm_up:
-                    mstate, _, _ = mpf.optimize(mstate, action, state,
-                                                bw=mpf_bw, n_steps=mpf_steps)
+                    with span("mpf.optimize"):
+                        mstate, _, _ = mpf.optimize(
+                            mstate, action, state, bw=mpf_bw,
+                            n_steps=mpf_steps)
 
             cost = ctrl.inst_cost_fn(state[None])[0]
             if not done:
@@ -526,11 +543,13 @@ def megakernel_particle_sweep_fn(stack, exp_params, steps, n_sc, warm_up=0,
     sweep(seed [2] int, true_masses [n_sc], host_eps=None, host_pdz=None,
     host_pdu=None) -> per-scenario logs; `sweep.groups(seeds [G, 2],
     true_masses, ...)` runs G groups in one launch (the
-    `parallel.MegakernelGroupSweep` path).
+    `parallel.MegakernelGroupSweep` path); `sweep.phase_clock` is the
+    kernel's clock (`ops.particle_episode.phase_clock`).
 
     Rejected, as the kernel does not model them: a nonzero controller
     a_seq, and an MPF bandwidth that is not fixed (the demo config sets
     `mpf_bandwidth` 0.5)."""
+    from .ops.particle_episode import phase_clock as episode_clock
     from .ops.particle_rollout import particle_kernel_statics
     from .ops.particle_sweep_episode import fused_particle_sweep_groups
 
@@ -579,4 +598,5 @@ def megakernel_particle_sweep_fn(stack, exp_params, steps, n_sc, warm_up=0,
         return {k: v[0] for k, v in out.items()}
 
     sweep.groups = groups
+    sweep.phase_clock = episode_clock
     return sweep

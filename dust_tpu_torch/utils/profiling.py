@@ -3,6 +3,8 @@
 
 * `trace(logdir)`: a `torch.profiler` trace of any region (one episode,
   one solve, one sweep), written to `logdir` as a Chrome trace.
+* `span(name)`: a named range of the program (a sweep call's phases, an
+  MPC step's phases) in such a trace; nothing while no profiler records.
 * `Stopwatch`: per-phase wall timings that wait for the device
   (`torch.cuda.synchronize` where the timed result holds a CUDA tensor,
   JAX's `block_until_ready`), feeding per-second rates.
@@ -19,8 +21,22 @@ import time
 from pathlib import Path
 
 import torch
+from torch.profiler import record_function
 
 from ..device import resolve_device
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name):
+    """`with span("sweep.run"): ...`: a `record_function` range named
+    `name` while a profiler records (written on the profiler's clock,
+    beside the device's activity; spans nest, the enclosing one is the
+    cause), else a shared no-op context: no range, no device work, no
+    host sync."""
+    if torch._C._autograd._profiler_enabled():
+        return record_function(name)
+    return _NO_SPAN
 
 
 @dataclasses.dataclass

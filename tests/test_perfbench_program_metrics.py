@@ -1,0 +1,130 @@
+"""The benchmark's readers of the program's spans and phase clock
+(`perfbench/metrics/{sweep_prep_ms,idle_in_program_pct,step_rollout_us,
+step_svmpc_us,step_mpf_us}.py`, `perfbench/phases.py`): each reads None
+without a device trace, the program's spans or clock rows (a program
+without them, the CPU), and the right value from a stub `Trace` and a
+stub runner whose clocked calls write known rows."""
+
+from types import SimpleNamespace
+
+import pytest
+import torch
+
+from dust_tpu_torch.ops import episode, particle_episode
+from dust_tpu_torch.ops.phase_clock import PhaseClock
+from perfbench.harness import load_cell
+from perfbench.phases import GROUPS
+from perfbench.trace import Trace
+
+CELL = load_cell("pendulum.sweep")
+SPAN_READERS = ("sweep_prep_ms", "idle_in_program_pct")
+CLOCK_READERS = {"step_rollout_us": "rollout", "step_svmpc_us": "svmpc",
+                 "step_mpf_us": "mpf"}
+
+
+def _read(name, **ctx):
+    return CELL.metric_reader(name).read(SimpleNamespace(**ctx))
+
+
+def _trace(program_spans=True, device=True, card_early=0.0):
+    """Two traced calls of 10 s: the program's call 1-8 s (the library's
+    launch at 4.2 s, its `sweep.launch` ending at 4.25 s) and 11-18 s
+    (14.6 s, 14.75 s), the kernels 4.2-9.5 s and 14.6-19.9 s, on the card's
+    clock `card_early` seconds ahead of the host's."""
+    host = [(0.5, 0.6, "aten::empty"), (3.5, 3.6, "cudaLaunchKernel"),
+            (4.2, 4.21, "cudaLaunchKernelExC"),
+            (14.6, 14.61, "cudaLaunchKernel")]
+    if program_spans:
+        host += [(1.0, 8.0, "sweep.run"), (1.5, 3.0, "sweep.inputs"),
+                 (3.0, 4.25, "sweep.launch"), (4.25, 4.5, "sweep.outputs"),
+                 (11.0, 18.0, "sweep.run"), (12.0, 14.75, "sweep.launch")]
+    dev = [(3.6, 3.61, "cat", "kernel"),
+           (4.2, 9.5, "episode_kernel", "kernel"),
+           (14.6, 19.9, "episode_kernel", "kernel")] if device else []
+    dev = [(s - card_early, e - card_early, n, c) for s, e, n, c in dev]
+    return Trace(spans=[(0.0, 10.0), (10.0, 20.0)], device=dev, host=host)
+
+
+@pytest.mark.parametrize("card_early", [0.0, 2.0, -0.1],
+                         ids=["clocks agree", "card 2 s early",
+                              "card 0.1 s late"])
+@pytest.mark.parametrize("name,want", [("sweep_prep_ms", 3500.0),
+                                       ("idle_in_program_pct", 33.95)])
+def test_span_readers_on_a_stub_trace(name, want, card_early):
+    """The idle inside the calls: 7 - (8 - 4.2) - 0.01 s and
+    7 - (18 - 14.6) s of the 20 s slice; a card ahead of the host is set
+    back at each call's launch; one behind it reads later kernels."""
+    tr = _trace(card_early=card_early)
+    if card_early < 0:
+        want = {"sweep_prep_ms": 3500.0, "idle_in_program_pct": 34.95}[name]
+    assert _read(name, trace=tr) == pytest.approx(want)
+    assert _read("idle_in_program_pct", trace=tr) <= tr.idle_pct()
+
+
+@pytest.mark.parametrize("name", SPAN_READERS)
+@pytest.mark.parametrize("trace", [None, _trace(device=False),
+                                   _trace(program_spans=False)],
+                         ids=["no trace", "no device", "no program spans"])
+def test_span_readers_read_none_without_their_spans(name, trace):
+    assert _read(name, trace=trace) is None
+
+
+def _rows(n_phases, blocks=3):
+    cyc = torch.arange(1, blocks * n_phases + 1).reshape(blocks, n_phases)
+    cyc = 1000 * cyc
+    loop = cyc.sum(1) + 250
+    ns = loop // 2 + 10 * torch.arange(blocks)
+    return torch.cat([cyc, loop[:, None], ns[:, None]], 1)
+
+
+class _Runner:
+    """A sweep runner's stand-in: each call writes `rows` into the clock's
+    open context (a launch on the card), or with `rows` None nothing (the
+    plain version)."""
+
+    steps = 10
+    traffic = {"trace": {"warmup": 2}}
+
+    def __init__(self, clock, rows):
+        self.sweep = SimpleNamespace(phase_clock=clock) if clock else \
+            SimpleNamespace()
+        self.rows, self.calls = rows, 0
+
+    def unit_call(self, record=False):
+        if self.rows is not None:
+            self.sweep.phase_clock.rows(len(self.rows), "cpu").copy_(
+                self.rows)
+        self.calls += 1
+        return 0.0, None
+
+
+@pytest.mark.parametrize("phases", [episode.CLOCK_PHASES,
+                                    particle_episode.CLOCK_PHASES],
+                         ids=["K5", "K10"])
+def test_clock_readers_on_stub_rows(phases, capsys):
+    clock, rows = PhaseClock(phases), _rows(len(phases))
+    runner = _Runner(clock, rows)
+    want = clock.summary([rows, rows], runner.steps)
+    got = {name: _read(name, runner=runner, trace=_trace())
+           for name in CLOCK_READERS}
+    # the traffic's trace.warmup clocked calls, once for the three readers
+    assert runner.calls == 2
+    for name, group in CLOCK_READERS.items():
+        assert got[name] == pytest.approx(sum(
+            want["phases"][p]["us_per_step"] for p in GROUPS[group]))
+    # the stderr line: the three and the remainder make the loop
+    line = capsys.readouterr().err.strip().splitlines()[-1]
+    loop = float(line.split("loop ")[1].split(";")[0])
+    rest = float(line.split("remainder ")[1].split(" ")[0])
+    assert loop == pytest.approx(want["loop_us_per_step"], abs=1e-3)
+    assert sum(got.values()) + rest == pytest.approx(loop, abs=2e-3)
+    assert "unclocked kernel 530000.000" in line
+
+
+@pytest.mark.parametrize("clock", [None, PhaseClock(("a", "b"))],
+                         ids=["program without a clock", "no rows"])
+def test_clock_readers_read_none_without_rows(clock):
+    runner = _Runner(clock, None)
+    for name in CLOCK_READERS:
+        assert _read(name, runner=runner, trace=None) is None
+    assert runner.calls == (2 if clock else 0)
