@@ -329,6 +329,41 @@ def episode_plain(inputs, st):
         **inputs, **{k: v for k, v in st.items() if k not in skip})
 
 
+# the inputs that stay the same over a sweep's calls, in the order of the
+# kernel's pointers
+_STATIC_INPUTS = ("scal", "ep_f", "theta0", "locs0", "amat0", "a_seq",
+                  "mpfx0")
+
+
+def kernel_statics(inputs, st):
+    """The kernel's operands that do not change with the seeds or the host
+    noise, from canonical inputs: each static input contiguous and `args`,
+    the scalars of `dust_pendulum_episodes` from B to `mpf_bw_scale`. A
+    sweep makes them once per argument set (`ops/sweep_episode.py`)."""
+    out = {k: None if inputs[k] is None else inputs[k].contiguous()
+           for k in _STATIC_INPUTS}
+    dt = st["dt"]
+    out["args"] = (
+        inputs["theta0"].shape[0], st["steps"], st["warm_up"], st["hz"],
+        st["m"], st["n_params"], st["n_act"], st["m_mpf"], st["mpf_steps"],
+        # constants folded in double precision, as the plain version folds
+        dt, _MAX_SPEED * dt, -3.0 * st["g_model"] * 0.5 * dt, 3.0 * dt,
+        3.0 * st["g_model"] * 0.5, -3.0 * st["g_sim"] * 0.5,
+        math.log(float(st["n_act"])),
+        int(st["exp_util"]), int(st["mpf_log_space"]),
+        int(st["mpf_fixed_bw"] is not None),
+        0.0 if st["mpf_fixed_bw"] is None else st["mpf_fixed_bw"],
+        st["mpf_bw_scale"],
+    )
+    return out
+
+
+def episode_ids(seeds, scenario):
+    """The kernel's per-episode integers [B, 3] int32: the two seed words
+    and the scenario index."""
+    return torch.cat([seeds, scenario[:, None]], dim=1).to(torch.int32)
+
+
 def run_episodes(wrapper, inputs, st):
     """Run B episodes from canonical inputs: the plain version on CPU
     tensors, the kernel (C entry `dust_pendulum_episodes`, shared by K4
@@ -336,7 +371,10 @@ def run_episodes(wrapper, inputs, st):
     inputs:
     scal, ep_f [B, 2], seeds [B, 2], scenario [B], theta0/locs0/amat0
     [B, m, hz], a_seq [hz] or None, mpfx0 [B, m_mpf, 2], eps/pdz/pdu
-    (host-noise mode) or None. Returns the plain version's 5 outputs."""
+    (host-noise mode) or None. On CUDA tensors `inputs` may instead hold
+    the kernel's form, as a sweep keeps it: `kernel_statics`' entries and
+    `ep_i` (`episode_ids`) in place of seeds and scenario. Returns the
+    plain version's 5 outputs."""
     dev = inputs["theta0"].device
     if dev.type == "cpu":
         return episode_plain(inputs, st)
@@ -344,13 +382,14 @@ def run_episodes(wrapper, inputs, st):
         raise ValueError(f"unsupported device {dev}")
     from ._build import check, load_library
 
+    if "ep_i" not in inputs:
+        inputs = dict(inputs, **kernel_statics(inputs, st),
+                      ep_i=episode_ids(inputs["seeds"], inputs["scenario"]))
     B = inputs["theta0"].shape[0]
     hz, m, m_mpf = st["hz"], st["m"], st["m_mpf"]
-    host_noise = inputs["eps"] is not None
-    c = lambda t: None if t is None else t.contiguous()
-    ep_i = torch.cat([inputs["seeds"], inputs["scenario"][:, None]],
-                     dim=1).to(torch.int32)
-    eps = c(inputs["eps"])
+    eps, pdz, pdu = (None if inputs[k] is None else inputs[k].contiguous()
+                     for k in ("eps", "pdz", "pdu"))
+    host_noise = eps is not None
     if not host_noise:
         # per-step draws are written here by the kernel and read back
         eps = torch.empty((B, hz, m, st["n_act"]), dtype=torch.float32,
@@ -363,22 +402,13 @@ def run_episodes(wrapper, inputs, st):
     clock = phase_clock.rows(B, dev)
     # every tensor stays referenced here until the launch is queued: a
     # temporary's memory could be handed to the next allocation
-    tensors = [c(inputs["scal"]), c(inputs["ep_f"]), ep_i,
-               c(inputs["theta0"]), c(inputs["locs0"]), c(inputs["amat0"]),
-               c(inputs["a_seq"]), c(inputs["mpfx0"]), eps, c(inputs["pdz"]),
-               c(inputs["pdu"]), log, theta, locs, amat, mpf_x, clock]
+    tensors = [inputs["scal"], inputs["ep_f"], inputs["ep_i"],
+               inputs["theta0"], inputs["locs0"], inputs["amat0"],
+               inputs["a_seq"], inputs["mpfx0"], eps, pdz, pdu, log, theta,
+               locs, amat, mpf_x, clock]
     rc = load_library().dust_pendulum_episodes(
         *(None if t is None else t.data_ptr() for t in tensors),
-        B, st["steps"], st["warm_up"], hz, m, st["n_params"], st["n_act"],
-        m_mpf, st["mpf_steps"],
-        # constants folded in double precision, as the plain version folds
-        st["dt"], _MAX_SPEED * st["dt"], -3.0 * st["g_model"] * 0.5 * st["dt"],
-        3.0 * st["dt"], 3.0 * st["g_model"] * 0.5, -3.0 * st["g_sim"] * 0.5,
-        math.log(float(st["n_act"])),
-        int(st["exp_util"]), int(st["mpf_log_space"]),
-        int(st["mpf_fixed_bw"] is not None),
-        0.0 if st["mpf_fixed_bw"] is None else st["mpf_fixed_bw"],
-        st["mpf_bw_scale"], int(host_noise),
+        *inputs["args"], int(host_noise),
         torch.cuda.current_stream(dev).cuda_stream,
     )
     wrapper.launches += 1

@@ -44,7 +44,7 @@ import math
 import torch
 
 from .episode import _normals_at, bits_to_uniform, counter_bits, rng_key
-from .episode import silverman_rows
+from .episode import episode_ids, silverman_rows
 from .phase_clock import PhaseClock
 
 LOG_FIELDS = ("px", "py", "vx", "vy", "a_x", "a_y", "cost", "done",
@@ -251,33 +251,65 @@ def episode_plain(inputs, sp):
                      if k not in ("m", "hz", "m_mpf")})
 
 
+# the inputs that stay the same over a sweep's calls, in the order of the
+# kernel's pointers after the model
+_STATIC_INPUTS = ("scal", "base_mass", "log_mix0", "theta0", "locs0",
+                  "amat0", "a_seq", "mpfx0")
+
+
+def kernel_statics(inputs, sp):
+    """The kernel's operands that do not change with the seeds or the host
+    noise, from canonical inputs: the model array, each static input
+    contiguous and `args`, the scalars of `dust_particle_episodes` from B
+    to `mpf_bw_scale`. A sweep makes them once per argument set
+    (`ops/particle_sweep_episode.py`)."""
+    from .particle_rollout import model_tensor
+
+    st = sp["st"]
+    dev = inputs["theta0"].device
+    out = {k: None if inputs[k] is None else inputs[k].contiguous()
+           for k in _STATIC_INPUTS}
+    out["model"] = model_tensor(st, st["dt"], st["max_acc"],
+                                st["max_speed"], dev)
+    out["args"] = (
+        inputs["theta0"].shape[0], sp["steps"], sp["warm_up"], sp["hz"],
+        sp["m"], sp["n_params"], sp["n_act"], sp["m_mpf"], sp["mpf_steps"],
+        sp["change_at"],
+        float(sp["success_dist"]) * float(sp["success_dist"]),
+        math.log(float(sp["n_act"])), int(sp["exp_util"]),
+        int(sp["weighted_prior"]), int(sp["mpf_log_space"]),
+        int(sp["use_fixed_mpf_bw"]), float(sp["mpf_bw_scale"]),
+    )
+    return out
+
+
 def run_particle_episodes(wrapper, inputs, sp, log_mix=False):
     """Run B episodes from canonical inputs: the plain version on CPU
     tensors, the kernel (C entry `dust_particle_episodes`) on CUDA tensors
     (one launch, counted in `wrapper.launches`). inputs: scal, base_mass
     [B], seeds [B, 2], scenario [B], log_mix0 [m], theta0/locs0/amat0
     [B, m, hz * 2], a_seq [hz * 2], mpfx0 [B, m_mpf], eps/pdz/pdu
-    (host-noise mode) or None. sp: the statics of `particle_episode_plain`
-    plus m, hz, m_mpf. Returns the plain version's 6 outputs; the kernel
-    writes the last (the final prior log-weights) only when `log_mix`,
-    else it is None."""
+    (host-noise mode) or None. On CUDA tensors `inputs` may instead hold
+    the kernel's form, as a sweep keeps it: `kernel_statics`' entries and
+    `ep_i` (`ops.episode.episode_ids`) in place of seeds and scenario.
+    sp: the statics of `particle_episode_plain` plus m, hz, m_mpf. Returns
+    the plain version's 6 outputs; the kernel writes the last (the final
+    prior log-weights) only when `log_mix`, else it is None."""
     dev = inputs["theta0"].device
     if dev.type == "cpu":
         return episode_plain(inputs, sp)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from ._build import check, load_library
-    from .particle_rollout import model_tensor
 
-    st = sp["st"]
+    if "ep_i" not in inputs:
+        inputs = dict(inputs, **kernel_statics(inputs, sp),
+                      ep_i=episode_ids(inputs["seeds"], inputs["scenario"]))
     B = inputs["theta0"].shape[0]
     hz, m, m_mpf, n_act = sp["hz"], sp["m"], sp["m_mpf"], sp["n_act"]
-    host_noise = inputs["eps"] is not None
-    c = lambda t: None if t is None else t.contiguous()
-    model = model_tensor(st, st["dt"], st["max_acc"], st["max_speed"], dev)
-    ep_i = torch.cat([inputs["seeds"], inputs["scenario"][:, None]],
-                     dim=1).to(torch.int32)
-    eps = c(inputs["eps"])
+    eps, pdz, pdu = (None if inputs[k] is None else inputs[k].contiguous()
+                     for k in ("eps", "pdz", "pdu"))
+    host_noise = eps is not None
     if not host_noise:
         # per-step draws are written here by the kernel and read back
         eps = torch.empty((B, 2 * hz * m * n_act), dtype=torch.float32,
@@ -292,20 +324,15 @@ def run_particle_episodes(wrapper, inputs, sp, log_mix=False):
     clock = phase_clock.rows(B, dev)
     # every tensor stays referenced here until the launch is queued: a
     # temporary's memory could be handed to the next allocation
-    tensors = [model, c(inputs["scal"]), c(inputs["base_mass"]), ep_i,
-               c(inputs["log_mix0"]), c(inputs["theta0"]),
-               c(inputs["locs0"]), c(inputs["amat0"]), c(inputs["a_seq"]),
-               c(inputs["mpfx0"]), eps, c(inputs["pdz"]), c(inputs["pdu"]),
-               log, theta, locs, amat, mpf_x, logmix, clock]
+    tensors = [inputs["model"], inputs["scal"], inputs["base_mass"],
+               inputs["ep_i"], inputs["log_mix0"], inputs["theta0"],
+               inputs["locs0"], inputs["amat0"], inputs["a_seq"],
+               inputs["mpfx0"], eps, pdz, pdu, log, theta, locs, amat, mpf_x,
+               logmix, clock]
     rc = load_library().dust_particle_episodes(
         *(None if t is None else t.data_ptr() for t in tensors),
-        B, sp["steps"], sp["warm_up"], hz, m, sp["n_params"], n_act, m_mpf,
-        sp["mpf_steps"], sp["change_at"],
-        float(sp["success_dist"]) * float(sp["success_dist"]),
-        math.log(float(n_act)), int(sp["exp_util"]),
-        int(sp["weighted_prior"]), int(sp["mpf_log_space"]),
-        int(sp["use_fixed_mpf_bw"]), float(sp["mpf_bw_scale"]),
-        int(host_noise), torch.cuda.current_stream(dev).cuda_stream,
+        *inputs["args"], int(host_noise),
+        torch.cuda.current_stream(dev).cuda_stream,
     )
     wrapper.launches += 1
     check(rc, "dust_particle_episodes")

@@ -32,9 +32,11 @@ from .particle_episode import (
     episode_plain,
     episode_scal,
     episode_statics,
+    kernel_statics,
     run_particle_episodes,
 )
-from .sweep_episode import _round8, chain_seeds
+from .sweep_episode import SeedRows, _round8
+from .sweep_inputs import InputCache, Prepared, head
 
 
 def check_particle_sweep_dims(n_sc, hz, m, n_params, n_act, m_mpf,
@@ -75,53 +77,92 @@ def _host_noise(host_eps, host_pdz, host_pdu, G, C, n_sc, steps, hz, m,
     return eps, draws(host_pdz), draws(host_pdu)
 
 
-def _sweep_groups(
-        runner, seeds, state0, theta0, locs0, log_mix0, a_mat0, mpfx0,
+def _prepare(
+        runner, seeds_shape, state0, theta0, locs0, log_mix0, a_mat0, mpfx0,
         prior_bw0, true_masses, load, ctrl_sigma, lr, alpha, temp,
         prior_sigma, mpf_lr, mpf_sigma, mpf_fixed_bw_val, *, n_sc,
-        host_eps=None, host_pdz=None, host_pdu=None, probe_skip=(),
-        n_chains=1, **statics):
+        probe_skip=(), n_chains=1, **statics):
+    """The `Prepared` inputs of one argument set of `_sweep_groups`: on
+    CUDA tensors the kernel's form (`kernel_statics`), else the plain
+    version's."""
+    check_particle_sweep_dims(n_sc, statics["hz"], statics["m"],
+                              statics["n_params"], statics["n_act"],
+                              statics["m_mpf"], probe_skip)
+    sp = episode_statics(**statics)
+    steps, hz, m, m_mpf = sp["steps"], sp["hz"], sp["m"], sp["m_mpf"]
+    n_params, n_act = sp["n_params"], sp["n_act"]
+    dev = torch.as_tensor(theta0).device
+    f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
+    G, C = seeds_shape[0], n_chains
+    B = G * C * n_sc
+    ev = 2 * hz
+    mass = f32(true_masses).expand(G, n_sc)
+    mpfx0 = f32(mpfx0).reshape(-1, m_mpf).expand(n_sc, m_mpf)
+    per_ep = lambda v: f32(v).reshape(1, m, ev).expand(B, m, ev)
+    inputs = dict(
+        scal=episode_scal(state0, ctrl_sigma, lr, alpha, temp,
+                          prior_sigma, load, mpf_lr, mpf_sigma,
+                          prior_bw0, mpf_fixed_bw_val, dev),
+        base_mass=mass[:, None].expand(G, C, n_sc).reshape(B),
+        log_mix0=f32(log_mix0).reshape(m),
+        theta0=per_ep(theta0), locs0=per_ep(locs0),
+        amat0=per_ep(a_mat0), a_seq=torch.zeros((ev,), device=dev),
+        mpfx0=mpfx0[None].expand(G * C, n_sc, m_mpf).reshape(B, m_mpf),
+    )
+    packed = runner is _launch_k10 and dev.type == "cuda"
+    if packed:
+        inputs = kernel_statics(inputs, sp)
+    inputs.update(eps=None, pdz=None, pdu=None)
+    k = seeds_shape[1] if len(seeds_shape) == 3 else 1
+    return Prepared(
+        inputs=inputs, statics=sp,
+        rows=SeedRows(G, k, C, n_sc, dev, packed),
+        noise=lambda eps, pdz, pdu: _host_noise(
+            eps, pdz, pdu, G, C, n_sc, steps, hz, m, n_params, n_act, dev),
+        dims=dict(lead=(G, C) if n_chains > 1 else (G,), n_sc=n_sc,
+                  steps=steps, m=m, hz=hz, m_mpf=m_mpf))
+
+
+def _sweep_groups(runner, seeds, state0, theta0, *args, host_eps=None,
+                  host_pdz=None, host_pdu=None, **kwargs):
     """`fused_particle_sweep_groups`, with the runner of the canonical
-    inputs (the kernel or the plain version) first; the
-    `sweep.inputs`, `sweep.launch` and `sweep.outputs` spans."""
+    inputs (the kernel or the plain version) first; the `sweep.inputs`,
+    `sweep.launch` and `sweep.outputs` spans.
+
+    A call reuses the inputs that an earlier call built from the same
+    arguments (`ops/sweep_inputs.py`): every tensor the same object, or a
+    view of the same base made alike (`v[None]`, `v[rows]`), at the same
+    `_version`; every other argument but the seeds and the host noise
+    equal in value (the model's statics too); the same runner, device, current stream, seeds'
+    shape (G and the given chains) and noise mode. It then builds only its
+    seed rows (`SeedRows`, no host-to-device copy) and, in host-noise
+    mode, its noise. A new tensor object, an in-place write to one,
+    another value (an `exp` number, n_chains, n_sc, ...) or another G
+    builds afresh, as does an argument that makes no key (a NumPy array,
+    a list). A write that torch does not count (NumPy into a
+    `torch.from_numpy` tensor's memory, DLPack, `data_ptr`, `.data`) is
+    not seen: pass such a tensor as a new object. Counted in
+    `fused_particle_sweep_episode.input_hits` / `.input_builds`."""
     with span("sweep.inputs"):
-        check_particle_sweep_dims(n_sc, statics["hz"], statics["m"],
-                                  statics["n_params"], statics["n_act"],
-                                  statics["m_mpf"], probe_skip)
-        sp = episode_statics(**statics)
-        steps, hz, m, m_mpf = sp["steps"], sp["hz"], sp["m"], sp["m_mpf"]
         dev = torch.as_tensor(theta0).device
-        f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
-        seeds = chain_seeds(torch.as_tensor(seeds, device=dev), n_chains)
-        G, C = seeds.shape[0], n_chains
-        B = G * C * n_sc
-        ev = 2 * hz
-        mass = f32(true_masses).expand(G, n_sc)
-        mpfx0 = f32(mpfx0).reshape(-1, m_mpf).expand(n_sc, m_mpf)
-        per_ep = lambda v: f32(v).reshape(1, m, ev).expand(B, m, ev)
-        inputs = dict(
-            scal=episode_scal(state0, ctrl_sigma, lr, alpha, temp,
-                              prior_sigma, load, mpf_lr, mpf_sigma,
-                              prior_bw0, mpf_fixed_bw_val, dev),
-            base_mass=mass[:, None].expand(G, C, n_sc).reshape(B),
-            seeds=seeds[:, :, None].expand(G, C, n_sc, 2).reshape(B, 2),
-            scenario=torch.arange(n_sc, device=dev).repeat(G * C),
-            log_mix0=f32(log_mix0).reshape(m),
-            theta0=per_ep(theta0), locs0=per_ep(locs0),
-            amat0=per_ep(a_mat0), a_seq=torch.zeros((ev,), device=dev),
-            mpfx0=mpfx0[None].expand(G * C, n_sc, m_mpf).reshape(
-                B, m_mpf),
-            eps=None, pdz=None, pdu=None,
-        )
+        seeds = torch.as_tensor(seeds, dtype=torch.int64, device=dev)
+        prep, hit = _INPUTS.get(
+            head(runner, dev, seeds, host_eps is not None),
+            (state0, theta0, *args), kwargs,
+            lambda: _prepare(runner, seeds.shape, state0, theta0, *args,
+                             **kwargs))
+        fused_particle_sweep_episode.input_hits += hit
+        fused_particle_sweep_episode.input_builds += not hit
+        inputs = dict(prep.inputs, **prep.rows(seeds))
         if host_eps is not None:
-            inputs["eps"], inputs["pdz"], inputs["pdu"] = _host_noise(
-                host_eps, host_pdz, host_pdu, G, C, n_sc, steps, hz, m,
-                sp["n_params"], sp["n_act"], dev)
+            inputs["eps"], inputs["pdz"], inputs["pdu"] = prep.noise(
+                host_eps, host_pdz, host_pdu)
     with span("sweep.launch"):
-        log, theta, locs, amat, mpf_x, logmix = runner(inputs, sp)
+        log, theta, locs, amat, mpf_x, logmix = runner(inputs, prep.statics)
     with span("sweep.outputs"):
-        lead = (G, C) if n_chains > 1 else (G,)
-        log = log.reshape(*lead, n_sc, steps, len(LOG_FIELDS))
+        d = prep.dims
+        lead, n_sc, m, hz = d["lead"], d["n_sc"], d["m"], d["hz"]
+        log = log.reshape(*lead, n_sc, d["steps"], len(LOG_FIELDS))
         out = {k: log[..., i].transpose(-1, -2)
                for i, k in enumerate(LOG_FIELDS)}
         out.update(
@@ -129,7 +170,7 @@ def _sweep_groups(
             locs=locs.reshape(*lead, n_sc, m, hz, 2),
             a_mat=amat.reshape(*lead, n_sc, m, hz, 2),
             log_mix=logmix.reshape(*lead, n_sc, m),
-            mpf_x=mpf_x.reshape(*lead, n_sc, m_mpf, 1),
+            mpf_x=mpf_x.reshape(*lead, n_sc, d["m_mpf"], 1),
         )
     return out
 
@@ -147,7 +188,16 @@ def fused_particle_sweep_groups(*args, **kwargs):
     [G, n_sc] (or [n_sc], shared); host noise, when given, with a leading G
     axis (then the chain axis when n_chains > 1) before the layout of
     `fused_particle_sweep_episode`. Returns that function's dict with a
-    leading G axis. Counted in `fused_particle_sweep_episode.launches`."""
+    leading G axis. Counted in `fused_particle_sweep_episode.launches`.
+
+    A repeat call with the same argument objects (an adapter's, with the
+    same true-mass tensor, or views made alike of them) and new seeds
+    reuses the kernel's inputs built by the first and builds only the seed
+    rows; a new or in-place written tensor, another value or another G,
+    n_chains or n_sc builds afresh (`_sweep_groups`). A tensor written
+    outside torch (NumPy into a `torch.from_numpy` tensor's memory,
+    DLPack, `data_ptr`, `.data`) leaves its version as it was: pass it as
+    a new object after such a write."""
     return _sweep_groups(_launch_k10, *args, **kwargs)
 
 
@@ -203,3 +253,7 @@ def fused_particle_sweep_episode(
 
 
 fused_particle_sweep_episode.launches = 0
+fused_particle_sweep_episode.input_hits = 0
+fused_particle_sweep_episode.input_builds = 0
+# the prepared inputs of `_sweep_groups` (both runners)
+_INPUTS = InputCache()

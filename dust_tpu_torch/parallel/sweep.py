@@ -171,7 +171,14 @@ class MegakernelGroupSweep:
     def run(self, seeds, *mapped, **kw):
         """One call, in a `sweep.run` span; inside it the adapter's
         `sweep.inputs`, `sweep.launch` and `sweep.outputs` spans and, with
-        a mesh, `sweep.gather`."""
+        a mesh, `sweep.gather`.
+
+        A repeat call with the same mapped tensors (or their rank's rows)
+        and new seeds reuses the kernel inputs the adapter's wrapper built
+        for the first (`ops/sweep_inputs.py`); an in-place write to one
+        builds afresh. A tensor written outside torch (NumPy into a
+        `torch.from_numpy` tensor's memory, DLPack, `data_ptr`, `.data`)
+        keeps its version: pass it as a new object after such a write."""
         with span("sweep.run"):
             if self.mesh is None:
                 return self.local(seeds, *mapped, **kw)

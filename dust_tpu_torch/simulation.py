@@ -278,7 +278,11 @@ def megakernel_pendulum_sweep_fn(stack, exp_params, steps, n_sc,
     per-scenario logs; `sweep.groups(seeds [G, 2], true_lengths,
     true_masses, ...)` runs G groups in one launch (the
     `parallel.MegakernelGroupSweep` path); `sweep.phase_clock` is the
-    kernel's clock (`ops.episode.phase_clock`).
+    kernel's clock (`ops.episode.phase_clock`); `sweep.wrapper` is
+    `ops.sweep_episode.fused_pendulum_sweep_episode`, whose `launches`,
+    `input_hits` and `input_builds` count the calls. The calls pass the
+    same stack tensors and numbers each time, so a repeat call with the
+    same true-parameter tensors reuses the kernel's inputs.
 
     Rejected, as the kernel does not model them: a nonzero controller
     a_seq (the kernel drops the a_seq term), `weighted_prior`, and
@@ -290,7 +294,10 @@ def megakernel_pendulum_sweep_fn(stack, exp_params, steps, n_sc,
     zero MPF steps make every dynamics draw exactly the default
     parameters and freeze the posterior."""
     from .ops.episode import phase_clock as episode_clock
-    from .ops.sweep_episode import fused_pendulum_sweep_groups
+    from .ops.sweep_episode import (
+        fused_pendulum_sweep_episode,
+        fused_pendulum_sweep_groups,
+    )
 
     exp = exp_params
     dstate = stack.controller.init_state(stack.init_policies)
@@ -356,6 +363,7 @@ def megakernel_pendulum_sweep_fn(stack, exp_params, steps, n_sc,
 
     sweep.groups = groups
     sweep.phase_clock = episode_clock
+    sweep.wrapper = fused_pendulum_sweep_episode
     return sweep
 
 
@@ -544,14 +552,21 @@ def megakernel_particle_sweep_fn(stack, exp_params, steps, n_sc, warm_up=0,
     host_pdu=None) -> per-scenario logs; `sweep.groups(seeds [G, 2],
     true_masses, ...)` runs G groups in one launch (the
     `parallel.MegakernelGroupSweep` path); `sweep.phase_clock` is the
-    kernel's clock (`ops.particle_episode.phase_clock`).
+    kernel's clock (`ops.particle_episode.phase_clock`); `sweep.wrapper`
+    is `ops.particle_sweep_episode.fused_particle_sweep_episode`, whose
+    `launches`, `input_hits` and `input_builds` count the calls. The calls
+    pass the same stack tensors and numbers each time, so a repeat call
+    with the same true-mass tensor reuses the kernel's inputs.
 
     Rejected, as the kernel does not model them: a nonzero controller
     a_seq, and an MPF bandwidth that is not fixed (the demo config sets
     `mpf_bandwidth` 0.5)."""
     from .ops.particle_episode import phase_clock as episode_clock
     from .ops.particle_rollout import particle_kernel_statics
-    from .ops.particle_sweep_episode import fused_particle_sweep_groups
+    from .ops.particle_sweep_episode import (
+        fused_particle_sweep_episode,
+        fused_particle_sweep_groups,
+    )
 
     exp = exp_params
     if stack.mpf_bw is None:
@@ -599,4 +614,5 @@ def megakernel_particle_sweep_fn(stack, exp_params, steps, n_sc, warm_up=0,
 
     sweep.groups = groups
     sweep.phase_clock = episode_clock
+    sweep.wrapper = fused_particle_sweep_episode
     return sweep

@@ -1,9 +1,11 @@
-"""The benchmark's readers of the program's spans and phase clock
-(`perfbench/metrics/{sweep_prep_ms,idle_in_program_pct,step_rollout_us,
-step_svmpc_us,step_mpf_us}.py`, `perfbench/phases.py`): each reads None
-without a device trace, the program's spans or clock rows (a program
-without them, the CPU), and the right value from a stub `Trace` and a
-stub runner whose clocked calls write known rows."""
+"""The benchmark's readers of the program's spans, phase clock and
+counters (`perfbench/metrics/{sweep_prep_ms,idle_in_program_pct,
+step_rollout_us,step_svmpc_us,step_mpf_us,sweep_inputs_hit_pct}.py`,
+`perfbench/phases.py`): each reads None without a device trace, the
+program's spans, clock rows or counters (a program without them, the
+CPU), and the right value from a stub `Trace`, a stub runner whose
+clocked calls write known rows and a stub runner whose sweep adapter
+names a wrapper with known counters."""
 
 from types import SimpleNamespace
 
@@ -128,3 +130,67 @@ def test_clock_readers_read_none_without_rows(clock):
     for name in CLOCK_READERS:
         assert _read(name, runner=runner, trace=None) is None
     assert runner.calls == (2 if clock else 0)
+
+
+def _counting_runner(**counters):
+    wrapper = SimpleNamespace(**counters)
+    return SimpleNamespace(sweep=SimpleNamespace(
+        sweep_fn=SimpleNamespace(wrapper=wrapper)))
+
+
+@pytest.mark.parametrize("hits,builds,want", [(499, 1, 99.8), (2, 2, 50.0),
+                                              (0, 3, 0.0)])
+def test_inputs_hit_reader_on_a_stub_runner(hits, builds, want):
+    runner = _counting_runner(input_hits=hits, input_builds=builds)
+    got = _read("sweep_inputs_hit_pct", runner=runner, trace=None)
+    assert got == pytest.approx(want)
+
+
+@pytest.mark.parametrize("runner", [
+    SimpleNamespace(),
+    SimpleNamespace(sweep=SimpleNamespace(sweep_fn=SimpleNamespace())),
+    _counting_runner(launches=3),
+    _counting_runner(input_hits=0, input_builds=0),
+], ids=["no sweep", "adapter without a wrapper", "wrapper without the "
+        "counters", "no call"])
+def test_inputs_hit_reader_reads_none_without_counters(runner):
+    assert _read("sweep_inputs_hit_pct", runner=runner, trace=None) is None
+
+
+def test_inputs_hit_reader_on_the_programs_adapter():
+    """Through `MegakernelGroupSweep` over the pendulum's adapter on the
+    CPU: the wrapper it names counts a build, then a hit."""
+    import copy
+
+    from dust_tpu_torch.experiments import (
+        PENDULUM_DEMO_CONFIG,
+        build_pendulum_stack,
+    )
+    from dust_tpu_torch.ops import sweep_episode
+    from dust_tpu_torch.parallel import MegakernelGroupSweep
+    from dust_tpu_torch.simulation import megakernel_pendulum_sweep_fn
+
+    cfg = copy.deepcopy(PENDULUM_DEMO_CONFIG)
+    cfg["exp_params"].update(horizon=4, n_particles=2, action_samples=8,
+                             params_samples=2, mpf_n_particles=8,
+                             mpf_steps=2)
+    stack = build_pendulum_stack(cfg, torch.Generator().manual_seed(1),
+                                 device="cpu")
+    adapter = megakernel_pendulum_sweep_fn(stack, cfg["exp_params"],
+                                           steps=2, n_sc=2)
+    wrapper = sweep_episode.fused_pendulum_sweep_episode
+    assert adapter.wrapper is wrapper
+    runner = SimpleNamespace(sweep=MegakernelGroupSweep(adapter))
+    lens, mass = torch.tensor([0.9, 1.1]), torch.tensor([1.0, 1.05])
+    h0, b0 = wrapper.input_hits, wrapper.input_builds
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        for i in range(2):
+            runner.sweep.run(torch.tensor([[i, 7]]), lens, mass)
+    finally:
+        torch.set_num_threads(n)
+    assert (wrapper.input_hits, wrapper.input_builds) == (h0 + 1, b0 + 1)
+    got = _read("sweep_inputs_hit_pct", runner=runner, trace=None)
+    total = wrapper.input_hits + wrapper.input_builds
+    assert got == pytest.approx(100.0 * wrapper.input_hits / total)

@@ -160,14 +160,27 @@ def test_sweep_nan_isolation_via_mpf_particles():
     assert not torch.isfinite(b["mpf_x"][1]).all()
 
 
+def _chain_seeds(seeds, n_chains):
+    """The per-chain seeds [G, n_chains, 2] the sweep's seed rows give
+    (`SeedRows` with one scenario, so episode g * C + c is chain c)."""
+    k = seeds.shape[1] if seeds.ndim == 3 else 1
+    rows = tsw.SeedRows(seeds.shape[0], k, n_chains, 1, torch.device("cpu"),
+                        packed=False)(seeds)
+    return rows["seeds"].reshape(seeds.shape[0], n_chains, 2)
+
+
 def test_chain_seed_derivation():
     """Missing chain rows derive from row 0 as +4099*c; given rows stay."""
-    got = tsw.chain_seeds(torch.tensor([[5, 9]]), 3)
+    got = _chain_seeds(torch.tensor([[5, 9]]), 3)
     assert got.tolist() == [[[5, 9], [5, 9 + 4099], [5, 9 + 2 * 4099]]]
-    got = tsw.chain_seeds(torch.tensor([[[5, 9], [1, 2]]]), 3)
+    got = _chain_seeds(torch.tensor([[[5, 9], [1, 2]]]), 3)
     assert got.tolist() == [[[5, 9], [1, 2], [5, 9 + 2 * 4099]]]
-    assert tsw.chain_seeds(torch.tensor([[[5, 9], [1, 2]]]), 1).tolist() \
+    assert _chain_seeds(torch.tensor([[[5, 9], [1, 2]]]), 1).tolist() \
         == [[[5, 9]]]
+    # the benchmark's reference derives them alike
+    from perfbench.reference._common import chain_seeds
+    seeds = torch.tensor([[5, 9], [2 ** 31 + 7, 3]])
+    assert torch.equal(_chain_seeds(seeds, 4), chain_seeds(seeds, 4))
 
     # device-RNG mode: chain c of a two-chain sweep seeded [5, 9] is the
     # one-chain sweep seeded [5, 9 + 4099 c]
