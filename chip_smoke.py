@@ -225,7 +225,17 @@ Phases (any failure raises and exits non-zero):
  40. path 15: FusedMPF.optimize over d = 64 and 256 parameters (an
      isotropic Gaussian likelihood of the parameters, m = 2048, SGD, 20
      SVGD steps per conditioned update): 20 K11a and 20 K12a per update on
-     their general walk, the particles finite and moved, updates/s.
+     their general walk, the particles finite and moved, updates/s;
+ 41. K14 (the cart-pole sweep, `experiments.CARTPOLE_DEMO_CONFIG`):
+     against its plain version on the card after 1 and 3 steps at path
+     16's layout, at K14_TOLS; path 16: the benchmark cell's shape, 8
+     groups x 16 scenarios x 2 chains x 200 steps, in one K14 launch
+     through MegakernelGroupSweep, every value finite, the same seeds the
+     same bits; its device ms per call (one launch between CUDA events,
+     median of 3) beside the bound from perfbench/cartpole_counts.py and
+     the plain version's one call; one more call under its clocked build;
+     the share of episodes upright (|th| < 0.2 rad, th wrapped) at step
+     99, before the tip load, and at step 199 (reported, not required).
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. The line before the last is the kernels' JSON summary;
@@ -271,6 +281,18 @@ K3_TOL = dict(rtol=1e-4, atol=1e-4)
 K4_TOLS = dict(th=1e-5, om=1e-4, action=1e-4, cost=1e-3, bw_sv=1e-6,
                bw_mpf=1e-6, theta=1e-3, a_mat=5e-3, mpf_x=1e-5)
 K4_FIELDS = ("th", "om", "action", "cost", "bw_sv", "bw_mpf")
+# K14 against its plain version: the same arithmetic but the MPF loop's
+# ex2.approx, bit-equal after one step but the MPF; K4's tolerances by the
+# kind of value (positions and angles as th, speeds as om), but the
+# bandwidths: the MPF's rounding moves the draws, and through the rollouts
+# the plans and their Silverman bandwidth, 1e-5 after 3 steps (NVIDIA H100
+# 80GB HBM3, 700 W), and the MPF's bandwidth with its particles
+K14_TOLS = dict(x=1e-5, x_dot=1e-4, th=1e-5, th_dot=1e-4, action=1e-4,
+                cost=1e-3, bw_sv=1e-4, bw_mpf=1e-5, theta=1e-3, a_mat=5e-3,
+                mpf_x=1e-5)
+# a cart-pole episode is upright at a step where its wrapped angle is
+# within this many radians of 0 (a sanity reading, not a gate)
+UPRIGHT_RAD = 0.2
 SWEEP_GROUPS, SWEEP_SC, SWEEP_CHAINS = 8, 16, 2
 # swing-up reached: the lowest cost in steps 100-199 stays below
 # bench.py's sanity level (the cost is 0 upright at rest, 200 hanging)
@@ -620,6 +642,7 @@ def _kernel_harness(config, arrays, dev, fused, steps, fused_solve=False,
 def _wrappers():
     """name -> the wrapper whose `launches` counts its kernel's launches."""
     from dust_tpu_torch.ops import (
+        cartpole_sweep_episode,
         episode,
         gmm,
         mpf,
@@ -647,6 +670,8 @@ def _wrappers():
         "particle_episode": particle_episode.fused_particle_episode,
         "particle_sweep_episode":
             particle_sweep_episode.fused_particle_sweep_episode,
+        "cartpole_sweep_episode":
+            cartpole_sweep_episode.fused_cartpole_sweep_groups,
         "svgd_phi": svgd.svgd_phi_streamed,
         "svgd_phi_packed": svgd.svgd_phi_streamed_packed,
         "svgd_phi_symm": svgd.svgd_phi_streamed_symm,
@@ -5102,6 +5127,129 @@ def _demo_tuning():
     return out
 
 
+def _cartpole_sweep(dev, steps):
+    """Path 16: the cart-pole benchmark cell's sweep on the demo stack
+    (`CARTPOLE_DEMO_CONFIG`), 8 groups x 16 scenarios x 2 chains of
+    `steps`-step episodes through MegakernelGroupSweep; the seeds of call
+    i, the true (length, mass_pole) grids of the cell's traffic, and
+    plain(seeds): the sweep's plain version on the same inputs."""
+    import torch
+
+    from dust_tpu_torch.experiments import (
+        CARTPOLE_DEMO_CONFIG,
+        build_pendulum_stack,
+    )
+    from dust_tpu_torch.ops import cartpole_sweep_episode as cse
+    from dust_tpu_torch.parallel import MegakernelGroupSweep
+    from dust_tpu_torch.simulation import megakernel_cartpole_sweep_fn
+
+    cfg = copy.deepcopy(CARTPOLE_DEMO_CONFIG)
+    stack = build_pendulum_stack(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    make = lambda: megakernel_cartpole_sweep_fn(
+        stack, cfg["exp_params"], steps=steps, n_sc=SWEEP_SC,
+        n_chains=SWEEP_CHAINS)
+    sweep = make()
+    # the same adapter over the plain version: the adapter takes its
+    # wrapper from the module when it is made
+    launch = cse.fused_cartpole_sweep_groups
+    cse.fused_cartpole_sweep_groups = cse.plain_cartpole_sweep_groups
+    try:
+        plain_sweep = make()
+    finally:
+        cse.fused_cartpole_sweep_groups = launch
+    lens = torch.linspace(0.8, 1.2, SWEEP_SC, device=dev).expand(
+        SWEEP_GROUPS, SWEEP_SC)
+    mps = torch.linspace(0.08, 0.12, SWEEP_SC, device=dev).flip(0).expand(
+        SWEEP_GROUPS, SWEEP_SC)
+
+    def seeds(i):
+        return torch.stack([
+            torch.full((SWEEP_GROUPS,), i, dtype=torch.int64, device=dev),
+            torch.arange(SWEEP_GROUPS, device=dev) * 1000], dim=1)
+
+    def plain(seed_rows):
+        return plain_sweep.groups(seed_rows, lens, mps)
+
+    return MegakernelGroupSweep(sweep), seeds, lens, mps, plain
+
+
+def phase_k14(dev):
+    """K14 against its plain version, path 16, K14's time and clock and
+    the upright shares (see the module docstring, phase 41)."""
+    import torch
+
+    from dust_tpu_torch.experiments import CARTPOLE_DEMO_CONFIG
+    from dust_tpu_torch.ops import cartpole_episode
+    from perfbench.cartpole_counts import cartpole_work
+
+    worst = 0.0
+    for steps in (1, 3):
+        groups, seeds, lens, mps, plain = _cartpole_sweep(dev, steps)
+        got = groups.run(seeds(1), lens, mps)
+        want = plain(seeds(1))
+        torch.cuda.synchronize()
+        for k, tol in K14_TOLS.items():
+            worst = max(worst, _check_close(
+                f"K14 vs plain {SWEEP_GROUPS}x{SWEEP_SC}x{SWEEP_CHAINS} "
+                f"device RNG {steps} steps {k}", got[k], want[k], rtol=0.0,
+                atol=tol))
+
+    groups, seeds, lens, mps, plain = _cartpole_sweep(dev, MAIN_STEPS)
+    groups.run(seeds(0), lens, mps)  # warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = groups.run(seeds(1), lens, mps)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _counts()
+    _check_counts("path 16 (K14 sweep)", launches,
+                  {"cartpole_sweep_episode": 1})
+    for k, v in out.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"path 16: non-finite values in {k}")
+    again = groups.run(seeds(1), lens, mps)
+    differ = [k for k in out if not torch.equal(out[k], again[k])]
+    if differ:
+        raise AssertionError(f"path 16: the same seeds gave other bits in "
+                             f"{differ}")
+    th = torch.remainder(out["th"] + np.pi, 2 * np.pi) - np.pi
+    upright = (th.abs() < UPRIGHT_RAD).float()     # [G, C, steps, n_sc]
+    episodes = SWEEP_GROUPS * SWEEP_SC * SWEEP_CHAINS
+    ops, nbytes = cartpole_work(CARTPOLE_DEMO_CONFIG["exp_params"],
+                                MAIN_STEPS, episodes)
+    bound = _bound(nbytes, ops)
+    runs = {"plain": [], "kernel": []}
+    kern = lambda: groups.run(seeds(1), lens, mps)
+    for which in ("plain", "kernel", "kernel", "plain"):
+        if which == "kernel":
+            runs[which].append(statistics.median(_event_ms(kern, 3)))
+        elif not runs["plain"]:
+            runs[which].append(_event_ms(lambda: plain(seeds(1)), 1)[0])
+    clock = _phase_clock("K14 (path 16)", kern, cartpole_episode.phase_clock)
+    result = {
+        "episodes": episodes, "steps": MAIN_STEPS, "seconds": elapsed,
+        "solves_per_s": episodes * MAIN_STEPS / elapsed,
+        "launches": launches, "max_abs_err": worst,
+        "upright_share_step_99": float(upright[:, :, 99].mean()),
+        "upright_share_step_199": float(upright[:, :, -1].mean()),
+        "ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
+        "runs": runs, "bound_ms": bound[0], "bound_by": bound[1],
+        "bound_bytes": bound[2], "bound_ops": bound[3],
+        "timed_as": "one launch between CUDA events, median of 3",
+        "phase_clock": clock}
+    print(f"path 16 (K14 sweep): {episodes} episodes x {MAIN_STEPS} steps in "
+          f"one launch, {elapsed:.4f} s, {result['solves_per_s']:.1f} "
+          f"solves/s; K14 {result['ms']:.3f} ms a call (plain "
+          f"{result['plain_ms']:.1f} ms), bound {bound[0]:.4f} ms "
+          f"({bound[1]}), {100 * bound[0] / result['ms']:.2f}% of it; "
+          f"upright (|th| < {UPRIGHT_RAD}) at step 99 "
+          f"{result['upright_share_step_99']:.4f}, at step 199 "
+          f"{result['upright_share_step_199']:.4f}; launches {launches}")
+    return result
+
+
 def phase_demos(dev):
     """Phase 37: the five demos of `dust_tpu_torch.demo` in-process through
     `main` (default device, the card) or their config functions, each with
@@ -5221,6 +5369,8 @@ def main():
     path14 = phase_main_path(dev, PENDULUM_DEMO_CONFIG, adam=True)
     loop14_err = phase_kernel_vs_plain(dev, PENDULUM_DEMO_CONFIG, adam=True)
     path15 = phase_wide_mpf_path(dev)
+    path16 = phase_k14(dev)
+    times["cartpole_sweep_episode"] = path16
     for name, err in general["max_abs_err"].items():
         stream_errs[name] = max(stream_errs[name], err)
 
@@ -5271,7 +5421,10 @@ def main():
             ("mpf_stream_step", "dust_tpu_torch/csrc/mpf_stream.cu",
              "dust_tpu/ops/pallas_mpf_stream.py:155",
              stream_errs["mpf_stream_step"],
-             path11["m=8192 fuse_streams"])):
+             path11["m=8192 fuse_streams"]),
+            ("cartpole_sweep_episode",
+             "dust_tpu_torch/csrc/cartpole_episode.cu", "none (port only)",
+             path16["max_abs_err"], path16)):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -5300,7 +5453,7 @@ def main():
         "path13_scenario_sweep": path13, "cross_model": cross,
         "multi_device": multi, "tuning": tuning, "checkpoints": ckpt,
         "demos": demos, "stream_general": general, "path14_adam": path14,
-        "path15_wide_fused_mpf": path15,
+        "path15_wide_fused_mpf": path15, "path16_k14_sweep": path16,
         "path14_vs_plain_path_max_abs_err": loop14_err, "kernels": kernels,
     }
     out_dir = ROOT / "chiprun_out"

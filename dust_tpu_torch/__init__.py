@@ -9,9 +9,9 @@ module's counterpart is found under the same path:
                            cases, particle navigation, sweeps, tuning
     simulation.py          closed-loop pendulum and particle-navigation
                            episode harnesses (+ the whole-episode and
-                           sweep kernel adapters)
+                           sweep kernel adapters, the cart-pole's sweep)
     experiments.py         config -> stack builders (the pendulum's four
-                           cases, particle)
+                           cases, the cart-pole by `task`, particle)
     tuning.py              random search, successive halving, the
                            per-lane learning-rate sweep and the sweep-
                            kernel objectives
@@ -35,7 +35,8 @@ module's counterpart is found under the same path:
                            (plots.py) and HTML reports (plots_html.py)
       ops/                 distances, bandwidth rules, RBF kernels, the
                            rollout-cost, MPF-loop, whole-solve, episode and
-                           sweep kernels of both tasks, the streamed SVGD,
+                           sweep kernels of both tasks, the cart-pole's
+                           sweep kernel, the streamed SVGD,
                            GMM-score and fused MPF-step kernels
                            (csrc/*.cu)
       distributions.py     MVN / Normal / Uniform / GMM on tensors
@@ -81,6 +82,7 @@ from .inference import (
     LikelihoodState,
 )
 from .experiments import (
+    CARTPOLE_DEMO_CONFIG,
     PARTICLE_DEMO_CONFIG,
     PARTICLE_TUNED_CONFIG,
     PENDULUM_DEMO_CONFIG,
@@ -90,6 +92,7 @@ from .experiments import (
 )
 from .simulation import (
     PendulumSimulation,
+    megakernel_cartpole_sweep_fn,
     megakernel_particle_episode_fn,
     megakernel_particle_sweep_fn,
     megakernel_pendulum_episode_fn,
@@ -126,12 +129,14 @@ __all__ = [
     "FusedMPF", "FusedParticleMPF", "FusedParticleSVMPC",
     "FusedPendulumMPF", "FusedPendulumSVMPC", "FusedSVMPCState",
     "GaussianLikelihood", "LikelihoodState",
-    "PARTICLE_DEMO_CONFIG", "PARTICLE_TUNED_CONFIG", "PENDULUM_DEMO_CONFIG",
+    "CARTPOLE_DEMO_CONFIG", "PARTICLE_DEMO_CONFIG", "PARTICLE_TUNED_CONFIG",
+    "PENDULUM_DEMO_CONFIG",
     "PENDULUM_TUNED_CONFIG", "build_particle_stack",
     "build_pendulum_stack",
     "PendulumSimulation", "megakernel_pendulum_episode_fn",
     "megakernel_pendulum_sweep_fn", "megakernel_particle_episode_fn",
-    "megakernel_particle_sweep_fn", "particle_episode_fn",
+    "megakernel_particle_sweep_fn", "megakernel_cartpole_sweep_fn",
+    "particle_episode_fn",
     "run_particle_episode", "to_dataframe",
     "MegakernelGroupSweep", "ParticleScenarioSweep", "ScenarioSweep",
     "broadcast_scenarios",

@@ -94,7 +94,8 @@ pendulum_mpf_kernel(
     __syncthreads();
     clk.mark(kClkLoad);
     dust_mpf::stein_loop<kLanes>(sx0, sx1, sc0, sc1, st0, st1, sn0, sn1,
-                                 su0, su1, m, n_steps, k, clk);
+                                 su0, su1, m, n_steps, k,
+                                 dust_mpf::PendulumLik{k}, clk);
     for (int i = threadIdx.x; i < m; i += blockDim.x) {
       x_out[2 * i] = sx0[i];
       x_out[2 * i + 1] = sx1[i];

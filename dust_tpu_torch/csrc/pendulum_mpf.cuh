@@ -1,27 +1,32 @@
-// The MPF Stein loop for the pendulum dynamics posterior as block-level
-// device code, shared by the MPF kernel (K2, pendulum_mpf.cu) and the
-// whole-episode kernel (K4/K5, pendulum_episode.cu).
+// The MPF Stein loop over a two-parameter dynamics posterior as
+// block-level device code, shared by the pendulum's MPF kernel (K2,
+// pendulum_mpf.cu) and whole-episode kernel (K4/K5, pendulum_episode.cu)
+// and the cart-pole's episode kernel (K14, cartpole_episode.cu).
 //
-// n_steps SVGD iterations on m (length, mass) particles, a group of kLanes
+// n_steps SVGD iterations on m two-parameter particles, a group of kLanes
 // lanes per particle row (the block's groups take the rows in turn). Each
 // iteration, for every row i:
 //   * GMM prior score over the fixed centers with an isotropic bandwidth
 //     (max-subtracted softmax over the centers);
-//   * the hand-derived gradient of the Gaussian observation likelihood
-//     through one pendulum step, with the speed-clip gate and the
-//     log-space chain rule;
+//   * the gradient of the Gaussian observation likelihood, which
+//     `stein_loop` takes as its LikGrad parameter: the pendulum's is
+//     hand-derived through one pendulum step, with the speed-clip gate and
+//     the log-space chain rule (`lik_grad`, `PendulumLik`); the
+//     cart-pole's is cartpole.cuh's;
 //   * the RBF Stein direction in its folded drive form
 //     phi_i = (sum_j k_ij (s_j - x_j/bw^2) + (sum_j k_ij) x_i/bw^2) / m;
 //   * SGD: x_i += lr * phi_i.
 // The arithmetic follows the plain PyTorch version
-// (ops/mpf.py:pendulum_mpf_optimize_plain) operation by operation, the
+// (ops/mpf.py:stein_loop_plain, with the pendulum's gradient in
+// pendulum_mpf_optimize_plain) operation by operation, the
 // order of the sums over j too: lane l of a row's group walks the columns
 // j = l, l + kLanes, ... in order and the group's partial sums meet in a
 // fixed butterfly, for a quad (p0 + p1) + (p2 + p3)
 // (ops/particle_mpf.py:lane_sum). The pairs' exps are one ex2.approx each
 // with log2 e folded into the scale, within ~1e-6 relative of the plain
 // version's exp. Two loops: `stein_loop` walks particles and centers in
-// shared memory (K4/K5 with a quad, K2 above its register ceiling);
+// shared memory (K4/K5 and K14 with a quad, K2 above its register
+// ceiling);
 // `stein_loop_reg` (K2 up to kLanes * kCols particles) keeps each lane's
 // centers and its squared distances to them in registers. Both give the
 // same bits for one lane count. Every thread of the block must call them
@@ -55,7 +60,9 @@ struct NoClock {
 using dust_solve::ex2;
 using dust_solve::kLog2e;
 
-// The constants of an MPF loop. theta0/theta_d0: the prediction start;
+// The constants of an MPF loop: the Stein step's (inv_pbw2, inv_bw2, cp,
+// ck, lr, fm: all that a loop needs besides its likelihood gradient) and
+// the pendulum likelihood's. theta0/theta_d0: the prediction start;
 // loc0/loc1: the newest observation; half3g = 3 g 0.5.
 struct MpfConsts {
   float inv_pbw2, inv_bw2, cp, ck, inv_s2, acts, sin_t, lr, fm;
@@ -63,21 +70,29 @@ struct MpfConsts {
   int log_space;
 };
 
-__device__ __forceinline__ MpfConsts mpf_consts(
-    int m, float bw, float pbw, float lr, float sigma, float theta0,
-    float theta_d0, float action, float loc0, float loc1, float dt,
-    float half3g, int log_space) {
+// The Stein step's constants of a loop over m particles with bandwidth bw
+// and prior bandwidth pbw; the pendulum likelihood's fields stay unset.
+__device__ __forceinline__ MpfConsts stein_consts(int m, float bw, float pbw,
+                                                  float lr) {
   MpfConsts k;
   k.inv_pbw2 = 1.0f / (pbw * pbw);
   k.inv_bw2 = 1.0f / (bw * bw);
   // p_j = 2^(D_j cp - max), k_j = 2^(D_j ck), D the squared distance
   k.cp = -0.5f * k.inv_pbw2 * kLog2e;
   k.ck = -0.5f * k.inv_bw2 * kLog2e;
+  k.lr = lr;
+  k.fm = static_cast<float>(m);
+  return k;
+}
+
+__device__ __forceinline__ MpfConsts mpf_consts(
+    int m, float bw, float pbw, float lr, float sigma, float theta0,
+    float theta_d0, float action, float loc0, float loc1, float dt,
+    float half3g, int log_space) {
+  MpfConsts k = stein_consts(m, bw, pbw, lr);
   k.inv_s2 = 1.0f / (sigma * sigma);
   k.acts = fminf(fmaxf(action, -kMaxTorque), kMaxTorque);
   k.sin_t = sinf(theta0 + kPi);
-  k.lr = lr;
-  k.fm = static_cast<float>(m);
   k.theta0 = theta0;
   k.theta_d0 = theta_d0;
   k.loc0 = loc0;
@@ -122,6 +137,15 @@ __device__ __forceinline__ void lik_grad(float x0, float x1,
   }
 }
 
+// lik_grad as stein_loop takes a likelihood gradient.
+struct PendulumLik {
+  const MpfConsts& k;
+  __device__ __forceinline__ void operator()(float x0, float x1, float& gl0,
+                                             float& gl1) const {
+    lik_grad(x0, x1, k, gl0, gl1);
+  }
+};
+
 // sx0/sx1: particles (updated in place); sc0/sc1: prior centers;
 // st0/st1 and su0/su1: scratch for the drive terms (odd iterations take
 // su); sn0/sn1: scratch for the new particles (the iterations alternate
@@ -129,13 +153,17 @@ __device__ __forceinline__ void lik_grad(float x0, float x1,
 // iteration: a row's group reads only its own new row before the next
 // barrier, so a warp barrier orders it. Rows i = g, g + G, ... belong to
 // group g of the block's G = blockDim.x / kLanes groups (blockDim.x a
-// multiple of 32). clk marks kClkPrior and kClkDrive each iteration.
-template <int kLanes, class Clock>
+// multiple of 32). k: the Stein step's constants (stein_consts); lik(x0,
+// x1, gl0, gl1): the likelihood gradient of one particle (PendulumLik, or
+// cartpole.cuh's CartPoleLik), called once per row and iteration. clk
+// marks kClkPrior and kClkDrive each iteration.
+template <int kLanes, class LikGrad, class Clock>
 __device__ inline void stein_loop(float* sx0, float* sx1, const float* sc0,
                                   const float* sc1, float* st0, float* st1,
                                   float* sn0, float* sn1, float* su0,
                                   float* su1, int m, int n_steps,
-                                  const MpfConsts& k, Clock& clk) {
+                                  const MpfConsts& k, const LikGrad& lik,
+                                  Clock& clk) {
   using dust_solve::lane_group_sum;
   const int g = threadIdx.x / kLanes;
   const int l = threadIdx.x % kLanes;
@@ -153,7 +181,7 @@ __device__ inline void stein_loop(float* sx0, float* sx1, const float* sc0,
       const float x0 = x0s[i];
       const float x1 = x1s[i];
       float gl_l, gl_m;
-      lik_grad(x0, x1, k, gl_l, gl_m);
+      lik(x0, x1, gl_l, gl_m);
       // ---- GMM prior score over the fixed centers ----
       float psum = 0.0f, pc0 = 0.0f, pc1 = 0.0f;
       float mx = -INFINITY;

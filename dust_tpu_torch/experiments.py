@@ -7,7 +7,9 @@ and `PARTICLE_DEMO_CONFIG`, equal to `demo/pendulum_config.yaml` and
 `demo/particle_config.yaml`, and the tuned ones, `PENDULUM_TUNED_CONFIG`
 and `PARTICLE_TUNED_CONFIG`, equal to `demo/*_config_tuned.yaml`, so the
 stacks build where no YAML parser is installed; `load_config` reads a YAML
-file where PyYAML is.
+file where PyYAML is. `CARTPOLE_DEMO_CONFIG` is the cart-pole swing-up
+under DuSt (the port's own: upstream ships the model with no demo), which
+`assemble_stack` wires by its `task` key.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ from .inference import (
     MPF,
     SVMPC,
 )
-from .models import Particle, PendulumModel
+from .models import CartPoleModel, Particle, PendulumModel
 from .ops.particle_rollout import make_fused_particle_state_costs
 from .ops.rollout import make_fused_pendulum_state_costs
 from .utils.utf import MerweScaledUTF
@@ -86,6 +88,47 @@ PENDULUM_TUNED_CONFIG["exp_params"].update(
 
 CASES = ("dust", "svmpc", "mppi", "disco_utf")
 
+# The cart-pole swing-up under DuSt: `models.CartPoleModel`'s defaults
+# (upstream dust/models/cartpole.py, total mass m_c + m_p), the DuSt widths
+# of `demo/pendulum_config.yaml` key for key (its 30 steps at the same dt
+# are the same 1.5 s look-ahead), hanging at th = pi with the cart centred
+# (upright is th = 0), the swing-up cost of `cartpole_cost_fns`, a
+# Uniform prior over (length, mass_pole) and the pole's mass doubled at
+# half the episode (a tip load). The sigmas are 1: the action bound is 1
+# where the pendulum's torque bound is 2. The MPF runs in log space, as
+# the particle demo's: the cart-pole has no speed clamp, so a draw near
+# length 0 (which the linear-space posterior's shared bandwidth reaches)
+# drives its rollouts to NaN. `assemble_stack` reads `task`,
+# `model_params` and `dynamics_prior`.
+CARTPOLE_DEMO_CONFIG = {
+    "task": "cartpole",
+    "sim_params": copy.deepcopy(PENDULUM_DEMO_CONFIG["sim_params"]),
+    "model_params": {
+        "g": 9.8,
+        "f_mag": 10.0,
+        "mass_cart": 1.0,
+        "mass_pole": 0.1,
+        "length": 1.0,
+        "mu_c": 0.0005,
+        "mu_p": 2e-06,
+        "dt": 0.05,
+    },
+    "exp_params": {
+        **copy.deepcopy(PENDULUM_DEMO_CONFIG["exp_params"]),
+        "init_state": [0.0, 0.0, 3.141592653589793, 0.0],
+        "ctrl_dim": 1,
+        "ctrl_sigma": 1.0,
+        "prior_sigma": 1.0,
+        "mpf_log_space": True,
+        "load_step": 100,
+        "load_mass_pole_scale": 2.0,
+    },
+    "dynamics_prior": {"kind": "uniform", "low": [0.5, 0.05],
+                       "high": [1.5, 0.3]},
+}
+
+TASKS = ("pendulum", "cartpole")
+
 
 def load_config(path):
     """The config dict of a YAML file (needs PyYAML)."""
@@ -115,9 +158,36 @@ def pendulum_cost_fns():
     return inst_cost, term_cost
 
 
+def cartpole_cost_fns():
+    """The cart-pole swing-up cost (`CARTPOLE_DEMO_CONFIG`): 50 (cos th -
+    1)^2 + th_dot^2 + x^2 + 0.1 x_dot^2, plus 1e3 at every state off the
+    track (|x| > 2.4, the model's x_threshold); the terminal cost has the
+    same form."""
+    from .ops.cartpole_episode import state_cost
+
+    def inst_cost(states, actions=None, **_):
+        return state_cost(states[..., 0], states[..., 1],
+                          torch.cos(states[..., 2]), states[..., 3])
+
+    def term_cost(states, **_):
+        return inst_cost(states)
+
+    return inst_cost, term_cost
+
+
+def _task(config_data):
+    task = config_data.get("task", "pendulum")
+    if task not in TASKS:
+        raise ValueError(f"unknown task {task!r}; expected one of {TASKS}")
+    return task
+
+
 def _check_case(config_data, case):
     if case not in CASES:
         raise ValueError(f"unknown case {case!r}; expected one of {CASES}")
+    if _task(config_data) == "cartpole" and case != "dust":
+        raise ValueError(f"the cart-pole runs the dust case only, got "
+                         f"{case!r}")
 
 
 def draw_stack_arrays(config_data, generator, case="dust", device="cuda"):
@@ -135,14 +205,17 @@ def draw_stack_arrays(config_data, generator, case="dust", device="cuda"):
         prior_locs, torch.ones(n_pol, device=device),
         exp["prior_sigma"] ** 2 * torch.eye(ctrl_dim, device=device),
     )
+    # Uniform over the uncertain parameters: the configuration's prior, the
+    # pendulum demo's (0.6, 1.3) over (length, mass) where it has none
+    prior = config_data.get("dynamics_prior",
+                            {"low": [0.6, 0.6], "high": [1.3, 1.3]})
     arrays = {
         "init_policies": policies_prior.sample(generator, (n_pol,)),
         "policies_prior.locs": policies_prior.locs,
         "policies_prior.scale_tril": policies_prior.scale_tril,
         "policies_prior.logits": policies_prior.logits,
-        # Uniform over (length, mass)
-        "dynamics_prior.low": torch.tensor([0.6, 0.6], device=device),
-        "dynamics_prior.high": torch.tensor([1.3, 1.3], device=device),
+        "dynamics_prior.low": torch.tensor(prior["low"], device=device),
+        "dynamics_prior.high": torch.tensor(prior["high"], device=device),
         "init_state": torch.tensor(exp["init_state"], dtype=torch.float32,
                                    device=device),
     }
@@ -159,7 +232,12 @@ def draw_stack_arrays(config_data, generator, case="dust", device="cuda"):
 def assemble_stack(config_data, arrays, case="dust", reference_compat=False,
                    device="cuda"):
     """Wire model, controller, SVMPC and MPF around given initial arrays
-    (tensors on `device`, keyed as `draw_stack_arrays` returns them)."""
+    (tensors on `device`, keyed as `draw_stack_arrays` returns them). The
+    configuration's `task` picks the model, its uncertain parameters and
+    the cost: "pendulum" (the default; `PendulumModel` over (length,
+    mass), `pendulum_cost_fns`) or "cartpole" (`CartPoleModel` with the
+    configuration's `model_params`, over (length, mass_pole),
+    `cartpole_cost_fns`; the dust case only)."""
     _check_case(config_data, case)
     exp = config_data["exp_params"]
     device = resolve_device(device)
@@ -169,12 +247,28 @@ def assemble_stack(config_data, arrays, case="dust", reference_compat=False,
     ctrl_dim = exp["ctrl_dim"]
     use_svmpc = case in ("dust", "svmpc")
     n_pol = m if use_svmpc else 1
+    cartpole = _task(config_data) == "cartpole"
 
-    inst_cost, term_cost = pendulum_cost_fns()
-    model = PendulumModel(
-        uncertain_params=(("length", "mass") if case in ("dust", "disco_utf")
-                          else None)
-    )
+    if cartpole:
+        if exp.get("fused_rollout", False) or exp.get("fused_solve", False):
+            raise ValueError("fused_rollout and fused_solve are the "
+                             "pendulum's kernels; the cart-pole's is the "
+                             "sweep (simulation.megakernel_cartpole_sweep_fn)")
+        inst_cost, term_cost = cartpole_cost_fns()
+
+        def make_model(uncertain):
+            return CartPoleModel(uncertain_params=uncertain, device=device,
+                                 **config_data["model_params"])
+
+        uncertain = ("length", "mass_pole")
+    else:
+        inst_cost, term_cost = pendulum_cost_fns()
+
+        def make_model(uncertain):
+            return PendulumModel(uncertain_params=uncertain)
+
+        uncertain = ("length", "mass")
+    model = make_model(uncertain if case in ("dust", "disco_utf") else None)
 
     if case == "disco_utf":
         utf = config_data["utf"]
@@ -238,7 +332,7 @@ def assemble_stack(config_data, arrays, case="dust", reference_compat=False,
     if case == "dust":
         dynamics_lik = GaussianLikelihood(
             obs_std=exp["mpf_obs_std"],
-            model=PendulumModel(uncertain_params=("length", "mass")),
+            model=make_model(uncertain),
             log_space=exp["mpf_log_space"],
         )
         mpf = MPF(

@@ -59,6 +59,21 @@ _EPISODE_ARGS = (
     + [_INT, _VOID_P]             # host_noise stream
 )
 
+# K14 (csrc/cartpole_episode.cu)
+_CARTPOLE_EPISODE_ARGS = (
+    [_VOID_P] * 14                # scal ep_f ep_i theta0 locs0 amat0 mpfx0
+                                  # eps log theta locs amat mpfx
+                                  # clock (null but inside
+                                  # cartpole_episode.phase_clock)
+    + [_INT] * 9                  # B steps hz m n_params n_act m_mpf
+                                  # mpf_steps load_step
+    + [_FLOAT] * 8                # dt g mass_cart mu_c mu_p f_mag load_scale
+                                  # log_n_act
+    + [_INT] * 3                  # exp_util log_space fixed_bw
+    + [_FLOAT] * 2                # mpf_fixed_bw mpf_bw_scale
+    + [_VOID_P]                   # stream
+)
+
 _PENDULUM_ROLLOUT_ARGS = [
     _VOID_P, _VOID_P,                              # state0 actions
     _VOID_P, _LONG, _FLOAT,                        # lengths: ptr stride value
@@ -115,6 +130,7 @@ _SIGNATURES = {
     # the clocked build (inside solve.pendulum_phase_clock)
     "dust_pendulum_solve_clock": _PENDULUM_SOLVE_ARGS + [_VOID_P, _VOID_P],  # clock stream
     "dust_pendulum_episodes": _EPISODE_ARGS,
+    "dust_cartpole_episodes": _CARTPOLE_EPISODE_ARGS,
     "dust_particle_rollout_costs": _PARTICLE_ROLLOUT_ARGS + [_VOID_P],  # stream
     # the clocked build (inside particle_rollout.phase_clock)
     "dust_particle_rollout_costs_clock": _PARTICLE_ROLLOUT_ARGS + [_VOID_P, _VOID_P],  # clock stream

@@ -39,6 +39,8 @@ Noise has two modes:
 from __future__ import annotations
 
 import math
+from dataclasses import dataclass
+from typing import Callable
 
 import torch
 
@@ -329,32 +331,65 @@ def episode_plain(inputs, st):
         **inputs, **{k: v for k, v in st.items() if k not in skip})
 
 
-# the inputs that stay the same over a sweep's calls, in the order of the
-# kernel's pointers
-_STATIC_INPUTS = ("scal", "ep_f", "theta0", "locs0", "amat0", "a_seq",
-                  "mpfx0")
+def mpf_scalars(st):
+    """The last scalars of an episode kernel's C entry, from the statics:
+    exp_util, log_space, fixed_bw, mpf_fixed_bw, mpf_bw_scale."""
+    fixed = st["mpf_fixed_bw"]
+    return (int(st["exp_util"]), int(st["mpf_log_space"]),
+            int(fixed is not None), 0.0 if fixed is None else fixed,
+            st["mpf_bw_scale"])
 
 
-def kernel_statics(inputs, st):
-    """The kernel's operands that do not change with the seeds or the host
-    noise, from canonical inputs: each static input contiguous and `args`,
-    the scalars of `dust_pendulum_episodes` from B to `mpf_bw_scale`. A
-    sweep makes them once per argument set (`ops/sweep_episode.py`)."""
-    out = {k: None if inputs[k] is None else inputs[k].contiguous()
-           for k in _STATIC_INPUTS}
+def _pendulum_scalars(st):
     dt = st["dt"]
-    out["args"] = (
-        inputs["theta0"].shape[0], st["steps"], st["warm_up"], st["hz"],
-        st["m"], st["n_params"], st["n_act"], st["m_mpf"], st["mpf_steps"],
+    return (
+        st["steps"], st["warm_up"], st["hz"], st["m"], st["n_params"],
+        st["n_act"], st["m_mpf"], st["mpf_steps"],
         # constants folded in double precision, as the plain version folds
         dt, _MAX_SPEED * dt, -3.0 * st["g_model"] * 0.5 * dt, 3.0 * dt,
         3.0 * st["g_model"] * 0.5, -3.0 * st["g_sim"] * 0.5,
-        math.log(float(st["n_act"])),
-        int(st["exp_util"]), int(st["mpf_log_space"]),
-        int(st["mpf_fixed_bw"] is not None),
-        0.0 if st["mpf_fixed_bw"] is None else st["mpf_fixed_bw"],
-        st["mpf_bw_scale"],
+        math.log(float(st["n_act"])), *mpf_scalars(st),
     )
+
+
+@dataclass(frozen=True)
+class EpisodeKernel:
+    """What `run_episodes` launches: a whole-episode kernel's C entry, its
+    plain version on canonical inputs (`plain(inputs, st)`), its log's
+    fields, its clock, the inputs its entry takes by pointer before the
+    noise, in the entry's order (`ep_i` among them; the others are the
+    static inputs `kernel_statics` makes), whether the entry takes host
+    noise (eps, pdz, pdu and a `host_noise` flag), and `scalars(st)`, the
+    entry's scalars after B."""
+
+    entry: str
+    plain: Callable
+    log_fields: tuple
+    clock: PhaseClock
+    pointers: tuple
+    host_noise: bool
+    scalars: Callable
+
+
+# K4 and K5 (csrc/pendulum_episode.cu)
+PENDULUM = EpisodeKernel(
+    entry="dust_pendulum_episodes",
+    # looked up at each call, so that a test can swap the module's
+    plain=lambda inputs, st: episode_plain(inputs, st),
+    log_fields=LOG_FIELDS, clock=phase_clock,
+    pointers=("scal", "ep_f", "ep_i", "theta0", "locs0", "amat0", "a_seq",
+              "mpfx0"),
+    host_noise=True, scalars=_pendulum_scalars)
+
+
+def kernel_statics(inputs, st, kernel=PENDULUM):
+    """The kernel's operands that do not change with the seeds or the host
+    noise, from canonical inputs: each static input contiguous and `args`,
+    the scalars of the kernel's C entry from B on. A sweep makes them once
+    per argument set (`ops/sweep_episode.py`)."""
+    out = {k: None if inputs[k] is None else inputs[k].contiguous()
+           for k in kernel.pointers if k != "ep_i"}
+    out["args"] = (inputs["theta0"].shape[0], *kernel.scalars(st))
     return out
 
 
@@ -364,61 +399,63 @@ def episode_ids(seeds, scenario):
     return torch.cat([seeds, scenario[:, None]], dim=1).to(torch.int32)
 
 
-def run_episodes(wrapper, inputs, st):
+def run_episodes(wrapper, inputs, st, kernel=PENDULUM):
     """Run B episodes from canonical inputs: the plain version on CPU
-    tensors, the kernel (C entry `dust_pendulum_episodes`, shared by K4
-    and K5) on CUDA tensors (one launch, counted in `wrapper.launches`).
-    inputs:
-    scal, ep_f [B, 2], seeds [B, 2], scenario [B], theta0/locs0/amat0
-    [B, m, hz], a_seq [hz] or None, mpfx0 [B, m_mpf, 2], eps/pdz/pdu
-    (host-noise mode) or None. On CUDA tensors `inputs` may instead hold
-    the kernel's form, as a sweep keeps it: `kernel_statics`' entries and
-    `ep_i` (`episode_ids`) in place of seeds and scenario. Returns the
-    plain version's 5 outputs."""
+    tensors, the kernel (`kernel.entry`; K4 and K5 share
+    `dust_pendulum_episodes`) on CUDA tensors (one launch, counted in
+    `wrapper.launches`). inputs: scal, ep_f [B, 2], seeds [B, 2], scenario
+    [B], theta0/locs0/amat0 [B, m, hz], mpfx0 [B, m_mpf, 2], the
+    kernel's other pointers (the pendulum's a_seq [hz] or None),
+    eps/pdz/pdu (host-noise mode) or None. On CUDA tensors `inputs` may
+    instead hold the kernel's form, as a sweep keeps it:
+    `kernel_statics`' entries and `ep_i` (`episode_ids`) in place of
+    seeds and scenario. Returns the plain version's 5 outputs."""
     dev = inputs["theta0"].device
     if dev.type == "cpu":
-        return episode_plain(inputs, st)
+        return kernel.plain(inputs, st)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from ._build import check, load_library
 
     if "ep_i" not in inputs:
-        inputs = dict(inputs, **kernel_statics(inputs, st),
+        inputs = dict(inputs, **kernel_statics(inputs, st, kernel),
                       ep_i=episode_ids(inputs["seeds"], inputs["scenario"]))
     B = inputs["theta0"].shape[0]
     hz, m, m_mpf = st["hz"], st["m"], st["m_mpf"]
-    eps, pdz, pdu = (None if inputs[k] is None else inputs[k].contiguous()
+    eps, pdz, pdu = (None if inputs.get(k) is None else inputs[k].contiguous()
                      for k in ("eps", "pdz", "pdu"))
     host_noise = eps is not None
+    if host_noise and not kernel.host_noise:
+        raise ValueError(f"{kernel.entry} draws its own noise")
     if not host_noise:
         # per-step draws are written here by the kernel and read back
         eps = torch.empty((B, hz, m, st["n_act"]), dtype=torch.float32,
                           device=dev)
-    log = torch.empty((B, st["steps"], len(LOG_FIELDS)), dtype=torch.float32,
-                      device=dev)
+    log = torch.empty((B, st["steps"], len(kernel.log_fields)),
+                      dtype=torch.float32, device=dev)
     theta, locs, amat = (torch.empty((B, m, hz), dtype=torch.float32,
                                      device=dev) for _ in range(3))
     mpf_x = torch.empty((B, m_mpf, 2), dtype=torch.float32, device=dev)
-    clock = phase_clock.rows(B, dev)
+    clock = kernel.clock.rows(B, dev)
     # every tensor stays referenced here until the launch is queued: a
     # temporary's memory could be handed to the next allocation
-    tensors = [inputs["scal"], inputs["ep_f"], inputs["ep_i"],
-               inputs["theta0"], inputs["locs0"], inputs["amat0"],
-               inputs["a_seq"], inputs["mpfx0"], eps, pdz, pdu, log, theta,
+    noise = [eps, pdz, pdu] if kernel.host_noise else [eps]
+    tensors = [*(inputs[k] for k in kernel.pointers), *noise, log, theta,
                locs, amat, mpf_x, clock]
-    rc = load_library().dust_pendulum_episodes(
+    flag = (int(host_noise),) if kernel.host_noise else ()
+    rc = getattr(load_library(), kernel.entry)(
         *(None if t is None else t.data_ptr() for t in tensors),
-        *inputs["args"], int(host_noise),
+        *inputs["args"], *flag,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     wrapper.launches += 1
-    check(rc, "dust_pendulum_episodes")
+    check(rc, kernel.entry)
     return log, theta, locs, amat, mpf_x
 
 
-def split_log(log):
-    """log [..., steps, 6] -> {field: [..., steps]}."""
-    return {k: log[..., i] for i, k in enumerate(LOG_FIELDS)}
+def split_log(log, fields=LOG_FIELDS):
+    """log [..., steps, len(fields)] -> {field: [..., steps]}."""
+    return {k: log[..., i] for i, k in enumerate(fields)}
 
 
 def _episode(

@@ -62,51 +62,26 @@ def _scalars(x, past_obs, loc, action, bw, prior_bw, lr, obs_sigma):
     ])
 
 
-def pendulum_mpf_optimize_plain(x, prior_locs, scal, *, lanes, n_steps=20,
-                                dt=0.05, g=9.8, log_space=False):
-    """Plain PyTorch version of the kernel: x, prior_locs [..., m, 2];
-    scal [..., 9] as built by `_scalars` (leading dims batch independent
-    particle sets). Returns the particles after n_steps updates. The sums
-    over the particles and centers take the kernel's order (`lane_sum`
-    over `lanes` lanes: ROW_LANES for K2, EPISODE_ROW_LANES for the
-    episode kernels); its pairs' exps are one ex2.approx each, which agree
-    with `torch.exp` here to ~1e-6 relative."""
-    bw, pbw, lr, sigma, theta0, theta_d0, action, loc0, loc1 = (
-        v[..., None, None] for v in scal.unbind(-1))
+def stein_loop_plain(x, prior_locs, bw, pbw, lr, lik, *, lanes, n_steps):
+    """The MPF Stein loop over two-parameter particles as the kernels run
+    it (`csrc/pendulum_mpf.cuh:stein_loop`, shared by K2, K4/K5 and
+    K14): x, prior_locs [..., m, 2]; bw, pbw, lr [..., 1, 1]; lik(x0, x1)
+    -> (gl0, gl1), the likelihood gradient of the particles' columns
+    [..., m, 1] (the loop's LikGrad). Returns the particles after n_steps
+    updates. The sums over the particles and centers take the kernel's
+    order (`lane_sum` over `lanes` lanes: ROW_LANES for K2,
+    EPISODE_ROW_LANES for the episode kernels); its pairs' exps are one
+    ex2.approx each, which agree with `torch.exp` here to ~1e-6
+    relative."""
     m = x.shape[-2]
     inv_pbw2 = 1.0 / (pbw * pbw)
     inv_bw2 = 1.0 / (bw * bw)
-    inv_s2 = 1.0 / (sigma * sigma)
-    acts = torch.clamp(action, -_MAX_TORQUE, _MAX_TORQUE)
-    sin_t = torch.sin(theta0 + math.pi)
-    half3g = 3.0 * g * 0.5
     c0t = prior_locs[..., :, 0].unsqueeze(-2)     # center columns as rows
     c1t = prior_locs[..., :, 1].unsqueeze(-2)
     x0 = x[..., :, 0:1]
     x1 = x[..., :, 1:2]
     for _ in range(n_steps):
-        length, mass = x0, x1
-        if log_space:
-            length = torch.exp(length)
-            mass = torch.exp(mass)
-        # ---- likelihood gradient (hand-derived pendulum physics) ----
-        il = 1.0 / length
-        im = 1.0 / mass
-        tdd = (-half3g) * il * sin_t + 3.0 * im * il * il * acts
-        theta_d_raw = theta_d0 + dt * tdd
-        theta_d = torch.clamp(theta_d_raw, -_MAX_SPEED, _MAX_SPEED)
-        theta = theta0 + theta_d * dt
-        gate = ((theta_d_raw > -_MAX_SPEED)
-                & (theta_d_raw < _MAX_SPEED)).to(x.dtype)
-        dtd_dl = gate * dt * (half3g * il * il * sin_t
-                              - 6.0 * im * il * il * il * acts)
-        dtd_dm = gate * dt * (-3.0 * im * im * il * il * acts)
-        common = -((theta - loc0) * dt + (theta_d - loc1)) * inv_s2
-        gl_l = common * dtd_dl
-        gl_m = common * dtd_dm
-        if log_space:
-            gl_l = gl_l * length
-            gl_m = gl_m * mass
+        gl_l, gl_m = lik(x0, x1)
         # ---- GMM prior score over the fixed centers ----
         d2c = (x0 - c0t) ** 2 + (x1 - c1t) ** 2    # [..., m, m]
         logits = -0.5 * d2c * inv_pbw2
@@ -128,6 +103,49 @@ def pendulum_mpf_optimize_plain(x, prior_locs, scal, *, lanes, n_steps=20,
         x0 = x0 + lr * phi0
         x1 = x1 + lr * phi1
     return torch.cat([x0, x1], dim=-1)
+
+
+def pendulum_mpf_optimize_plain(x, prior_locs, scal, *, lanes, n_steps=20,
+                                dt=0.05, g=9.8, log_space=False):
+    """Plain PyTorch version of the kernel: x, prior_locs [..., m, 2];
+    scal [..., 9] as built by `_scalars` (leading dims batch independent
+    particle sets). Returns the particles after n_steps updates of
+    `stein_loop_plain` under the pendulum's likelihood gradient (the
+    kernels' `lik_grad`)."""
+    bw, pbw, lr, sigma, theta0, theta_d0, action, loc0, loc1 = (
+        v[..., None, None] for v in scal.unbind(-1))
+    inv_s2 = 1.0 / (sigma * sigma)
+    acts = torch.clamp(action, -_MAX_TORQUE, _MAX_TORQUE)
+    sin_t = torch.sin(theta0 + math.pi)
+    half3g = 3.0 * g * 0.5
+
+    def lik(x0, x1):
+        # ---- likelihood gradient (hand-derived pendulum physics) ----
+        length, mass = x0, x1
+        if log_space:
+            length = torch.exp(length)
+            mass = torch.exp(mass)
+        il = 1.0 / length
+        im = 1.0 / mass
+        tdd = (-half3g) * il * sin_t + 3.0 * im * il * il * acts
+        theta_d_raw = theta_d0 + dt * tdd
+        theta_d = torch.clamp(theta_d_raw, -_MAX_SPEED, _MAX_SPEED)
+        theta = theta0 + theta_d * dt
+        gate = ((theta_d_raw > -_MAX_SPEED)
+                & (theta_d_raw < _MAX_SPEED)).to(x.dtype)
+        dtd_dl = gate * dt * (half3g * il * il * sin_t
+                              - 6.0 * im * il * il * il * acts)
+        dtd_dm = gate * dt * (-3.0 * im * im * il * il * acts)
+        common = -((theta - loc0) * dt + (theta_d - loc1)) * inv_s2
+        gl_l = common * dtd_dl
+        gl_m = common * dtd_dm
+        if log_space:
+            gl_l = gl_l * length
+            gl_m = gl_m * mass
+        return gl_l, gl_m
+
+    return stein_loop_plain(x, prior_locs, bw, pbw, lr, lik, lanes=lanes,
+                            n_steps=n_steps)
 
 
 def fused_pendulum_mpf_optimize(x, prior_locs, past_obs, loc, action, bw,

@@ -27,6 +27,7 @@ import torch
 
 from ..utils.profiling import span
 from .episode import (
+    LOG_FIELDS,
     episode_plain,
     episode_scal,
     episode_statics,
@@ -181,14 +182,17 @@ def _prepare(
         noise=lambda eps, pdz, pdu: _host_noise(
             eps, pdz, pdu, G, C, n_sc, steps, hz, m, n_params, n_act, dev),
         dims=dict(lead=(G, C) if n_chains > 1 else (G,), n_sc=n_sc,
-                  steps=steps, m=m, hz=hz, m_mpf=m_mpf))
+                  steps=steps, m=m, hz=hz, m_mpf=m_mpf, fields=LOG_FIELDS))
 
 
-def _sweep_groups(runner, seeds, state0, theta0, *args, host_eps=None,
-                  host_pdz=None, host_pdu=None, **kwargs):
-    """`fused_pendulum_sweep_groups`, with the runner of the canonical
-    inputs (the kernel or the plain version) first; the `sweep.inputs`,
-    `sweep.launch` and `sweep.outputs` spans.
+def run_sweep(runner, prepare, cache, counted, seeds, state0, theta0, args,
+              kwargs, noise=None):
+    """A sweep wrapper's call (the pendulum's `_sweep_groups`, the
+    cart-pole's): `runner` runs the canonical inputs (the kernel or the
+    plain version), `prepare(runner, seeds_shape, state0, theta0, *args,
+    **kwargs)` makes the `Prepared` inputs of an argument set, kept in
+    `cache`; `noise` is the host noise (eps, pdz, pdu) or None. The
+    `sweep.inputs`, `sweep.launch` and `sweep.outputs` spans.
 
     A call reuses the inputs that an earlier call built from the same
     arguments (`ops/sweep_inputs.py`): every tensor the same object, or a
@@ -203,28 +207,27 @@ def _sweep_groups(runner, seeds, state0, theta0, *args, host_eps=None,
     a list). A write that torch does not count (NumPy into a
     `torch.from_numpy` tensor's memory, DLPack, `data_ptr`, `.data`) is
     not seen: pass such a tensor as a new object. Counted in
-    `fused_pendulum_sweep_episode.input_hits` / `.input_builds`."""
+    `counted.input_hits` / `.input_builds`."""
     with span("sweep.inputs"):
         dev = torch.as_tensor(theta0).device
         seeds = torch.as_tensor(seeds, dtype=torch.int64, device=dev)
-        prep, hit = _INPUTS.get(
-            head(runner, dev, seeds, host_eps is not None),
+        prep, hit = cache.get(
+            head(runner, dev, seeds, noise is not None),
             (state0, theta0, *args), kwargs,
-            lambda: _prepare(runner, seeds.shape, state0, theta0, *args,
-                             **kwargs))
-        fused_pendulum_sweep_episode.input_hits += hit
-        fused_pendulum_sweep_episode.input_builds += not hit
+            lambda: prepare(runner, seeds.shape, state0, theta0, *args,
+                            **kwargs))
+        counted.input_hits += hit
+        counted.input_builds += not hit
         inputs = dict(prep.inputs, **prep.rows(seeds))
-        if host_eps is not None:
-            inputs["eps"], inputs["pdz"], inputs["pdu"] = prep.noise(
-                host_eps, host_pdz, host_pdu)
+        if noise is not None:
+            inputs["eps"], inputs["pdz"], inputs["pdu"] = prep.noise(*noise)
     with span("sweep.launch"):
         log, theta, locs, amat, mpf_x = runner(inputs, prep.statics)
     with span("sweep.outputs"):
         d = prep.dims
         lead, n_sc, m, hz = d["lead"], d["n_sc"], d["m"], d["hz"]
         out = {k: v.reshape(*lead, n_sc, d["steps"]).transpose(-1, -2)
-               for k, v in split_log(log).items()}
+               for k, v in split_log(log, d["fields"]).items()}
         out.update(
             theta=theta.reshape(*lead, n_sc, m, hz),
             locs=locs.reshape(*lead, n_sc, m, hz),
@@ -232,6 +235,16 @@ def _sweep_groups(runner, seeds, state0, theta0, *args, host_eps=None,
             mpf_x=mpf_x.reshape(*lead, n_sc, d["m_mpf"], 2),
         )
     return out
+
+
+def _sweep_groups(runner, seeds, state0, theta0, *args, host_eps=None,
+                  host_pdz=None, host_pdu=None, **kwargs):
+    """`fused_pendulum_sweep_groups`, with the runner of the canonical
+    inputs (the kernel or the plain version) first (`run_sweep`; counted
+    in `fused_pendulum_sweep_episode.input_hits` / `.input_builds`)."""
+    noise = None if host_eps is None else (host_eps, host_pdz, host_pdu)
+    return run_sweep(runner, _prepare, _INPUTS, fused_pendulum_sweep_episode,
+                     seeds, state0, theta0, args, kwargs, noise)
 
 
 def _launch_k5(inputs, st):

@@ -1,7 +1,8 @@
 """Closed-loop MPC episode harnesses (counterpart of
 `dust_tpu/simulation.py`): `PendulumSimulation`, the particle-navigation
-`particle_episode_fn` / `run_particle_episode`, and the whole-episode and
-sweep kernel adapters of both tasks.
+`particle_episode_fn` / `run_particle_episode`, the whole-episode and
+sweep kernel adapters of both tasks, and the cart-pole's sweep adapter
+(`megakernel_cartpole_sweep_fn`, K14).
 
 One MPC step: SVMPC optimize -> (after warm-up) forward and select ->
 simulator step -> MPF optimize, logged per step. The simulator is the
@@ -300,21 +301,7 @@ def megakernel_pendulum_sweep_fn(stack, exp_params, steps, n_sc,
     )
 
     exp = exp_params
-    dstate = stack.controller.init_state(stack.init_policies)
-    if bool(torch.any(dstate.a_seq != 0)):
-        raise ValueError("sweep megakernel requires a zero controller "
-                         "a_seq (SVMPC demo semantics)")
-    if exp.get("weighted_prior", False):
-        raise ValueError("sweep megakernel supports the unweighted "
-                         "policy prior only (pendulum demo semantics)")
-    lg = stack.policies_prior.logits.detach().cpu().to(torch.float64)
-    if (torch.log_softmax(lg, dim=0) + np.log(exp["n_particles"])).abs() \
-            .max() > 1e-5:
-        raise ValueError("sweep megakernel requires uniform initial "
-                         "prior mixture weights")
-    theta0 = stack.init_policies[..., 0]
-    locs0 = stack.policies_prior.locs[..., 0]
-    amat0 = dstate.a_mat[..., 0]
+    theta0, locs0, amat0 = _sweep_priors(stack, exp)
     g_model = float(stack.model.params_dict["g"])
     dev = theta0.device
     if svmpc_only:
@@ -364,6 +351,85 @@ def megakernel_pendulum_sweep_fn(stack, exp_params, steps, n_sc,
     sweep.groups = groups
     sweep.phase_clock = episode_clock
     sweep.wrapper = fused_pendulum_sweep_episode
+    return sweep
+
+
+def _sweep_priors(stack, exp):
+    """The controller's zero a_seq and uniform prior, which the sweep
+    kernels assume, checked; returns (theta0, locs0, amat0)."""
+    dstate = stack.controller.init_state(stack.init_policies)
+    if bool(torch.any(dstate.a_seq != 0)):
+        raise ValueError("sweep megakernel requires a zero controller "
+                         "a_seq (SVMPC demo semantics)")
+    if exp.get("weighted_prior", False):
+        raise ValueError("sweep megakernel supports the unweighted "
+                         "policy prior only (pendulum demo semantics)")
+    lg = stack.policies_prior.logits.detach().cpu().to(torch.float64)
+    if (torch.log_softmax(lg, dim=0) + np.log(exp["n_particles"])).abs() \
+            .max() > 1e-5:
+        raise ValueError("sweep megakernel requires uniform initial "
+                         "prior mixture weights")
+    return (stack.init_policies[..., 0], stack.policies_prior.locs[..., 0],
+            dstate.a_mat[..., 0])
+
+
+def megakernel_cartpole_sweep_fn(stack, exp_params, steps, n_sc, n_chains=1):
+    """Scenario-sweep kernel adapter (K14, `ops/cartpole_sweep_episode.py`)
+    of a cart-pole stack (`experiments.assemble_stack` with `task:
+    "cartpole"`): n_sc <= 16 independent DuSt swing-up episodes
+    (per-scenario true length and pole mass, bandwidths and MPF
+    posteriors) times `n_chains` chains in one launch, the pole mass times
+    `load_mass_pole_scale` from step `load_step` on (the configuration's
+    `exp_params`; none without them). Returns sweep(seed [2] int,
+    true_lengths [n_sc], true_mass_poles [n_sc]) -> per-scenario logs
+    x / x_dot / th / th_dot / action / cost / bw_sv / bw_mpf [steps, n_sc]
+    (a leading chain axis when n_chains > 1), final theta / locs / a_mat
+    and mpf_x [n_sc, m_mpf, 2]; `sweep.groups(seeds [G, 2], true_lengths,
+    true_mass_poles)` runs G groups in one launch (the
+    `parallel.MegakernelGroupSweep` path); `sweep.phase_clock` is the
+    kernel's clock (`ops.cartpole_episode.phase_clock`); `sweep.wrapper`
+    is `ops.cartpole_sweep_episode.fused_cartpole_sweep_groups`, whose
+    `launches`, `input_hits` and `input_builds` count the calls.
+
+    Rejected, as the kernel does not model them: a nonzero controller
+    a_seq, `weighted_prior`, non-uniform initial prior mixture weights."""
+    from .ops.cartpole_episode import phase_clock as cartpole_clock
+    from .ops.cartpole_sweep_episode import fused_cartpole_sweep_groups
+
+    exp = exp_params
+    theta0, locs0, amat0 = _sweep_priors(stack, exp)
+    model = stack.model
+    mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 1)
+    statics = dict(
+        n_sc=n_sc, n_chains=n_chains, steps=steps, hz=exp["horizon"],
+        m=exp["n_particles"],
+        n_params=exp["params_samples"], n_act=exp["action_samples"],
+        m_mpf=exp["mpf_n_particles"], mpf_steps=exp["mpf_steps"],
+        dt=model.dt,
+        **{k: float(model.params_dict[k])
+           for k in ("g", "mass_cart", "mu_c", "mu_p", "f_mag")},
+        load_step=int(exp.get("load_step", steps)),
+        load_scale=float(exp.get("load_mass_pole_scale", 1.0)),
+        exp_util=_exp_util(exp), mpf_log_space=exp["mpf_log_space"],
+        mpf_fixed_bw=exp.get("mpf_bandwidth"),
+        mpf_bw_scale=exp["mpf_bandwidth_scaling"])
+
+    def groups(seeds, true_lengths, true_mass_poles):
+        return fused_cartpole_sweep_groups(
+            seeds, stack.init_state, theta0, locs0, amat0, stack.mpf_init,
+            mstate.prior_bw, true_lengths, true_mass_poles,
+            exp["ctrl_sigma"], exp["learning_rate"], exp["alpha"],
+            1.0 / exp["alpha"], exp["prior_sigma"], exp["mpf_learning_rate"],
+            exp["mpf_obs_std"], **statics)
+
+    def sweep(seed, true_lengths, true_mass_poles):
+        lead = lambda v: torch.as_tensor(v)[None]
+        out = groups(lead(seed), lead(true_lengths), lead(true_mass_poles))
+        return {k: v[0] for k, v in out.items()}
+
+    sweep.groups = groups
+    sweep.phase_clock = cartpole_clock
+    sweep.wrapper = fused_cartpole_sweep_groups
     return sweep
 
 

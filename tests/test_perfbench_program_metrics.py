@@ -1,6 +1,7 @@
 """The benchmark's readers of the program's spans, phase clock and
 counters (`perfbench/metrics/{sweep_prep_ms,idle_in_program_pct,
-step_rollout_us,step_svmpc_us,step_mpf_us,sweep_inputs_hit_pct}.py`,
+step_rollout_us,step_svmpc_us,step_mpf_us,sweep_inputs_hit_pct,
+rollout_ns_per_traj_step}.py`,
 `perfbench/phases.py`): each reads None without a device trace, the
 program's spans, clock rows or counters (a program without them, the
 CPU), and the right value from a stub `Trace`, a stub runner whose
@@ -194,3 +195,24 @@ def test_inputs_hit_reader_on_the_programs_adapter():
     got = _read("sweep_inputs_hit_pct", runner=runner, trace=None)
     total = wrapper.input_hits + wrapper.input_builds
     assert got == pytest.approx(100.0 * wrapper.input_hits / total)
+
+
+@pytest.mark.parametrize("phases", [episode.CLOCK_PHASES,
+                                    particle_episode.CLOCK_PHASES],
+                         ids=["K5 and K14", "K10"])
+def test_rollout_ns_reader_on_stub_rows(phases):
+    """`rollout_ns_per_traj_step`: the clock's `rollouts` phase, us per
+    episode step x 1000, over params_samples x action_samples x
+    n_particles x horizon; None without clock rows."""
+    clock, rows = PhaseClock(phases), _rows(len(phases))
+    runner = _Runner(clock, rows)
+    runner.exp = {"params_samples": 8, "action_samples": 128,
+                  "n_particles": 3, "horizon": 30}
+    want = clock.summary([rows, rows], runner.steps)
+    got = _read("rollout_ns_per_traj_step", runner=runner, trace=_trace())
+    us = want["phases"]["rollouts"]["us_per_step"]
+    assert got == pytest.approx(1e3 * us / (8 * 128 * 3 * 30))
+    quiet = _Runner(PhaseClock(phases), None)
+    quiet.exp = runner.exp
+    assert _read("rollout_ns_per_traj_step", runner=quiet, trace=None) \
+        is None

@@ -79,10 +79,13 @@ def test_every_c_entry_has_a_signature_and_a_source():
     for path in sorted(PKG_DIR.rglob("*.py")):
         calls |= set(re.findall(r"load_library\(\)\.(\w+)\(",
                                 path.read_text()))
+        # the whole-episode kernels' entries (`ops/episode.py:EpisodeKernel`)
+        calls |= set(re.findall(r'entry="(\w+)"', path.read_text()))
     assert calls <= set(_build._SIGNATURES), calls - set(_build._SIGNATURES)
     assert {"dust_particle_rollout_costs", "dust_particle_mpf_optimize",
             "dust_particle_solve", "dust_particle_episodes", "dust_svgd_phi",
-            "dust_gmm_score", "dust_mpf_stream_step"} <= calls
+            "dust_gmm_score", "dust_mpf_stream_step",
+            "dust_pendulum_episodes", "dust_cartpole_episodes"} <= calls
 
 
 def test_signatures_match_the_c_entries():
