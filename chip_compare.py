@@ -16,10 +16,16 @@ and K7 also at m = 1024), one 200-step K4 and K9 episode (paths 3 and 7)
 and one 256-episode K5 and K10 sweep (paths 4 and 8) between CUDA events
 (median of 3), and hashes the outputs of K1 (its costs, and the hook's
 draw means on their own), K2, K3 (its costs also on their own), K6, K7
-(m = 50 and 1024), K13, K11a and K12a at d = 60, K8, a 20-step K5
-sweep on fixed seeded inputs (host noise) and a 200-step K9 episode
-(device noise), so that two trees can be held bit for bit. Where the tree has them, it prints the per-phase
-clocks of K1, K2, K3, K6 and K7 (their clocked builds,
+(m = 50 and 1024), K13, K11a and K12a at d = 60, K8, a 200-step K4
+episode, a 20-step K5 sweep on fixed seeded inputs (host noise) at the
+demo's 50 MPF particles and at 48, 49, 52, 53, 64, 100 and 256 (both MPF
+loops of the episode kernels), the timed 200-step K5 and K14 sweeps
+(device noise) and a 200-step K9 episode (device noise), so that two
+trees can be held bit for bit. It also times one 256-episode K14 sweep
+(path 16, as K5's) and reads the registers and spill bytes of the episode
+kernels K4/K5, K9/K10 and K14 from the build's ptxas report (empty where
+the library was already built). Where the tree has them, it prints the
+per-phase clocks of K1, K2, K3, K6 and K7 (their clocked builds,
 `chip_smoke._phase_clock`). It prints one line, `RESULT {json}`. To
 compare a parent and a change, unpack both (`git archive`) and run the
 script once in each, in the order parent, change, change, parent, in one
@@ -89,6 +95,35 @@ def device_ops(fn, calls=20):
     return sum(ops.values()), ops
 
 
+def ptxas_usage(log, kernels=("pendulum_episode_kernel",
+                                "particle_episode_kernel",
+                                "cartpole_episode_kernel")):
+    """{mangled entry: {registers, spill_stores, spill_loads}} of each
+    compiled entry whose name holds one of `kernels`, from the build's
+    `ptxas -v` lines."""
+    import re
+
+    out, entry = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties "
+                      r"for) '?([\w$]+)'?", line)
+        if m:
+            entry = m.group(1) if any(k in m.group(1) for k in kernels) \
+                else None
+            continue
+        if entry is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            out.setdefault(entry, {}).update(spill_stores=int(m.group(1)),
+                                             spill_loads=int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.setdefault(entry, {})["registers"] = int(m.group(1))
+    return out
+
+
 def sha256(tensors):
     """One hash of the tensors' bytes, in order: equal hashes, equal bits."""
     h = hashlib.sha256()
@@ -99,8 +134,10 @@ def sha256(tensors):
 
 tree = sys.argv[1]
 dev = torch.device("cuda")
-cs.phase_build()
-res = {"tree": tree, "card": cs._nvidia_smi()}
+build = cs.phase_build()
+res = {"tree": tree, "card": cs._nvidia_smi(),
+       "ptxas": ptxas_usage(build.get("log", "") if isinstance(build, dict)
+                            else "")}
 
 # K11a and K12a's general walk, K12a's SDPA yardstick, path 15 and the d = 2
 # hash, measured by the chip_smoke.py beside this script on the checkout's
@@ -219,6 +256,8 @@ k2_big = cs._k2_inputs(1024, (2.9, 0.4), (2.95, 0.9), 1.3, pgen, dev)
 res["k2_ms_1024"] = min(cs._device_ms(
     lambda: mpf.fused_pendulum_mpf_optimize(**k2_big, n_steps=20))
     for _ in range(2))
+res["k2_sha256_1024"] = sha256(
+    [mpf.fused_pendulum_mpf_optimize(**k2_big, n_steps=20)])
 # the per-phase clocks of K2 and K3, where the tree has them
 if hasattr(mpf, "phase_clock"):
     res["k2_clock"] = cs._phase_clock(
@@ -237,9 +276,21 @@ k4 = megakernel_pendulum_episode_fn(pstack, pcfg["exp_params"],
                                     steps=cs.MAIN_STEPS)
 res["k4_ms_per_episode"] = statistics.median(
     cs._event_ms(lambda: k4([cs.SEED, 1]), 3))
+k4_out = k4([cs.SEED, 1])
+res["k4_sha256"] = sha256(k4_out[k] for k in sorted(k4_out)
+                          if torch.is_tensor(k4_out[k]))
 pgroups, pseeds, lens, mass, _ = cs._bench_sweep(dev, PENDULUM_DEMO_CONFIG)
 res["k5_ms_per_sweep"] = statistics.median(
     cs._event_ms(lambda: pgroups.run(pseeds(1), lens, mass), 3))
+k5_timed = pgroups.run(pseeds(1), lens, mass)
+res["k5_timed_sha256"] = sha256(k5_timed[k] for k in sorted(k5_timed))
+# K14: the cart-pole cell's 256-episode sweep (path 16), timed as K5's,
+# and its outputs hashed
+cgroups, cseeds, clens, cmps, _ = cs._cartpole_sweep(dev, cs.MAIN_STEPS)
+res["k14_ms_per_sweep"] = statistics.median(
+    cs._event_ms(lambda: cgroups.run(cseeds(1), clens, cmps), 3))
+k14_out = cgroups.run(cseeds(1), clens, cmps)
+res["k14_sha256"] = sha256(k14_out[k] for k in sorted(k14_out))
 # K5's outputs on fixed host-noise inputs, 16 scenarios x 2 chains x 20 steps
 steps = 20
 theta0, mpfx0, noise = cs._episode_setup(steps, cs.SEED + 13, dev,
@@ -250,6 +301,26 @@ k5_out = cs._sweep_call(
     torch.linspace(0.9, 1.1, cs.SWEEP_SC, device=dev), dev, steps,
     cs.SWEEP_SC, cs.SWEEP_CHAINS, noise)
 res["k5_sha256"] = sha256(k5_out[k] for k in sorted(k5_out))
+# the same sweep at other MPF widths: 49 and 52 particles (the ends of the
+# episode kernels' register loop), 48, 53, 64, 100 and 256 (their
+# shared-memory walk, which the kernel takes up to 256; the wrapper keeps
+# the TPU adapter's m_mpf <= 64, so its check is set aside above that)
+check_dims = sweep_episode.check_sweep_dims
+for m_mpf in (48, 49, 52, 53, 64, 100, 256):
+    sweep_episode.check_sweep_dims = (
+        check_dims if m_mpf <= 64 else lambda *a, **k: None)
+    wrng = np.random.default_rng(m_mpf)
+    wx = torch.tensor(1.0 + 0.1 * wrng.normal(size=(m_mpf, 2)),
+                      dtype=torch.float32, device=dev)
+    wargs = cs._episode_args(
+        theta0, wx, dev, torch.linspace(0.8, 1.2, cs.SWEEP_SC, device=dev),
+        torch.linspace(0.9, 1.1, cs.SWEEP_SC, device=dev))
+    w_out = sweep_episode.fused_pendulum_sweep_episode(
+        [1, 2], *wargs[:4], *wargs[5:], n_sc=cs.SWEEP_SC, steps=steps,
+        n_chains=cs.SWEEP_CHAINS, host_eps=noise[0], host_pdz=noise[1],
+        host_pdu=noise[2], **dict(cs._EP, m_mpf=m_mpf))
+    res[f"k5_sha256_mpf{m_mpf}"] = sha256(w_out[k] for k in sorted(w_out))
+sweep_episode.check_sweep_dims = check_dims
 
 kgen = torch.Generator(device=dev).manual_seed(cs.SEED + 50)
 inp = cs._k7_inputs(kgen, dev, True, (0.4, -0.2), (3.0, -5.0), 0.015)

@@ -11,8 +11,8 @@
 // step and forward (stein.cuh) -> commit -> the simulator
 // step with the episode's true parameters (the pole mass times
 // load_scale from step load_step on) -> Silverman bandwidth of the MPF
-// particles and the MPF Stein loop (pendulum_mpf.cuh:stein_loop, the loop
-// of K2 and K4/K5, on the cart-pole's likelihood gradient) -> one log row
+// particles and the MPF Stein loop (pendulum_mpf.cuh:episode_stein_loop,
+// K4/K5's, on the cart-pole's likelihood gradient) -> one log row
 // (x, x_dot, th, th_dot, action, cost, bw_sv, bw_mpf).
 //
 // Design, as K5's (pendulum_episode.cu): one persistent block of 256
@@ -23,8 +23,8 @@
 // registers, four draws at a time (the cart-pole's state is 4 values and
 // each draw keeps 6 constants: eight at a time spilled past K5's budget);
 // the DISCO delta takes 8 lanes per entry; the MPF loop a quad of lanes
-// per particle. The per-step noise lives in device memory, read through
-// L1/L2.
+// per particle, its row in registers at 49-52 particles (K5's loop). The
+// per-step noise lives in device memory, read through L1/L2.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -83,6 +83,11 @@ constexpr int kLogFields = 8;
 // sv: 0-3 the state, 4 prior_bw, 5 bw_sv, 6 action, 7-10 the next state,
 // 11 cost; the last slot holds the Stein step's argmax
 constexpr int kSv = 16;
+// the floats before the MPF block (episode_smem_floats' constant terms): a
+// multiple of 4, so that its float4 scratch is 16-byte aligned
+static_assert((3 * kMaxM * kMaxM + 5 * kMaxM + 5 * kMaxParams + 2 * kWarps +
+               8 + kSv) % 4 == 0,
+              "the MPF scratch is 16-byte aligned");
 
 __host__ __device__ inline size_t episode_smem_floats(int m, int hz,
                                                       int n_act, int m_mpf) {
@@ -94,7 +99,7 @@ __host__ __device__ inline size_t episode_smem_floats(int m, int hz,
 template <bool kClock>
 __global__ void __launch_bounds__(kThreads, 2)
     cartpole_episode_kernel(EpisodeArgs a) {
-  extern __shared__ float sh[];
+  extern __shared__ __align__(16) float sh[];
   __shared__ long long clk_acc[kClkPhases];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -105,17 +110,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int ma = m * n_act;
   const int n_eps = hz * ma;
 
-  float* theta = sh;
-  float* locs = theta + mh;
-  float* amat = locs + mh;
-  float* score = amat + mh;
-  float* theta_new = score + mh;
-  float* mcost = theta_new + mh;
-  float* omega = mcost + ma;
-  float* w_lik = omega + ma;
-  float* small = w_lik + ma;
+  // the arrays of fixed size first, at constant offsets; then the MPF
+  // block, its float4 scratch 16-byte aligned; then the policy arrays
   SteinSmem ss;
-  ss.lp = small;
+  ss.lp = sh;
   ss.r = ss.lp + kMaxM * kMaxM;
   ss.kmat = ss.r + kMaxM * kMaxM;
   ss.rowsum = ss.kmat + kMaxM * kMaxM;
@@ -128,18 +126,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* pdz = mps + kMaxParams;       // [n_params, 2]
   float* pdu = pdz + 2 * kMaxParams;   // [n_params]
   float* red = pdu + kMaxParams;       // 2 * kWarps + 8
-  float* sx0 = red + 2 * kWarps + 8;   // MPF particles: lengths, then masses
-  float* sx1 = sx0 + m_mpf;
-  float* sc0 = sx1 + m_mpf;            // MPF prior centers
-  float* sc1 = sc0 + m_mpf;
-  float* st0 = sc1 + m_mpf;            // MPF drive terms
-  float* st1 = st0 + m_mpf;
-  float* sv = st1 + m_mpf;             // simulator and step scalars [kSv]
+  float* sv = red + 2 * kWarps + 8;    // simulator and step scalars [kSv]
   ss.i_star = reinterpret_cast<int*>(sv + kSv - 1);
-  float* sn0 = sv + kSv;               // MPF new particles
-  float* sn1 = sn0 + m_mpf;
-  float* su0 = sn1 + m_mpf;
-  float* su1 = su0 + m_mpf;
+  float* mpf_w = sv + kSv;             // MPF scratch [8 m_mpf]
+  float* sx0 = mpf_w + 8 * m_mpf;      // MPF particles: lengths, then masses
+  float* sx1 = sx0 + m_mpf;
+  float* theta = sx1 + m_mpf;
+  float* locs = theta + mh;
+  float* amat = locs + mh;
+  float* score = amat + mh;
+  float* theta_new = score + mh;
+  float* mcost = theta_new + mh;
+  float* omega = mcost + ma;
+  float* w_lik = omega + ma;
 
   // scal: [x0, x_dot0, ctrl_sigma, lr, alpha, inv_temp, inv_s2, inv_ps2,
   //        mpf_lr, mpf_sigma, prior_bw0, log_mix, th0, th_dot0]
@@ -293,19 +292,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float bw_mpf = a.fixed_bw
                              ? a.mpf_fixed_bw
                              : silverman(sx0, 2 * m_mpf, red) * a.mpf_bw_scale;
-    for (int i = tid; i < m_mpf; i += nt) {
-      sc0[i] = sx0[i];
-      sc1[i] = sx1[i];
-    }
     __syncthreads();
     clk.mark(kClkMpfBw);
     {
-      dust_mpf::NoClock mpf_clk;
       const CartPoleLik lik(km, sv, sv[6], sv + 7, mpf_sigma, a.log_space);
-      dust_mpf::stein_loop<dust_mpf::kRowLanes>(
-          sx0, sx1, sc0, sc1, st0, st1, sn0, sn1, su0, su1, m_mpf,
-          a.mpf_steps, dust_mpf::stein_consts(m_mpf, bw_mpf, prior_bw, mpf_lr),
-          lik, mpf_clk);
+      dust_mpf::episode_stein_loop(
+          sx0, sx1, mpf_w, m_mpf, a.mpf_steps,
+          dust_mpf::stein_consts(m_mpf, bw_mpf, prior_bw, mpf_lr), lik);
     }
     clk.mark(kClkMpf);
     if (tid == 0) {

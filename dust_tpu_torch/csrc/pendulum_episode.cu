@@ -35,7 +35,11 @@
 // every other phase runs in every block alike, so K4 computes K5's bits
 // over four SMs. The rollouts hold a pair's eight draws in registers with
 // a branch-free step (pendulum_solve.cuh); the DISCO delta takes 8 lanes
-// per entry; the MPF loop a quad of lanes per particle. The per-step noise
+// per entry; the MPF loop a quad of lanes per particle, at the demos'
+// 49-52 particles with each quad's row and each lane's squared distances
+// in registers, its 13 columns unrolled branch-free
+// (pendulum_mpf.cuh:episode_stein_loop, K2's register loop), the
+// shared-memory walk at other sizes. The per-step noise
 // lives in device memory (46 KB at the demo shapes; up to 512 KB at the
 // shape ceiling), read through L1/L2.
 
@@ -100,6 +104,12 @@ constexpr int kSumLanes = 8;
 // quarter of the demo's 384 pairs each; two were slower, eight no faster
 constexpr int kK4Cluster = 4;
 
+// the floats before the MPF block (episode_smem_floats' constant terms): a
+// multiple of 4, so that its float4 scratch is 16-byte aligned
+static_assert((3 * kMaxM * kMaxM + 5 * kMaxM + 5 * kMaxParams + 2 * kWarps +
+               8 + 16) % 4 == 0,
+              "the MPF scratch is 16-byte aligned");
+
 __host__ __device__ inline size_t episode_smem_floats(int m, int hz,
                                                       int n_act, int m_mpf) {
   return 5 * static_cast<size_t>(m) * hz + 3 * static_cast<size_t>(m) * n_act +
@@ -110,7 +120,7 @@ __host__ __device__ inline size_t episode_smem_floats(int m, int hz,
 template <bool kClock, bool kCluster>
 __global__ void __launch_bounds__(kThreads, 2)
     pendulum_episode_kernel(EpisodeArgs a) {
-  extern __shared__ float sh[];
+  extern __shared__ __align__(16) float sh[];
   __shared__ long long clk_acc[kClkPhases];
   // kCluster: the blocks of one cluster share episode 0; block `rank` draws
   // the noise of its share of the (particle, sample) pairs and rolls them
@@ -134,17 +144,10 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int p_begin = min(ma, rank * share);
   const int p_end = min(ma, p_begin + share);
 
-  float* theta = sh;
-  float* locs = theta + mh;
-  float* amat = locs + mh;
-  float* score = amat + mh;
-  float* theta_new = score + mh;
-  float* mcost = theta_new + mh;
-  float* omega = mcost + ma;
-  float* w_lik = omega + ma;
-  float* small = w_lik + ma;
+  // the arrays of fixed size first, at constant offsets; then the MPF
+  // block, its float4 scratch 16-byte aligned; then the policy arrays
   SteinSmem ss;
-  ss.lp = small;
+  ss.lp = sh;
   ss.r = ss.lp + kMaxM * kMaxM;
   ss.kmat = ss.r + kMaxM * kMaxM;
   ss.rowsum = ss.kmat + kMaxM * kMaxM;
@@ -157,18 +160,19 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* pdz = im + kMaxParams;       // [n_params, 2]
   float* pdu = pdz + 2 * kMaxParams;  // [n_params]
   float* red = pdu + kMaxParams;      // 2 * kWarps + 8
-  float* sx0 = red + 2 * kWarps + 8;  // MPF particles: lengths, then masses
-  float* sx1 = sx0 + m_mpf;
-  float* sc0 = sx1 + m_mpf;           // MPF prior centers
-  float* sc1 = sc0 + m_mpf;
-  float* st0 = sc1 + m_mpf;           // MPF drive terms
-  float* st1 = st0 + m_mpf;
-  float* sv = st1 + m_mpf;            // simulator and step scalars [16]
+  float* sv = red + 2 * kWarps + 8;   // simulator and step scalars [16]
   ss.i_star = reinterpret_cast<int*>(sv + 15);
-  float* sn0 = sv + 16;               // MPF new particles
-  float* sn1 = sn0 + m_mpf;
-  float* su0 = sn1 + m_mpf;
-  float* su1 = su0 + m_mpf;
+  float* mpf_w = sv + 16;             // MPF scratch [8 m_mpf]
+  float* sx0 = mpf_w + 8 * m_mpf;     // MPF particles: lengths, then masses
+  float* sx1 = sx0 + m_mpf;
+  float* theta = sx1 + m_mpf;
+  float* locs = theta + mh;
+  float* amat = locs + mh;
+  float* score = amat + mh;
+  float* theta_new = score + mh;
+  float* mcost = theta_new + mh;
+  float* omega = mcost + ma;
+  float* w_lik = omega + ma;
 
   // scal: [th0, om0, ctrl_sigma, lr, alpha, inv_temp, inv_s2, inv_ps2,
   //        mpf_lr, mpf_sigma, prior_bw0, log_mix]
@@ -345,20 +349,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     const float bw_mpf = a.fixed_bw
                              ? a.mpf_fixed_bw
                              : silverman(sx0, 2 * m_mpf, red) * a.mpf_bw_scale;
-    for (int i = tid; i < m_mpf; i += nt) {
-      sc0[i] = sx0[i];
-      sc1[i] = sx1[i];
-    }
     __syncthreads();
     clk.mark(kClkMpfBw);
     const float a_cl = sv[5], th2 = sv[6], om2 = sv[7];
-    dust_mpf::NoClock mpf_clk;
     const dust_mpf::MpfConsts mk = dust_mpf::mpf_consts(
         m_mpf, bw_mpf, prior_bw, mpf_lr, mpf_sigma, th_s, om_s, a_cl, th2,
         om2, a.rk.dt, a.half3g, a.log_space);
-    dust_mpf::stein_loop<dust_mpf::kRowLanes>(
-        sx0, sx1, sc0, sc1, st0, st1, sn0, sn1, su0, su1, m_mpf, a.mpf_steps,
-        mk, dust_mpf::PendulumLik{mk}, mpf_clk);
+    dust_mpf::episode_stein_loop(sx0, sx1, mpf_w, m_mpf,
+                                 a.mpf_steps, mk, dust_mpf::PendulumLik{mk});
     clk.mark(kClkMpf);
     if (tid == 0) {
       if (rank == 0) {

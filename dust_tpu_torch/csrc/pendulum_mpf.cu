@@ -32,10 +32,12 @@
 // register path took 0.0318 ms against 0.0430 for the shared-memory loop
 // at 8 lanes with the same divisions and the same bits, the difference all
 // in the prior score (16.8 against 27.4 us of a call; NVIDIA H100 80GB
-// HBM3 at 700 W, chip_compare.py). Above that the general path
-// (stein_loop, K4/K5's loop) keeps particles and centers in shared memory. The arithmetic follows the plain
-// PyTorch version operation by operation, the order of the sums too (built
-// with --fmad=false, expf/sinf at full precision).
+// HBM3 at 700 W, chip_compare.py); unrolling its columns branch-free took
+// it to 0.0299 ms (the same card). Above that the general path (stein_loop,
+// the episode kernels' loop at all but 49-52 particles) keeps particles
+// and centers in shared memory. The arithmetic
+// follows the plain PyTorch version operation by operation, the order of
+// the sums too (built with --fmad=false, expf/sinf at full precision).
 
 #include <cuda_runtime.h>
 
@@ -62,7 +64,7 @@ pendulum_mpf_kernel(
     const float* __restrict__ scal, float* __restrict__ x_out, int m,
     int n_steps, float dt, float half3g, int log_space,
     long long* __restrict__ clock) {
-  extern __shared__ float sh[];
+  extern __shared__ __align__(16) float sh[];
   __shared__ long long clk_acc[kClkPhases];
   dust_clock::PhaseClock<kClock, kClkPhases> clk(clk_acc);
   // scal: [bw, prior_bw, lr, sigma, theta0, theta_d0, action, loc0, loc1]
@@ -70,10 +72,11 @@ pendulum_mpf_kernel(
       m, scal[0], scal[1], scal[2], scal[3], scal[4], scal[5], scal[6],
       scal[7], scal[8], dt, half3g, log_space);
   if constexpr (kReg) {
-    float2* xs = reinterpret_cast<float2*>(sh);  // [2, m] particles
-    float2* ts = xs + 2 * m;                     // [2, m] drive terms
-    dust_mpf::stein_loop_reg<kLanes, kRegMax / kLanes>(
-        x_in, centers, x_out, xs, ts, m, n_steps, k, clk);
+    // [2, m] particles and drive terms
+    float4* xt = reinterpret_cast<float4*>(sh);
+    dust_mpf::stein_loop_reg<kLanes, kRegMax / kLanes, 0>(
+        dust_mpf::PairIo{x_in, centers, x_out}, xt, m, n_steps, k,
+        dust_mpf::PendulumLik{k}, clk);
   } else {
     float* sx0 = sh;          // particles, column 0 (length)
     float* sx1 = sh + m;      // particles, column 1 (mass)

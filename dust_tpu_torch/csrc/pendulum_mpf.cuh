@@ -24,13 +24,12 @@
 // fixed butterfly, for a quad (p0 + p1) + (p2 + p3)
 // (ops/particle_mpf.py:lane_sum). The pairs' exps are one ex2.approx each
 // with log2 e folded into the scale, within ~1e-6 relative of the plain
-// version's exp. Two loops: `stein_loop` walks particles and centers in
-// shared memory (K4/K5 and K14 with a quad, K2 above its register
-// ceiling);
-// `stein_loop_reg` (K2 up to kLanes * kCols particles) keeps each lane's
-// centers and its squared distances to them in registers. Both give the
-// same bits for one lane count. Every thread of the block must call them
-// (they synchronise the block).
+// version's exp. Two loops: `stein_loop_reg` (one row per group: K2 up to
+// 64 particles with 8 lanes, K4/K5 and K14 at 49-52 with a quad) keeps
+// each group's row, and each lane its squared distances to the centers,
+// in registers; `stein_loop` walks particles and centers in shared memory
+// (every other size). Both give the same bits for one lane count. Every
+// thread of the block must call them (they synchronise the block).
 
 #pragma once
 
@@ -45,8 +44,15 @@ constexpr float kMaxSpeed = 8.0f;
 constexpr float kMaxTorque = 2.0f;
 constexpr float kPi = 3.14159265358979323846f;
 
-// Lanes per particle row in K4/K5 (ops/mpf.py:EPISODE_ROW_LANES).
+// Lanes per particle row in K4/K5 and K14 (ops/mpf.py:EPISODE_ROW_LANES).
 constexpr int kRowLanes = 4;
+// The episode kernels' register loop: each lane holds kEpisodeRegCols
+// columns or one fewer, so it serves kRowLanes * (kEpisodeRegCols - 1) < m
+// <= kRowLanes * kEpisodeRegCols (49-52: the demos' 50;
+// ops/mpf.py:EPISODE_REGISTER_MIN/MAX); the shared walk every other m.
+// One instantiation: each further column count in the kernel cost the
+// 50-particle step 3-6% through the kernel's registers (PERF.md §6).
+constexpr int kEpisodeRegCols = 13;
 
 // The phases of K2 that its clocked build times (ops/mpf.py:CLOCK_PHASES,
 // phase_clock.cuh); the loops mark the two of an iteration.
@@ -258,74 +264,148 @@ __device__ inline void stein_loop(float* sx0, float* sx1, const float* sc0,
   }
 }
 
+// The particles of `stein_loop_reg` in device memory: x_in, centers,
+// x_out [m, 2] (K2); the centers held in registers.
+struct PairIo {
+  static constexpr bool kRegCenters = true;
+  const float* __restrict__ x_in;
+  const float* __restrict__ centers;
+  float* __restrict__ x_out;
+  __device__ __forceinline__ float2 row(int i) const {
+    return make_float2(x_in[2 * i], x_in[2 * i + 1]);
+  }
+  __device__ __forceinline__ float2 center(int j) const {
+    return make_float2(centers[2 * j], centers[2 * j + 1]);
+  }
+  __device__ __forceinline__ void store(int i, float x0, float x1) const {
+    x_out[2 * i] = x0;
+    x_out[2 * i + 1] = x1;
+  }
+};
+
+// The particles of `stein_loop_reg` in the episode kernels' shared arrays
+// x0 and x1 = x0 + m (8-byte aligned): the loop's start, which is also its
+// centers (the loop writes them over x0/x1 as float2 for its duration),
+// and its result. The caller puts a block barrier between the loop and
+// the next read of x0/x1.
+struct SplitIo {
+  static constexpr bool kRegCenters = false;
+  float* x0;
+  float* x1;
+  __device__ __forceinline__ float2 row(int i) const {
+    return make_float2(x0[i], x1[i]);
+  }
+  __device__ __forceinline__ float2* centers() const {
+    return reinterpret_cast<float2*>(x0);
+  }
+  __device__ __forceinline__ void store(int i, float v0, float v1) const {
+    x0[i] = v0;
+    x1[i] = v1;
+  }
+};
+
 // The loop for m <= kLanes * kCols particles, one row per group (blockDim.x
 // >= kLanes * m): row i = g is held in registers by its group's lanes, and
-// lane l keeps the centers j = l, l + kLanes, ... (at most kCols) in
-// registers, with its squared distances to them from the max pass to the
-// exp pass. x_in, centers, x_out [m, 2] in device memory; xs and ts: 2 * m
-// float2 of shared memory each, the particles and drive terms of two
-// iterations in turn. One block barrier per iteration, between the prior
-// score (which reads only registers) and the drive walk. The divisions by
-// the row's prior weight sum and by m go through their reciprocals
-// (stein.cuh:div_rn). The same bits as stein_loop<kLanes>.
-template <int kLanes, int kCols, class Clock>
-__device__ inline void stein_loop_reg(const float* __restrict__ x_in,
-                                      const float* __restrict__ centers,
-                                      float* __restrict__ x_out, float2* xs,
-                                      float2* ts, int m, int n_steps,
-                                      const MpfConsts& k, Clock& clk) {
+// lane l walks the columns j = l, l + kLanes, ... (at most kCols),
+// keeping its squared distances to the centers from the max pass to the
+// exp pass. The centers: with PairIo in the lane's registers, with
+// SplitIo as float2 in shared memory (the particles at the start). The
+// columns are unrolled branch-free, so that the loads and exps of a pass
+// overlap: the first kSure are every lane's (m >= kLanes * kSure), at
+// fixed offsets; a column past the lane's last reads column m - 1 and
+// adds exactly zero (its exp takes -inf: ex2 gives +0). io: where the
+// particles start (io.row) and where the result goes (io.store, after
+// the last barrier). xt: 2 * m float4 of shared memory (16-byte aligned),
+// each row's particle and drive term of two iterations in turn, so that
+// the drive walk reads one float4 per column. One block barrier per
+// iteration, between the prior score and the drive walk. lik as in
+// stein_loop. The divisions by the row's prior weight sum and by m go
+// through their reciprocals (stein.cuh:div_rn). The same bits as
+// stein_loop<kLanes>.
+template <int kLanes, int kCols, int kSure, class Io, class LikGrad,
+          class Clock>
+__device__ inline void stein_loop_reg(const Io& io, float4* xt, int m,
+                                      int n_steps, const MpfConsts& k,
+                                      const LikGrad& lik, Clock& clk) {
+  static_assert(kSure <= kCols, "kSure: columns every lane has");
   using dust_solve::div_rn;
   using dust_solve::lane_group_sum;
+  constexpr bool kRegCenters = Io::kRegCenters;
   const int i = threadIdx.x / kLanes;  // this group's row
   const int l = threadIdx.x % kLanes;
   const unsigned mask = dust_solve::lane_group_mask(kLanes);
   const bool row = i < m;
   const float inv_fm = 1.0f / k.fm;
-  // this lane's columns j = l + kLanes c, c < nc
-  const int nc = row ? (m - l + kLanes - 1) / kLanes : 0;
-  float c0[kCols], c1[kCols], dc[kCols];
+  // unrolled column c is j = l + kLanes c where j < m, else m - 1; the
+  // first kSure columns are every lane's (m >= kLanes * kSure)
+  const auto col = [&](int c) {
+    return c < kSure ? l + kLanes * c : min(l + kLanes * c, m - 1);
+  };
+  const auto real = [&](int c) { return c < kSure || l + kLanes * c < m; };
+  float c0[kRegCenters ? kCols : 1], c1[kRegCenters ? kCols : 1];
+  float dc[kCols];
   float x0 = 0.0f, x1 = 0.0f;
   if (row) {
-    x0 = x_in[2 * i];
-    x1 = x_in[2 * i + 1];
+    const float2 x = io.row(i);
+    x0 = x.x;
+    x1 = x.y;
   }
+  float2* cs = nullptr;
+  if constexpr (kRegCenters) {
+    if (row) {
 #pragma unroll
-  for (int c = 0; c < kCols; ++c) {
-    const int j = l + kLanes * c;
-    c0[c] = c < nc ? centers[2 * j] : 0.0f;
-    c1[c] = c < nc ? centers[2 * j + 1] : 0.0f;
+      for (int c = 0; c < kCols; ++c) {
+        const float2 cj = io.center(col(c));
+        c0[c] = cj.x;
+        c1[c] = cj.y;
+      }
+    }
+  } else {
+    // the centers over the particles' own storage, once every row is read
+    cs = io.centers();
+    __syncthreads();
+    if (row && l == 0) cs[i] = make_float2(x0, x1);
   }
-  if (row && l == 0) xs[i] = make_float2(x0, x1);
+  if (row && l == 0)
+    reinterpret_cast<float2*>(xt + i)[0] = make_float2(x0, x1);
+  if constexpr (!kRegCenters) __syncthreads();
   clk.mark(kClkLoad);
 
   for (int it = 0; it < n_steps; ++it) {
-    const float2* const xa = xs + (it & 1) * m;  // this iteration's
-    float2* const xn = xs + ((it + 1) & 1) * m;   // the next one's
-    float2* const ta = ts + (it & 1) * m;
+    float4* const xa = xt + (it & 1) * m;        // this iteration's
+    float4* const xn = xt + ((it + 1) & 1) * m;  // the next one's
     if (row) {
       float gl_l, gl_m;
-      lik_grad(x0, x1, k, gl_l, gl_m);
+      lik(x0, x1, gl_l, gl_m);
       // ---- GMM prior score over the fixed centers ----
       float mx = -INFINITY;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        if (c < nc) {
-          const float d0 = x0 - c0[c];
-          const float d1 = x1 - c1[c];
-          dc[c] = (d0 * d0 + d1 * d1) * k.cp;
-          mx = fmaxf(mx, dc[c]);
+        float2 cj;
+        if constexpr (kRegCenters) {
+          cj = make_float2(c0[c], c1[c]);
+        } else {
+          cj = cs[col(c)];
         }
+        const float d0 = x0 - cj.x;
+        const float d1 = x1 - cj.y;
+        dc[c] = real(c) ? (d0 * d0 + d1 * d1) * k.cp : -INFINITY;
+        mx = fmaxf(mx, dc[c]);
       }
       mx = dust_solve::lane_group_fmax<kLanes>(mx, mask);
       float psum = 0.0f, pc0 = 0.0f, pc1 = 0.0f;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        if (c < nc) {
-          const float p = ex2(dc[c] - mx);
-          psum = psum + p;
-          pc0 = pc0 + p * c0[c];
-          pc1 = pc1 + p * c1[c];
+        float2 cj;
+        if constexpr (kRegCenters) {
+          cj = make_float2(c0[c], c1[c]);
+        } else {
+          cj = cs[col(c)];
         }
+        const float p = ex2(dc[c] - mx);
+        psum = psum + p;
+        pc0 = pc0 + p * cj.x;
+        pc1 = pc1 + p * cj.y;
       }
       psum = lane_group_sum<kLanes>(psum, mask);
       pc0 = lane_group_sum<kLanes>(pc0, mask);
@@ -334,8 +414,9 @@ __device__ inline void stein_loop_reg(const float* __restrict__ x_in,
       const float gp0 = (div_rn(pc0, psum, ips) - x0) * k.inv_pbw2;
       const float gp1 = (div_rn(pc1, psum, ips) - x1) * k.inv_pbw2;
       if (l == 0)
-        ta[i] = make_float2((gl_l + gp0) - x0 * k.inv_bw2,
-                            (gl_m + gp1) - x1 * k.inv_bw2);
+        reinterpret_cast<float2*>(xa + i)[1] =
+            make_float2((gl_l + gp0) - x0 * k.inv_bw2,
+                        (gl_m + gp1) - x1 * k.inv_bw2);
     }
     __syncthreads();
     clk.mark(kClkPrior);
@@ -345,17 +426,14 @@ __device__ inline void stein_loop_reg(const float* __restrict__ x_in,
       float rows = 0.0f, drive0 = 0.0f, drive1 = 0.0f;
 #pragma unroll
       for (int c = 0; c < kCols; ++c) {
-        if (c < nc) {
-          const int j = l + kLanes * c;
-          const float2 xj = xa[j];
-          const float2 tj = ta[j];
-          const float d0 = x0 - xj.x;
-          const float d1 = x1 - xj.y;
-          const float kk = ex2((d0 * d0 + d1 * d1) * k.ck);
-          rows = rows + kk;
-          drive0 = drive0 + kk * tj.x;
-          drive1 = drive1 + kk * tj.y;
-        }
+        const float4 q = xa[col(c)];  // x_j, then its drive term
+        const float d0 = x0 - q.x;
+        const float d1 = x1 - q.y;
+        const float kk =
+            ex2(real(c) ? (d0 * d0 + d1 * d1) * k.ck : -INFINITY);
+        rows = rows + kk;
+        drive0 = drive0 + kk * q.z;
+        drive1 = drive1 + kk * q.w;
       }
       rows = lane_group_sum<kLanes>(rows, mask);
       drive0 = lane_group_sum<kLanes>(drive0, mask);
@@ -364,15 +442,45 @@ __device__ inline void stein_loop_reg(const float* __restrict__ x_in,
       x1 = x1 + k.lr * div_rn(drive1 + rows * x1 * k.inv_bw2, k.fm, inv_fm);
       // read by the other rows after the next iteration's barrier, which
       // this buffer's previous readers (the last iteration's walk) passed
-      if (l == 0) xn[i] = make_float2(x0, x1);
+      if (l == 0)
+        reinterpret_cast<float2*>(xn + i)[0] = make_float2(x0, x1);
     }
     clk.mark(kClkDrive);
   }
-  if (row && l == 0) {
-    x_out[2 * i] = x0;
-    x_out[2 * i + 1] = x1;
-  }
+  if (row && l == 0) io.store(i, x0, x1);
   clk.mark(kClkStore);
+}
+
+// The MPF loop of the episode kernels (K4/K5, K14) on their particles
+// x0/x1 [m] in shared memory, which are also the centers and take the
+// result: the register loop where m fits its columns (kEpisodeRegCols;
+// blockDim.x >= kRowLanes * m), the shared walk otherwise. x0/x1: 2 m
+// floats, 8-byte aligned; w: 8 m floats of shared scratch, 16-byte
+// aligned (the register loop's float4 particles and drive terms; the
+// shared walk's centers, drive terms and new particles). Ends with a
+// block barrier.
+template <class LikGrad>
+__device__ inline void episode_stein_loop(float* x0, float* x1, float* w,
+                                          int m, int n_steps,
+                                          const MpfConsts& k,
+                                          const LikGrad& lik) {
+  NoClock clk;
+  if (m > kRowLanes * (kEpisodeRegCols - 1) &&
+      m <= kRowLanes * kEpisodeRegCols) {
+    stein_loop_reg<kRowLanes, kEpisodeRegCols, kEpisodeRegCols - 1>(
+        SplitIo{x0, x1}, reinterpret_cast<float4*>(w), m, n_steps, k, lik,
+        clk);
+    __syncthreads();
+  } else {
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+      w[i] = x0[i];
+      w[m + i] = x1[i];
+    }
+    __syncthreads();
+    stein_loop<kRowLanes>(x0, x1, w, w + m, w + 2 * m, w + 3 * m, w + 4 * m,
+                          w + 5 * m, w + 6 * m, w + 7 * m, m, n_steps, k, lik,
+                          clk);
+  }
 }
 
 }  // namespace dust_mpf

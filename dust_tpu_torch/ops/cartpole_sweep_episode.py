@@ -141,6 +141,8 @@ def plain_cartpole_sweep_groups(*args, **kwargs):
 
 
 fused_cartpole_sweep_groups.launches = 0
+fused_cartpole_sweep_groups.mpf_reg_launches = 0
+fused_cartpole_sweep_groups.mpf_smem_launches = 0
 fused_cartpole_sweep_groups.input_hits = 0
 fused_cartpole_sweep_groups.input_builds = 0
 # the prepared inputs of `_sweep_groups` (both runners)

@@ -409,13 +409,17 @@ def run_episodes(wrapper, inputs, st, kernel=PENDULUM):
     eps/pdz/pdu (host-noise mode) or None. On CUDA tensors `inputs` may
     instead hold the kernel's form, as a sweep keeps it:
     `kernel_statics`' entries and `ep_i` (`episode_ids`) in place of
-    seeds and scenario. Returns the plain version's 5 outputs."""
+    seeds and scenario. A launch is also counted by the MPF loop it takes
+    (`mpf.episode_register_loop`), in `wrapper.mpf_reg_launches` or
+    `wrapper.mpf_smem_launches`. Returns the plain version's 5
+    outputs."""
     dev = inputs["theta0"].device
     if dev.type == "cpu":
         return kernel.plain(inputs, st)
     if dev.type != "cuda":
         raise ValueError(f"unsupported device {dev}")
     from ._build import check, load_library
+    from .mpf import episode_register_loop
 
     if "ep_i" not in inputs:
         inputs = dict(inputs, **kernel_statics(inputs, st, kernel),
@@ -449,6 +453,10 @@ def run_episodes(wrapper, inputs, st, kernel=PENDULUM):
         torch.cuda.current_stream(dev).cuda_stream,
     )
     wrapper.launches += 1
+    if episode_register_loop(m_mpf):
+        wrapper.mpf_reg_launches += 1
+    else:
+        wrapper.mpf_smem_launches += 1
     check(rc, kernel.entry)
     return log, theta, locs, amat, mpf_x
 
@@ -538,6 +546,8 @@ def fused_pendulum_episode(*args, **kwargs):
 
 
 fused_pendulum_episode.launches = 0
+fused_pendulum_episode.mpf_reg_launches = 0
+fused_pendulum_episode.mpf_smem_launches = 0
 
 
 def plain_pendulum_episode(*args, **kwargs):

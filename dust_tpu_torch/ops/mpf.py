@@ -41,12 +41,26 @@ EPISODE_ROW_LANES = 4
 # K2 keeps each lane's centers in registers up to this many particles
 # (csrc/pendulum_mpf.cu:kRegMax)
 REGISTER_MAX = 64
+# the episode kernels' (K4/K5, K14) register loop: a row per quad, each
+# lane holding EPISODE_REGISTER_COLS columns or one fewer, so it serves
+# EPISODE_REGISTER_MIN <= m_mpf <= EPISODE_REGISTER_MAX (49-52); the
+# shared-memory walk every other size (csrc/pendulum_mpf.cuh:kEpisodeRegCols)
+EPISODE_REGISTER_COLS = 13
+EPISODE_REGISTER_MAX = EPISODE_ROW_LANES * EPISODE_REGISTER_COLS
+EPISODE_REGISTER_MIN = EPISODE_ROW_LANES * (EPISODE_REGISTER_COLS - 1) + 1
 # the phases of K2 that its clocked build times, in order
 # (csrc/pendulum_mpf.cuh, kClkLoad ... kClkStore); the two of an iteration
 # are summed over the iterations
 CLOCK_PHASES = ("load", "prior_score", "drive_update", "store")
 # `with phase_clock() as rows:` launches K2's clocked build
 phase_clock = PhaseClock(CLOCK_PHASES)
+
+
+def episode_register_loop(m_mpf):
+    """Whether an episode kernel's MPF update over m_mpf particles takes
+    the register loop (`stein_loop_reg`) rather than the shared-memory walk
+    (`stein_loop`): csrc/pendulum_mpf.cuh:episode_stein_loop's rule."""
+    return EPISODE_REGISTER_MIN <= m_mpf <= EPISODE_REGISTER_MAX
 
 
 def _scalars(x, past_obs, loc, action, bw, prior_bw, lr, obs_sigma):

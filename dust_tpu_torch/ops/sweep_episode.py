@@ -324,6 +324,8 @@ def fused_pendulum_sweep_episode(
 
 
 fused_pendulum_sweep_episode.launches = 0
+fused_pendulum_sweep_episode.mpf_reg_launches = 0
+fused_pendulum_sweep_episode.mpf_smem_launches = 0
 fused_pendulum_sweep_episode.input_hits = 0
 fused_pendulum_sweep_episode.input_builds = 0
 # the prepared inputs of `_sweep_groups` (both runners)

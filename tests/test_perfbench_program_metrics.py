@@ -1,7 +1,7 @@
 """The benchmark's readers of the program's spans, phase clock and
 counters (`perfbench/metrics/{sweep_prep_ms,idle_in_program_pct,
 step_rollout_us,step_svmpc_us,step_mpf_us,sweep_inputs_hit_pct,
-rollout_ns_per_traj_step}.py`,
+rollout_ns_per_traj_step,mpf_reg_loop_pct}.py`,
 `perfbench/phases.py`): each reads None without a device trace, the
 program's spans, clock rows or counters (a program without them, the
 CPU), and the right value from a stub `Trace`, a stub runner whose
@@ -195,6 +195,50 @@ def test_inputs_hit_reader_on_the_programs_adapter():
     got = _read("sweep_inputs_hit_pct", runner=runner, trace=None)
     total = wrapper.input_hits + wrapper.input_builds
     assert got == pytest.approx(100.0 * wrapper.input_hits / total)
+
+
+@pytest.mark.parametrize("reg,smem,want", [(5, 0, 100.0), (3, 1, 75.0),
+                                            (0, 2, 0.0)])
+def test_mpf_reg_loop_reader_on_a_stub_runner(reg, smem, want):
+    """`mpf_reg_loop_pct`: 100 x register-loop launches over all episode
+    launches of the wrapper that the sweep adapter names."""
+    runner = _counting_runner(mpf_reg_launches=reg, mpf_smem_launches=smem)
+    got = _read("mpf_reg_loop_pct", runner=runner, trace=None)
+    assert got == pytest.approx(want)
+
+
+@pytest.mark.parametrize("runner", [
+    SimpleNamespace(),
+    SimpleNamespace(sweep=SimpleNamespace(sweep_fn=SimpleNamespace())),
+    _counting_runner(launches=3),
+    _counting_runner(mpf_reg_launches=4),
+    _counting_runner(mpf_reg_launches=0, mpf_smem_launches=0),
+], ids=["no sweep", "adapter without a wrapper", "wrapper without the "
+        "counters", "one counter only", "no launch"])
+def test_mpf_reg_loop_reader_reads_none_without_counters(runner):
+    assert _read("mpf_reg_loop_pct", runner=runner, trace=None) is None
+
+
+def test_mpf_reg_loop_counters_on_the_programs_wrappers():
+    """The episode wrappers that `run_episodes` counts carry both
+    counters from import (K4, K5's sweep, K14's sweep); the particle
+    sweep's wrapper (K10, which runs no pendulum MPF loop) carries
+    neither, so its cell reads None."""
+    from dust_tpu_torch.ops import (
+        cartpole_sweep_episode,
+        particle_sweep_episode,
+        sweep_episode,
+    )
+
+    for wrapper in (episode.fused_pendulum_episode,
+                    sweep_episode.fused_pendulum_sweep_episode,
+                    cartpole_sweep_episode.fused_cartpole_sweep_groups):
+        assert isinstance(wrapper.mpf_reg_launches, int)
+        assert isinstance(wrapper.mpf_smem_launches, int)
+    runner = _counting_runner()
+    runner.sweep.sweep_fn.wrapper = \
+        particle_sweep_episode.fused_particle_sweep_episode
+    assert _read("mpf_reg_loop_pct", runner=runner, trace=None) is None
 
 
 @pytest.mark.parametrize("phases", [episode.CLOCK_PHASES,

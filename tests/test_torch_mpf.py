@@ -227,6 +227,36 @@ def test_plain_k2_needs_its_lane_count():
         x, x, scal, lanes=tmpf.ROW_LANES, n_steps=2).shape == x.shape
 
 
+def test_episode_register_range_is_the_kernels():
+    """The Python rule's range (`EPISODE_REGISTER_MIN`..`MAX`) is the
+    episode kernels' (csrc/pendulum_mpf.cuh: kRowLanes lanes a row, each
+    holding kEpisodeRegCols columns or one fewer), read from the source
+    text, and one row per quad of the kernels' 256 threads reaches it."""
+    import re
+    from pathlib import Path
+
+    src = (Path(tmpf.__file__).resolve().parents[1] / "csrc"
+           / "pendulum_mpf.cuh").read_text()
+    cols = re.findall(r"constexpr int kEpisodeRegCols = (\d+);", src)
+    lanes = re.findall(r"constexpr int kRowLanes = (\d+);", src)
+    assert cols == [str(tmpf.EPISODE_REGISTER_COLS)]
+    assert lanes == [str(tmpf.EPISODE_ROW_LANES)]
+    assert (tmpf.EPISODE_REGISTER_MIN, tmpf.EPISODE_REGISTER_MAX) == (49, 52)
+    assert tmpf.EPISODE_REGISTER_MAX * tmpf.EPISODE_ROW_LANES <= 256
+
+
+@pytest.mark.parametrize("m_mpf,register", [
+    (49, True), (50, True), (52, True),
+    (1, False), (48, False), (53, False), (64, False), (65, False),
+    (256, False)])
+def test_episode_mpf_path_rule(m_mpf, register):
+    """The episode kernels' MPF update takes the register loop where each
+    lane's 13 columns are full or all but one (49-52, the demos' 50) and
+    the shared-memory walk at every other size; `run_episodes` counts each
+    launch by this rule."""
+    assert tmpf.episode_register_loop(m_mpf) is register
+
+
 def test_init_state_vector_bandwidth():
     """Default init: statsmodels Silverman, a per-dim vector; the prior is
     diagonal per dim and prior_bw is its mean (what K2 reads)."""
