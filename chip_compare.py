@@ -20,11 +20,14 @@ draw means on their own), K2, K3 (its costs also on their own), K6, K7
 episode, a 20-step K5 sweep on fixed seeded inputs (host noise) at the
 demo's 50 MPF particles and at 48, 49, 52, 53, 64, 100 and 256 (both MPF
 loops of the episode kernels), the timed 200-step K5 and K14 sweeps
-(device noise) and a 200-step K9 episode (device noise), so that two
-trees can be held bit for bit. It also times one 256-episode K14 sweep
-(path 16, as K5's) and reads the registers and spill bytes of the episode
-kernels K4/K5, K9/K10 and K14 from the build's ptxas report (empty where
-the library was already built). Where the tree has them, it prints the
+(device noise), a 200-step K9 episode (device noise) and a 20-step K10
+sweep (its final log-weights with it; device noise and host noise), so
+that two trees can be held bit for bit, and reads the episode wrappers'
+launch, prepared-input and MPF-loop counters after its calls. It also
+times one 256-episode K14 sweep (path 16, as K5's) and reads the
+registers and spill bytes of the episode kernels K4/K5, K9/K10 and K14
+from the build's ptxas report (empty where the library was already
+built). Where the tree has them, it prints the
 per-phase clocks of K1, K2, K3, K6 and K7 (their clocked builds,
 `chip_smoke._phase_clock`). It prints one line, `RESULT {json}`. To
 compare a parent and a change, unpack both (`git archive`) and run the
@@ -66,8 +69,12 @@ from dust_tpu_torch.experiments import (  # noqa: E402
 )
 from dust_tpu_torch.models import PendulumModel  # noqa: E402
 from dust_tpu_torch.ops import gmm, mpf, mpf_stream, rollout, solve, svgd  # noqa: E402
+from dust_tpu_torch.ops import cartpole_sweep_episode as cse  # noqa: E402
+from dust_tpu_torch.ops import episode as ep  # noqa: E402
+from dust_tpu_torch.ops import particle_episode as pe  # noqa: E402
 from dust_tpu_torch.ops import particle_mpf as pm  # noqa: E402
 from dust_tpu_torch.ops import particle_rollout as pr  # noqa: E402
+from dust_tpu_torch.ops import particle_sweep_episode as pse  # noqa: E402
 from dust_tpu_torch.ops import sweep_episode  # noqa: E402
 from dust_tpu_torch.simulation import (  # noqa: E402
     megakernel_particle_episode_fn,
@@ -381,4 +388,25 @@ res["k9_sha256"] = sha256(k9_out[k] for k in sorted(k9_out)
 groups, seeds, masses, _ = cs._bench_particle_sweep(dev, cs.MAIN_STEPS)
 res["k10_ms_per_sweep"] = statistics.median(
     cs._event_ms(lambda: groups.run(seeds(1), masses), 3))
+# K10's outputs, its final prior log-weights among them, on a fixed 20-step
+# sweep of 8 scenarios x 4 chains, in device-RNG and in host-noise mode
+k10_masses = torch.linspace(1.6, 2.4, cs.PSWEEP_SC, device=dev)
+k10_noise = tuple(v[None] for v in cs._psweep_noise(
+    cs.PSWEEP_SC, cs.PSWEEP_CHAINS, steps, cs.SEED + 61, dev))
+for key, nz in (("k10_sha256", None), ("k10_host_noise_sha256", k10_noise)):
+    k10_out = cs._psweep_call(
+        pse.fused_particle_sweep_groups, cfg, stack,
+        torch.tensor([[3, 7]], device=dev), k10_masses, steps, cs.PSWEEP_SC,
+        cs.PSWEEP_CHAINS, noise=nz)
+    res[key] = sha256(k10_out[k] for k in sorted(k10_out))
+# the episode wrappers' counters after this script's calls (None where the
+# tree's wrapper has no such counter)
+res["counters"] = {
+    w.__name__: {k: getattr(w, k, None) for k in (
+        "launches", "input_hits", "input_builds", "mpf_reg_launches",
+        "mpf_smem_launches")}
+    for w in (ep.fused_pendulum_episode,
+              sweep_episode.fused_pendulum_sweep_episode,
+              pe.fused_particle_episode, pse.fused_particle_sweep_episode,
+              cse.fused_cartpole_sweep_groups)}
 print("RESULT", json.dumps(res), flush=True)

@@ -23,11 +23,11 @@ version also takes the draws as tensors (eps [B, steps, hz, m, n_act],
 pdz [B, steps, n_params, 2], pdu [B, steps, n_params]), so a test can
 feed it and another implementation the same noise.
 
-* On CUDA tensors `episode.run_episodes(..., KERNEL)` launches the
-  hand-written kernel `csrc/cartpole_episode.cu`: one block per episode,
-  the rollouts and likelihood gradient in `csrc/cartpole.cuh`, the SVMPC
-  solve in
-  `stein.cuh`, the MPF Stein loop K4/K5's (`pendulum_mpf.cuh:stein_loop`).
+* On CUDA tensors `episode_kernel.run_episodes(..., KERNEL)` launches
+  the hand-written kernel `csrc/cartpole_episode.cu`: one block per
+  episode, the rollouts and likelihood gradient in `csrc/cartpole.cuh`,
+  the SVMPC solve in `stein.cuh`, the MPF Stein loop K4/K5's
+  (`pendulum_mpf.cuh:stein_loop`).
 * On CPU tensors it runs `cartpole_episode_plain`, the same arithmetic in
   plain PyTorch, batched over episodes (its MPF loop is
   `ops/mpf.py:stein_loop_plain` with `lik_grad`).
@@ -39,14 +39,8 @@ import math
 
 import torch
 
-from .episode import (
-    CLOCK_PHASES,
-    EpisodeKernel,
-    device_noise,
-    episode_scal,
-    mpf_scalars,
-    silverman_rows,
-)
+from .episode import CLOCK_PHASES, device_noise, episode_scal, silverman_rows
+from .episode_kernel import EpisodeKernel, mpf_scalars
 from .phase_clock import PhaseClock
 
 LOG_FIELDS = ("x", "x_dot", "th", "th_dot", "action", "cost", "bw_sv",
@@ -320,8 +314,8 @@ def episode_statics(steps, hz, m, n_params, n_act, m_mpf, mpf_steps, dt,
 
 
 def episode_plain(inputs, st):
-    """The plain version on canonical inputs (see `episode.run_episodes`),
-    on the device they lie on."""
+    """The plain version on canonical inputs (see
+    `episode_kernel.run_episodes`), on the device they lie on."""
     skip = ("m", "hz", "m_mpf")
     return cartpole_episode_plain(
         **inputs, **{k: v for k, v in st.items() if k not in skip})
@@ -337,8 +331,7 @@ def _scalars(st):
     )
 
 
-# K14 for `episode.run_episodes` and `episode.kernel_statics`; its entry
-# draws its own noise
+# K14 for `episode_kernel.run_episodes`; its entry draws its own noise
 KERNEL = EpisodeKernel(
     entry="dust_cartpole_episodes",
     # looked up at each call, so that a test can swap the module's

@@ -10,7 +10,7 @@ zero (the adapter asserts it, as the pendulum's does).
 `MegakernelGroupSweep` path). On CPU tensors it runs the plain version,
 `ops.cartpole_episode.cartpole_episode_plain`, batched over all episodes.
 The kernel keys each episode's draws by (chain seed, step, scenario
-index), as the pendulum's sweep does (`ops/sweep_episode.py:SeedRows`).
+index), as the pendulum's sweep does (`ops/sweep_inputs.py:SeedRows`).
 """
 
 from __future__ import annotations
@@ -19,31 +19,13 @@ import torch
 
 from .cartpole_episode import (
     KERNEL,
-    LOG_FIELDS,
     MODEL_KEYS,
     cartpole_scal,
     episode_plain,
     episode_statics,
 )
-from .episode import kernel_statics, run_episodes
-from .sweep_episode import SeedRows, _round8, run_sweep
-from .sweep_inputs import InputCache, Prepared
-
-
-def check_cartpole_sweep_dims(n_sc, hz, m, n_params, n_act, m_mpf):
-    """The pendulum sweep's limits (`ops/sweep_episode.py`), which the
-    kernel's shared memory and one lane row of MPF particles set."""
-    if n_sc > 16:
-        raise ValueError("cartpole sweep kernel: n_sc <= 16 per program "
-                         "(batch larger sweeps on the group axis)")
-    if hz > 128 or n_act > 128:
-        raise ValueError("cartpole sweep kernel: hz<=128, n_act<=128")
-    if n_params > 8:
-        raise ValueError("cartpole sweep kernel: n_params <= 8")
-    if m * hz > 128:
-        raise ValueError("cartpole sweep kernel: m*hz <= 128")
-    if _round8(max(m_mpf, 8)) > 64:
-        raise ValueError("cartpole sweep kernel: m_mpf <= 64")
+from .episode_kernel import run_episodes
+from .sweep_inputs import InputCache, check_sweep_dims, prepared, run_sweep
 
 
 def _prepare(runner, seeds_shape, state0, theta0, locs0, a_mat0, mpfx0,
@@ -56,7 +38,8 @@ def _prepare(runner, seeds_shape, state0, theta0, locs0, a_mat0, mpfx0,
     """The `Prepared` inputs of one argument set of `_sweep_groups`: on
     CUDA tensors the kernel's form (`kernel_statics`), else the plain
     version's."""
-    check_cartpole_sweep_dims(n_sc, hz, m, n_params, n_act, m_mpf)
+    check_sweep_dims("cartpole sweep kernel", n_sc, hz, m, n_params, n_act,
+                     m_mpf)
     dev = torch.as_tensor(theta0).device
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
     G, C = seeds_shape[0], n_chains
@@ -78,24 +61,15 @@ def _prepare(runner, seeds_shape, state0, theta0, locs0, a_mat0, mpfx0,
         mpfx0=mpfx0[None].expand(G * C, n_sc, m_mpf, 2).reshape(
             B, m_mpf, 2),
     )
-    packed = runner is _launch_k14 and dev.type == "cuda"
-    if packed:
-        inputs = kernel_statics(inputs, st, KERNEL)
-    k = seeds_shape[1] if len(seeds_shape) == 3 else 1
-    return Prepared(
-        inputs=inputs, statics=st,
-        rows=SeedRows(G, k, C, n_sc, dev, packed),
-        noise=None,
-        dims=dict(lead=(G, C) if n_chains > 1 else (G,), n_sc=n_sc,
-                  steps=steps, m=m, hz=hz, m_mpf=m_mpf, fields=LOG_FIELDS))
+    return prepared(KERNEL, _launch_k14, runner, inputs, st, seeds_shape,
+                    C, n_sc)
 
 
 def _sweep_groups(runner, seeds, state0, theta0, *args, **kwargs):
     """`fused_cartpole_sweep_groups`, with the runner of the canonical
-    inputs (the kernel or the plain version) first: the pendulum's sweep
-    call (`sweep_episode.run_sweep`, its spans and prepared inputs),
-    counted in `fused_cartpole_sweep_groups.input_hits` /
-    `.input_builds`."""
+    inputs (the kernel or the plain version) first
+    (`sweep_inputs.run_sweep`; counted in
+    `fused_cartpole_sweep_groups.input_hits` / `.input_builds`)."""
     return run_sweep(runner, _prepare, _INPUTS, fused_cartpole_sweep_groups,
                      seeds, state0, theta0, args, kwargs)
 

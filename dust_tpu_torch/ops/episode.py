@@ -29,8 +29,9 @@ Noise has two modes:
   `dust_tpu/ops/pallas_episode.py:fused_pendulum_episode`): a cluster of
   four blocks runs the whole episode, sharing out the noise and the
   rollouts; the solve, the simulator and the MPF loop (K2's device code)
-  follow each other inside it. A sweep (`ops/sweep_episode.py`) runs one
-  block per episode with the same bits.
+  follow each other inside it (the launch: `PENDULUM` on
+  `ops/episode_kernel.py:run_episodes`). A sweep (`ops/sweep_episode.py`)
+  runs one block per episode with the same bits.
 * On CPU tensors it runs `pendulum_episode_plain`, the same arithmetic in
   plain PyTorch, batched over episodes (the sweep, `ops/sweep_episode.py`,
   shares it).
@@ -39,11 +40,15 @@ Noise has two modes:
 from __future__ import annotations
 
 import math
-from dataclasses import dataclass
-from typing import Callable
 
 import torch
 
+from .episode_kernel import (
+    EpisodeKernel,
+    mpf_scalars,
+    run_episodes,
+    split_log,
+)
 from .phase_clock import PhaseClock
 
 _MAX_SPEED = 8.0
@@ -324,20 +329,11 @@ def episode_statics(steps, warm_up, hz, m, n_params, n_act, m_mpf, mpf_steps,
 
 
 def episode_plain(inputs, st):
-    """The plain version on canonical inputs (see `run_episodes`), on the
-    device they lie on."""
+    """The plain version on canonical inputs (see
+    `episode_kernel.run_episodes`), on the device they lie on."""
     skip = ("m", "hz", "m_mpf")
     return pendulum_episode_plain(
         **inputs, **{k: v for k, v in st.items() if k not in skip})
-
-
-def mpf_scalars(st):
-    """The last scalars of an episode kernel's C entry, from the statics:
-    exp_util, log_space, fixed_bw, mpf_fixed_bw, mpf_bw_scale."""
-    fixed = st["mpf_fixed_bw"]
-    return (int(st["exp_util"]), int(st["mpf_log_space"]),
-            int(fixed is not None), 0.0 if fixed is None else fixed,
-            st["mpf_bw_scale"])
 
 
 def _pendulum_scalars(st):
@@ -352,26 +348,7 @@ def _pendulum_scalars(st):
     )
 
 
-@dataclass(frozen=True)
-class EpisodeKernel:
-    """What `run_episodes` launches: a whole-episode kernel's C entry, its
-    plain version on canonical inputs (`plain(inputs, st)`), its log's
-    fields, its clock, the inputs its entry takes by pointer before the
-    noise, in the entry's order (`ep_i` among them; the others are the
-    static inputs `kernel_statics` makes), whether the entry takes host
-    noise (eps, pdz, pdu and a `host_noise` flag), and `scalars(st)`, the
-    entry's scalars after B."""
-
-    entry: str
-    plain: Callable
-    log_fields: tuple
-    clock: PhaseClock
-    pointers: tuple
-    host_noise: bool
-    scalars: Callable
-
-
-# K4 and K5 (csrc/pendulum_episode.cu)
+# K4 and K5 (csrc/pendulum_episode.cu) for `episode_kernel.run_episodes`
 PENDULUM = EpisodeKernel(
     entry="dust_pendulum_episodes",
     # looked up at each call, so that a test can swap the module's
@@ -380,90 +357,6 @@ PENDULUM = EpisodeKernel(
     pointers=("scal", "ep_f", "ep_i", "theta0", "locs0", "amat0", "a_seq",
               "mpfx0"),
     host_noise=True, scalars=_pendulum_scalars)
-
-
-def kernel_statics(inputs, st, kernel=PENDULUM):
-    """The kernel's operands that do not change with the seeds or the host
-    noise, from canonical inputs: each static input contiguous and `args`,
-    the scalars of the kernel's C entry from B on. A sweep makes them once
-    per argument set (`ops/sweep_episode.py`)."""
-    out = {k: None if inputs[k] is None else inputs[k].contiguous()
-           for k in kernel.pointers if k != "ep_i"}
-    out["args"] = (inputs["theta0"].shape[0], *kernel.scalars(st))
-    return out
-
-
-def episode_ids(seeds, scenario):
-    """The kernel's per-episode integers [B, 3] int32: the two seed words
-    and the scenario index."""
-    return torch.cat([seeds, scenario[:, None]], dim=1).to(torch.int32)
-
-
-def run_episodes(wrapper, inputs, st, kernel=PENDULUM):
-    """Run B episodes from canonical inputs: the plain version on CPU
-    tensors, the kernel (`kernel.entry`; K4 and K5 share
-    `dust_pendulum_episodes`) on CUDA tensors (one launch, counted in
-    `wrapper.launches`). inputs: scal, ep_f [B, 2], seeds [B, 2], scenario
-    [B], theta0/locs0/amat0 [B, m, hz], mpfx0 [B, m_mpf, 2], the
-    kernel's other pointers (the pendulum's a_seq [hz] or None),
-    eps/pdz/pdu (host-noise mode) or None. On CUDA tensors `inputs` may
-    instead hold the kernel's form, as a sweep keeps it:
-    `kernel_statics`' entries and `ep_i` (`episode_ids`) in place of
-    seeds and scenario. A launch is also counted by the MPF loop it takes
-    (`mpf.episode_register_loop`), in `wrapper.mpf_reg_launches` or
-    `wrapper.mpf_smem_launches`. Returns the plain version's 5
-    outputs."""
-    dev = inputs["theta0"].device
-    if dev.type == "cpu":
-        return kernel.plain(inputs, st)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    from ._build import check, load_library
-    from .mpf import episode_register_loop
-
-    if "ep_i" not in inputs:
-        inputs = dict(inputs, **kernel_statics(inputs, st, kernel),
-                      ep_i=episode_ids(inputs["seeds"], inputs["scenario"]))
-    B = inputs["theta0"].shape[0]
-    hz, m, m_mpf = st["hz"], st["m"], st["m_mpf"]
-    eps, pdz, pdu = (None if inputs.get(k) is None else inputs[k].contiguous()
-                     for k in ("eps", "pdz", "pdu"))
-    host_noise = eps is not None
-    if host_noise and not kernel.host_noise:
-        raise ValueError(f"{kernel.entry} draws its own noise")
-    if not host_noise:
-        # per-step draws are written here by the kernel and read back
-        eps = torch.empty((B, hz, m, st["n_act"]), dtype=torch.float32,
-                          device=dev)
-    log = torch.empty((B, st["steps"], len(kernel.log_fields)),
-                      dtype=torch.float32, device=dev)
-    theta, locs, amat = (torch.empty((B, m, hz), dtype=torch.float32,
-                                     device=dev) for _ in range(3))
-    mpf_x = torch.empty((B, m_mpf, 2), dtype=torch.float32, device=dev)
-    clock = kernel.clock.rows(B, dev)
-    # every tensor stays referenced here until the launch is queued: a
-    # temporary's memory could be handed to the next allocation
-    noise = [eps, pdz, pdu] if kernel.host_noise else [eps]
-    tensors = [*(inputs[k] for k in kernel.pointers), *noise, log, theta,
-               locs, amat, mpf_x, clock]
-    flag = (int(host_noise),) if kernel.host_noise else ()
-    rc = getattr(load_library(), kernel.entry)(
-        *(None if t is None else t.data_ptr() for t in tensors),
-        *inputs["args"], *flag,
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    wrapper.launches += 1
-    if episode_register_loop(m_mpf):
-        wrapper.mpf_reg_launches += 1
-    else:
-        wrapper.mpf_smem_launches += 1
-    check(rc, kernel.entry)
-    return log, theta, locs, amat, mpf_x
-
-
-def split_log(log, fields=LOG_FIELDS):
-    """log [..., steps, len(fields)] -> {field: [..., steps]}."""
-    return {k: log[..., i] for i, k in enumerate(fields)}
 
 
 def _episode(
@@ -506,13 +399,13 @@ def _episode(
         inputs["pdz"] = f32(host_pdz)[:, :n_params, :2][None]
         inputs["pdu"] = f32(host_pdu)[:, :n_params, 0][None]
     log, theta, locs, amat, mpf_x = runner(inputs, st)
-    out = split_log(log[0])
+    out = split_log(log[0], LOG_FIELDS)
     out.update(theta=theta[0], locs=locs[0], a_mat=amat[0], mpf_x=mpf_x[0])
     return out
 
 
 def _launch_k4(inputs, st):
-    return run_episodes(fused_pendulum_episode, inputs, st)
+    return run_episodes(fused_pendulum_episode, inputs, st, PENDULUM)
 
 
 def fused_pendulum_episode(*args, **kwargs):

@@ -32,7 +32,8 @@ Noise has two modes, as in the pendulum episode (`ops/episode.py`):
 * On CUDA tensors `fused_particle_episode` launches the hand-written
   kernel `csrc/particle_episode.cu` (which replaces the TPU kernel
   `dust_tpu/ops/pallas_particle_episode.py:fused_particle_episode`): one
-  persistent block per episode.
+  persistent block per episode (the launch: `K9` on
+  `ops/episode_kernel.py:run_episodes`).
 * On CPU tensors it runs `particle_episode_plain`, the same arithmetic in
   plain PyTorch, batched over episodes.
 """
@@ -40,11 +41,18 @@ Noise has two modes, as in the pendulum episode (`ops/episode.py`):
 from __future__ import annotations
 
 import math
+from dataclasses import replace
 
 import torch
 
-from .episode import _normals_at, bits_to_uniform, counter_bits, rng_key
-from .episode import episode_ids, silverman_rows
+from .episode import (
+    _normals_at,
+    bits_to_uniform,
+    counter_bits,
+    rng_key,
+    silverman_rows,
+)
+from .episode_kernel import EpisodeKernel, run_episodes
 from .phase_clock import PhaseClock
 
 LOG_FIELDS = ("px", "py", "vx", "vy", "a_x", "a_y", "cost", "done",
@@ -244,107 +252,47 @@ def particle_episode_plain(scal, base_mass, seeds, scenario, log_mix0,
 
 
 def episode_plain(inputs, sp):
-    """The plain version on canonical inputs (see `run_particle_episodes`),
-    on the device they lie on."""
+    """The plain version on canonical inputs (see
+    `episode_kernel.run_episodes`), on the device they lie on."""
     return particle_episode_plain(
         **inputs, **{k: v for k, v in sp.items()
                      if k not in ("m", "hz", "m_mpf")})
 
 
-# the inputs that stay the same over a sweep's calls, in the order of the
-# kernel's pointers after the model
-_STATIC_INPUTS = ("scal", "base_mass", "log_mix0", "theta0", "locs0",
-                  "amat0", "a_seq", "mpfx0")
-
-
-def kernel_statics(inputs, sp):
-    """The kernel's operands that do not change with the seeds or the host
-    noise, from canonical inputs: the model array, each static input
-    contiguous and `args`, the scalars of `dust_particle_episodes` from B
-    to `mpf_bw_scale`. A sweep makes them once per argument set
-    (`ops/particle_sweep_episode.py`)."""
+def _model(sp, device):
+    """The kernel's model array, from the rollout statics."""
     from .particle_rollout import model_tensor
 
     st = sp["st"]
-    dev = inputs["theta0"].device
-    out = {k: None if inputs[k] is None else inputs[k].contiguous()
-           for k in _STATIC_INPUTS}
-    out["model"] = model_tensor(st, st["dt"], st["max_acc"],
-                                st["max_speed"], dev)
-    out["args"] = (
-        inputs["theta0"].shape[0], sp["steps"], sp["warm_up"], sp["hz"],
-        sp["m"], sp["n_params"], sp["n_act"], sp["m_mpf"], sp["mpf_steps"],
-        sp["change_at"],
+    return {"model": model_tensor(st, st["dt"], st["max_acc"],
+                                  st["max_speed"], device)}
+
+
+def _scalars(sp):
+    return (
+        sp["steps"], sp["warm_up"], sp["hz"], sp["m"], sp["n_params"],
+        sp["n_act"], sp["m_mpf"], sp["mpf_steps"], sp["change_at"],
         float(sp["success_dist"]) * float(sp["success_dist"]),
         math.log(float(sp["n_act"])), int(sp["exp_util"]),
         int(sp["weighted_prior"]), int(sp["mpf_log_space"]),
         int(sp["use_fixed_mpf_bw"]), float(sp["mpf_bw_scale"]),
     )
-    return out
 
 
-def run_particle_episodes(wrapper, inputs, sp, log_mix=False):
-    """Run B episodes from canonical inputs: the plain version on CPU
-    tensors, the kernel (C entry `dust_particle_episodes`) on CUDA tensors
-    (one launch, counted in `wrapper.launches`). inputs: scal, base_mass
-    [B], seeds [B, 2], scenario [B], log_mix0 [m], theta0/locs0/amat0
-    [B, m, hz * 2], a_seq [hz * 2], mpfx0 [B, m_mpf], eps/pdz/pdu
-    (host-noise mode) or None. On CUDA tensors `inputs` may instead hold
-    the kernel's form, as a sweep keeps it: `kernel_statics`' entries and
-    `ep_i` (`ops.episode.episode_ids`) in place of seeds and scenario.
-    sp: the statics of `particle_episode_plain` plus m, hz, m_mpf. Returns
-    the plain version's 6 outputs; the kernel writes the last (the final
-    prior log-weights) only when `log_mix`, else it is None."""
-    dev = inputs["theta0"].device
-    if dev.type == "cpu":
-        return episode_plain(inputs, sp)
-    if dev.type != "cuda":
-        raise ValueError(f"unsupported device {dev}")
-    from ._build import check, load_library
-
-    if "ep_i" not in inputs:
-        inputs = dict(inputs, **kernel_statics(inputs, sp),
-                      ep_i=episode_ids(inputs["seeds"], inputs["scenario"]))
-    B = inputs["theta0"].shape[0]
-    hz, m, m_mpf, n_act = sp["hz"], sp["m"], sp["m_mpf"], sp["n_act"]
-    eps, pdz, pdu = (None if inputs[k] is None else inputs[k].contiguous()
-                     for k in ("eps", "pdz", "pdu"))
-    host_noise = eps is not None
-    if not host_noise:
-        # per-step draws are written here by the kernel and read back
-        eps = torch.empty((B, 2 * hz * m * n_act), dtype=torch.float32,
-                          device=dev)
-    log = torch.empty((B, sp["steps"], len(LOG_FIELDS)), dtype=torch.float32,
-                      device=dev)
-    theta, locs, amat = (torch.empty((B, m, 2 * hz), dtype=torch.float32,
-                                     device=dev) for _ in range(3))
-    mpf_x = torch.empty((B, m_mpf), dtype=torch.float32, device=dev)
-    logmix = torch.empty((B, m), dtype=torch.float32, device=dev) \
-        if log_mix else None
-    clock = phase_clock.rows(B, dev)
-    # every tensor stays referenced here until the launch is queued: a
-    # temporary's memory could be handed to the next allocation
-    tensors = [inputs["model"], inputs["scal"], inputs["base_mass"],
-               inputs["ep_i"], inputs["log_mix0"], inputs["theta0"],
-               inputs["locs0"], inputs["amat0"], inputs["a_seq"],
-               inputs["mpfx0"], eps, pdz, pdu, log, theta, locs, amat, mpf_x,
-               logmix, clock]
-    rc = load_library().dust_particle_episodes(
-        *(None if t is None else t.data_ptr() for t in tensors),
-        *inputs["args"], int(host_noise),
-        torch.cuda.current_stream(dev).cuda_stream,
-    )
-    wrapper.launches += 1
-    check(rc, "dust_particle_episodes")
-    return log, theta, locs, amat, mpf_x, logmix
-
-
-def split_log(log):
-    """log [..., steps, 12] -> the JAX kernel's dict of per-step fields:
-    state [..., steps, 4], action [..., steps, 2], cost, done, crashed,
-    cum, bw_sv, bw_mpf [..., steps]."""
-    return {"state": log[..., 0:4], "action": log[..., 4:6],
-            **{k: log[..., i] for i, k in enumerate(LOG_FIELDS) if i >= 6}}
+# K9 for `episode_kernel.run_episodes`: a plan holds (a_x, a_y) per
+# horizon step, an MPF particle one log-mass; the final log-mix output is
+# not written
+K9 = EpisodeKernel(
+    entry="dust_particle_episodes",
+    # looked up at each call, so that a test can swap the module's
+    plain=lambda inputs, sp: episode_plain(inputs, sp),
+    log_fields=LOG_FIELDS, clock=phase_clock,
+    pointers=("model", "scal", "base_mass", "ep_i", "log_mix0", "theta0",
+              "locs0", "amat0", "a_seq", "mpfx0"),
+    host_noise=True, scalars=_scalars, operands=_model, plan_width=2,
+    mpf_width=1, log_mix=False, counts_mpf_loop=False)
+# K10: the same entry, writing each episode's final prior log-weights
+K10 = replace(K9, log_mix=True)
 
 
 def episode_statics(*, steps, warm_up=0, hz, m, n_params, n_act, m_mpf,
@@ -352,8 +300,8 @@ def episode_statics(*, steps, warm_up=0, hz, m, n_params, n_act, m_mpf,
                     grid, crash, success_dist=1.0, change_at, exp_util=True,
                     weighted_prior=True, mpf_log_space=True,
                     use_fixed_mpf_bw=True, mpf_bw_scale=1.0):
-    """The kernel's limits, checked, and its statics as
-    `run_particle_episodes` takes them."""
+    """The kernel's limits, checked, and its statics as `K9` and `K10`
+    take them."""
     from .particle_rollout import _statics
 
     if hz * 2 > 128 or n_act > 128 or m > 8:
@@ -408,15 +356,18 @@ def _episode(runner, seed, state0, theta0, locs0, log_mix0, a_mat0, a_seq0,
         inputs["pdz"] = f32(host_pdz)[:, :n_params, 0][None]
         inputs["pdu"] = f32(host_pdu)[:, :n_params, 0][None]
     log, theta, locs, amat, mpf_x, _ = runner(inputs, sp)
-    out = split_log(log[0])
+    log = log[0]
+    out = {"state": log[:, 0:4], "action": log[:, 4:6],
+           **{k: log[:, i] for i, k in enumerate(LOG_FIELDS) if i >= 6}}
     out.update(theta=theta[0].reshape(m, hz, 2),
                locs=locs[0].reshape(m, hz, 2),
-               a_mat=amat[0].reshape(m, hz, 2), mpf_x=mpf_x[0][:, None])
+               a_mat=amat[0].reshape(m, hz, 2),
+               mpf_x=mpf_x[0].reshape(m_mpf, 1))
     return out
 
 
 def _launch_k9(inputs, sp):
-    return run_particle_episodes(fused_particle_episode, inputs, sp)
+    return run_episodes(fused_particle_episode, inputs, sp, K9)
 
 
 def fused_particle_episode(*args, **kwargs):

@@ -8,10 +8,10 @@ termination, weighted priors, bandwidths and MPF mass posteriors) times
 kernel packs scenarios into tile rows and lane halves; here every
 (group, chain, scenario) episode is one block of the whole-episode kernel
 (`csrc/particle_episode.cu`, the entry K9 launches too, which here also
-writes each episode's final prior log-weights), so each scenario's values
-equal an independent `fused_particle_episode` run on the same draws, and a
-diverged scenario cannot reach another one. The controller a_seq is fixed
-at zero, as in the TPU kernel.
+writes each episode's final prior log-weights: `particle_episode.K10`), so
+each scenario's values equal an independent `fused_particle_episode` run
+on the same draws, and a diverged scenario cannot reach another one. The
+controller a_seq is fixed at zero, as in the TPU kernel.
 
 `fused_particle_sweep_groups` folds a leading group axis G into the same
 launch (the `MegakernelGroupSweep` path); `fused_particle_sweep_episode` is
@@ -26,37 +26,14 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.profiling import span
+from .episode_kernel import run_episodes
 from .particle_episode import (
-    LOG_FIELDS,
+    K10,
     episode_plain,
     episode_scal,
     episode_statics,
-    kernel_statics,
-    run_particle_episodes,
 )
-from .sweep_episode import SeedRows, _round8
-from .sweep_inputs import InputCache, Prepared, head
-
-
-def check_particle_sweep_dims(n_sc, hz, m, n_params, n_act, m_mpf,
-                              probe_skip):
-    """The TPU adapter's limits, kept as coded
-    (`pallas_particle_sweep_episode.py:1176-1200`)."""
-    if n_sc > 16:
-        raise ValueError("particle sweep kernel: n_sc <= 16 per program "
-                         "(batch larger sweeps on the group axis)")
-    if hz * 2 > 128 or n_act > 128:
-        raise ValueError("particle sweep kernel: hz*2<=128, n_act<=128")
-    if n_params > 8:
-        raise ValueError("particle sweep kernel: n_params <= 8")
-    if m * hz * 2 > 512:
-        raise ValueError("particle sweep kernel: m*hz*2 <= 512")
-    if _round8(max(m_mpf, 8)) > 64:
-        raise ValueError("particle sweep kernel: m_mpf <= 64")
-    if tuple(probe_skip) != ():
-        raise ValueError("particle sweep kernel: probe_skip is a TPU "
-                         "attribution probe; only () is supported")
+from .sweep_inputs import InputCache, check_sweep_dims, prepared, run_sweep
 
 
 def _host_noise(host_eps, host_pdz, host_pdu, G, C, n_sc, steps, hz, m,
@@ -85,9 +62,10 @@ def _prepare(
     """The `Prepared` inputs of one argument set of `_sweep_groups`: on
     CUDA tensors the kernel's form (`kernel_statics`), else the plain
     version's."""
-    check_particle_sweep_dims(n_sc, statics["hz"], statics["m"],
-                              statics["n_params"], statics["n_act"],
-                              statics["m_mpf"], probe_skip)
+    check_sweep_dims("particle sweep kernel", n_sc, statics["hz"],
+                     statics["m"], statics["n_params"], statics["n_act"],
+                     statics["m_mpf"], width=2, plan_limit=512,
+                     probe_skip=probe_skip)
     sp = episode_statics(**statics)
     steps, hz, m, m_mpf = sp["steps"], sp["hz"], sp["m"], sp["m_mpf"]
     n_params, n_act = sp["n_params"], sp["n_act"]
@@ -109,75 +87,25 @@ def _prepare(
         amat0=per_ep(a_mat0), a_seq=torch.zeros((ev,), device=dev),
         mpfx0=mpfx0[None].expand(G * C, n_sc, m_mpf).reshape(B, m_mpf),
     )
-    packed = runner is _launch_k10 and dev.type == "cuda"
-    if packed:
-        inputs = kernel_statics(inputs, sp)
-    inputs.update(eps=None, pdz=None, pdu=None)
-    k = seeds_shape[1] if len(seeds_shape) == 3 else 1
-    return Prepared(
-        inputs=inputs, statics=sp,
-        rows=SeedRows(G, k, C, n_sc, dev, packed),
+    return prepared(
+        K10, _launch_k10, runner, inputs, sp, seeds_shape, C, n_sc,
         noise=lambda eps, pdz, pdu: _host_noise(
-            eps, pdz, pdu, G, C, n_sc, steps, hz, m, n_params, n_act, dev),
-        dims=dict(lead=(G, C) if n_chains > 1 else (G,), n_sc=n_sc,
-                  steps=steps, m=m, hz=hz, m_mpf=m_mpf))
+            eps, pdz, pdu, G, C, n_sc, steps, hz, m, n_params, n_act, dev))
 
 
 def _sweep_groups(runner, seeds, state0, theta0, *args, host_eps=None,
                   host_pdz=None, host_pdu=None, **kwargs):
     """`fused_particle_sweep_groups`, with the runner of the canonical
-    inputs (the kernel or the plain version) first; the `sweep.inputs`,
-    `sweep.launch` and `sweep.outputs` spans.
-
-    A call reuses the inputs that an earlier call built from the same
-    arguments (`ops/sweep_inputs.py`): every tensor the same object, or a
-    view of the same base made alike (`v[None]`, `v[rows]`), at the same
-    `_version`; every other argument but the seeds and the host noise
-    equal in value (the model's statics too); the same runner, device, current stream, seeds'
-    shape (G and the given chains) and noise mode. It then builds only its
-    seed rows (`SeedRows`, no host-to-device copy) and, in host-noise
-    mode, its noise. A new tensor object, an in-place write to one,
-    another value (an `exp` number, n_chains, n_sc, ...) or another G
-    builds afresh, as does an argument that makes no key (a NumPy array,
-    a list). A write that torch does not count (NumPy into a
-    `torch.from_numpy` tensor's memory, DLPack, `data_ptr`, `.data`) is
-    not seen: pass such a tensor as a new object. Counted in
-    `fused_particle_sweep_episode.input_hits` / `.input_builds`."""
-    with span("sweep.inputs"):
-        dev = torch.as_tensor(theta0).device
-        seeds = torch.as_tensor(seeds, dtype=torch.int64, device=dev)
-        prep, hit = _INPUTS.get(
-            head(runner, dev, seeds, host_eps is not None),
-            (state0, theta0, *args), kwargs,
-            lambda: _prepare(runner, seeds.shape, state0, theta0, *args,
-                             **kwargs))
-        fused_particle_sweep_episode.input_hits += hit
-        fused_particle_sweep_episode.input_builds += not hit
-        inputs = dict(prep.inputs, **prep.rows(seeds))
-        if host_eps is not None:
-            inputs["eps"], inputs["pdz"], inputs["pdu"] = prep.noise(
-                host_eps, host_pdz, host_pdu)
-    with span("sweep.launch"):
-        log, theta, locs, amat, mpf_x, logmix = runner(inputs, prep.statics)
-    with span("sweep.outputs"):
-        d = prep.dims
-        lead, n_sc, m, hz = d["lead"], d["n_sc"], d["m"], d["hz"]
-        log = log.reshape(*lead, n_sc, d["steps"], len(LOG_FIELDS))
-        out = {k: log[..., i].transpose(-1, -2)
-               for i, k in enumerate(LOG_FIELDS)}
-        out.update(
-            theta=theta.reshape(*lead, n_sc, m, hz, 2),
-            locs=locs.reshape(*lead, n_sc, m, hz, 2),
-            a_mat=amat.reshape(*lead, n_sc, m, hz, 2),
-            log_mix=logmix.reshape(*lead, n_sc, m),
-            mpf_x=mpf_x.reshape(*lead, n_sc, d["m_mpf"], 1),
-        )
-    return out
+    inputs (the kernel or the plain version) first
+    (`sweep_inputs.run_sweep`; counted in
+    `fused_particle_sweep_episode.input_hits` / `.input_builds`)."""
+    noise = None if host_eps is None else (host_eps, host_pdz, host_pdu)
+    return run_sweep(runner, _prepare, _INPUTS, fused_particle_sweep_episode,
+                     seeds, state0, theta0, args, kwargs, noise)
 
 
 def _launch_k10(inputs, sp):
-    return run_particle_episodes(fused_particle_sweep_episode, inputs, sp,
-                                 log_mix=True)
+    return run_episodes(fused_particle_sweep_episode, inputs, sp, K10)
 
 
 def fused_particle_sweep_groups(*args, **kwargs):
@@ -193,11 +121,7 @@ def fused_particle_sweep_groups(*args, **kwargs):
     A repeat call with the same argument objects (an adapter's, with the
     same true-mass tensor, or views made alike of them) and new seeds
     reuses the kernel's inputs built by the first and builds only the seed
-    rows; a new or in-place written tensor, another value or another G,
-    n_chains or n_sc builds afresh (`_sweep_groups`). A tensor written
-    outside torch (NumPy into a `torch.from_numpy` tensor's memory,
-    DLPack, `data_ptr`, `.data`) leaves its version as it was: pass it as
-    a new object after such a write."""
+    rows (`sweep_inputs.run_sweep` says what matches)."""
     return _sweep_groups(_launch_k10, *args, **kwargs)
 
 

@@ -25,97 +25,14 @@ from __future__ import annotations
 
 import torch
 
-from ..utils.profiling import span
 from .episode import (
-    LOG_FIELDS,
+    PENDULUM,
     episode_plain,
     episode_scal,
     episode_statics,
-    kernel_statics,
-    run_episodes,
-    split_log,
 )
-from .sweep_inputs import InputCache, Prepared, head
-
-_LAYOUTS = ("colbcast", "lanepack", "symm")
-# the TPU kernel's chain-seed stride (`pallas_sweep_episode.py:1376-1392`)
-_CHAIN_SEED_STRIDE = 4099
-
-
-def _round8(n):
-    return -(-n // 8) * 8
-
-
-def check_sweep_dims(n_sc, hz, m, n_params, n_act, m_mpf, mpf_drive_layout,
-                     probe_skip):
-    """The TPU adapter's limits, kept as coded
-    (`pallas_sweep_episode.py:1345-1371`)."""
-    if n_sc > 16:
-        raise ValueError("sweep episode kernel: n_sc <= 16 per program "
-                         "(batch larger sweeps on the group axis)")
-    if mpf_drive_layout not in _LAYOUTS:
-        raise ValueError("sweep episode kernel: mpf_drive_layout must "
-                         "be 'colbcast', 'lanepack' or 'symm'")
-    if tuple(probe_skip) != ():
-        raise ValueError("sweep episode kernel: probe_skip is a TPU "
-                         "attribution probe; only () is supported")
-    if hz > 128 or n_act > 128:
-        raise ValueError("sweep episode kernel: hz<=128, n_act<=128")
-    if n_params > 8:
-        raise ValueError("sweep episode kernel: n_params <= 8")
-    if m * hz > 128:
-        raise ValueError("sweep episode kernel: m*hz <= 128")
-    if _round8(max(m_mpf, 8)) > 64:
-        raise ValueError("sweep episode kernel: m_mpf <= 64")
-
-
-class SeedRows:
-    """A call's per-episode seed inputs, from per-chain offsets and a
-    scenario column made once. Called with seeds [G, 2] or [G, k, 2]
-    int64 (G and k as made): chain c < k takes its given seed; a chain
-    c >= k takes chain 0's plus 4099 c on the second word (the TPU
-    kernel's chain-seed stride); episode b = (g * C + c) * n_sc + s takes
-    its chain's seed and scenario s. With `packed` (the kernel's form)
-    {"ep_i": [B, 3] int32}, the rows of `ops.episode.episode_ids` (a copy
-    of a kept scenario column, then one int64 add into its seed columns,
-    cast as `.to` casts); else {"seeds": [B, 2], "scenario": [B]}."""
-
-    def __init__(self, G, k, n_chains, n_sc, device, packed):
-        C = n_chains
-        self.C, self.packed = C, packed
-        # chains c >= k: chain 0 plus 4099 c on the second word
-        self.pick = None
-        if 1 < k < C:
-            self.pick = torch.tensor([c if c < k else 0 for c in range(C)],
-                                     device=device)
-        offs = torch.zeros((C, 1, 1, 2), dtype=torch.int64)
-        for c in range(k, C):
-            offs[c, 0, 0, 1] = _CHAIN_SEED_STRIDE * c
-        # the sum is laid out [C, n_sc, G, 2], so that [G, 2] seeds broadcast
-        # against it with no view of their own
-        self.offs = offs.to(device).expand(C, n_sc, 1, 2)
-        scenario = torch.arange(n_sc, device=device)
-        if packed:
-            self.ids = torch.zeros((G * C * n_sc, 3), dtype=torch.int32,
-                                   device=device)
-            self.ids[:, 2] = scenario.repeat(G * C)
-            # the seed columns of a [B, 3] copy of `ids` as [C, n_sc, G, 2]
-            self.seed_cols = ((C, n_sc, G, 2),
-                              (3 * n_sc, 3, 3 * C * n_sc, 1))
-        else:
-            self.scenario = scenario.repeat(G * C)
-
-    def __call__(self, seeds):
-        if seeds.ndim == 3:
-            s = seeds[:, :self.C] if self.pick is None else seeds[:, self.pick]
-            seeds = s.transpose(0, 1)[:, None]             # [C, 1, G, 2]
-        if self.packed:
-            ep_i = self.ids.clone()
-            torch.add(seeds, self.offs,
-                      out=ep_i.as_strided(*self.seed_cols))
-            return {"ep_i": ep_i}
-        rows = torch.add(seeds, self.offs).permute(2, 0, 1, 3)
-        return {"seeds": rows.reshape(-1, 2), "scenario": self.scenario}
+from .episode_kernel import run_episodes
+from .sweep_inputs import InputCache, check_sweep_dims, prepared, run_sweep
 
 
 def _host_noise(host_eps, host_pdz, host_pdu, G, C, n_sc, steps, hz, m,
@@ -147,8 +64,9 @@ def _prepare(
     """The `Prepared` inputs of one argument set of `_sweep_groups`: on
     CUDA tensors the kernel's form (`kernel_statics`), else the plain
     version's."""
-    check_sweep_dims(n_sc, hz, m, n_params, n_act, m_mpf, mpf_drive_layout,
-                     probe_skip)
+    check_sweep_dims("sweep episode kernel", n_sc, hz, m, n_params, n_act,
+                     m_mpf, mpf_drive_layout=mpf_drive_layout,
+                     probe_skip=probe_skip)
     dev = torch.as_tensor(theta0).device
     f32 = lambda v: torch.as_tensor(v, dtype=torch.float32, device=dev)
     G, C = seeds_shape[0], n_chains
@@ -171,84 +89,25 @@ def _prepare(
         mpfx0=mpfx0[None].expand(G * C, n_sc, m_mpf, 2).reshape(
             B, m_mpf, 2),
     )
-    packed = runner is _launch_k5 and dev.type == "cuda"
-    if packed:
-        inputs = kernel_statics(inputs, st)
-    inputs.update(eps=None, pdz=None, pdu=None)
-    k = seeds_shape[1] if len(seeds_shape) == 3 else 1
-    return Prepared(
-        inputs=inputs, statics=st,
-        rows=SeedRows(G, k, C, n_sc, dev, packed),
+    return prepared(
+        PENDULUM, _launch_k5, runner, inputs, st, seeds_shape, C, n_sc,
         noise=lambda eps, pdz, pdu: _host_noise(
-            eps, pdz, pdu, G, C, n_sc, steps, hz, m, n_params, n_act, dev),
-        dims=dict(lead=(G, C) if n_chains > 1 else (G,), n_sc=n_sc,
-                  steps=steps, m=m, hz=hz, m_mpf=m_mpf, fields=LOG_FIELDS))
-
-
-def run_sweep(runner, prepare, cache, counted, seeds, state0, theta0, args,
-              kwargs, noise=None):
-    """A sweep wrapper's call (the pendulum's `_sweep_groups`, the
-    cart-pole's): `runner` runs the canonical inputs (the kernel or the
-    plain version), `prepare(runner, seeds_shape, state0, theta0, *args,
-    **kwargs)` makes the `Prepared` inputs of an argument set, kept in
-    `cache`; `noise` is the host noise (eps, pdz, pdu) or None. The
-    `sweep.inputs`, `sweep.launch` and `sweep.outputs` spans.
-
-    A call reuses the inputs that an earlier call built from the same
-    arguments (`ops/sweep_inputs.py`): every tensor the same object, or a
-    view of the same base made alike (`v[None]`, `v[rows]`), at the same
-    `_version`; every other argument but the seeds and the host noise
-    equal in value; the same runner, device, current stream, seeds'
-    shape (G and the given chains) and noise mode. It then builds only its
-    seed rows (`SeedRows`, no host-to-device copy) and, in host-noise
-    mode, its noise. A new tensor object, an in-place write to one,
-    another value (an `exp` number, n_chains, n_sc, ...) or another G
-    builds afresh, as does an argument that makes no key (a NumPy array,
-    a list). A write that torch does not count (NumPy into a
-    `torch.from_numpy` tensor's memory, DLPack, `data_ptr`, `.data`) is
-    not seen: pass such a tensor as a new object. Counted in
-    `counted.input_hits` / `.input_builds`."""
-    with span("sweep.inputs"):
-        dev = torch.as_tensor(theta0).device
-        seeds = torch.as_tensor(seeds, dtype=torch.int64, device=dev)
-        prep, hit = cache.get(
-            head(runner, dev, seeds, noise is not None),
-            (state0, theta0, *args), kwargs,
-            lambda: prepare(runner, seeds.shape, state0, theta0, *args,
-                            **kwargs))
-        counted.input_hits += hit
-        counted.input_builds += not hit
-        inputs = dict(prep.inputs, **prep.rows(seeds))
-        if noise is not None:
-            inputs["eps"], inputs["pdz"], inputs["pdu"] = prep.noise(*noise)
-    with span("sweep.launch"):
-        log, theta, locs, amat, mpf_x = runner(inputs, prep.statics)
-    with span("sweep.outputs"):
-        d = prep.dims
-        lead, n_sc, m, hz = d["lead"], d["n_sc"], d["m"], d["hz"]
-        out = {k: v.reshape(*lead, n_sc, d["steps"]).transpose(-1, -2)
-               for k, v in split_log(log, d["fields"]).items()}
-        out.update(
-            theta=theta.reshape(*lead, n_sc, m, hz),
-            locs=locs.reshape(*lead, n_sc, m, hz),
-            a_mat=amat.reshape(*lead, n_sc, m, hz),
-            mpf_x=mpf_x.reshape(*lead, n_sc, d["m_mpf"], 2),
-        )
-    return out
+            eps, pdz, pdu, G, C, n_sc, steps, hz, m, n_params, n_act, dev))
 
 
 def _sweep_groups(runner, seeds, state0, theta0, *args, host_eps=None,
                   host_pdz=None, host_pdu=None, **kwargs):
     """`fused_pendulum_sweep_groups`, with the runner of the canonical
-    inputs (the kernel or the plain version) first (`run_sweep`; counted
-    in `fused_pendulum_sweep_episode.input_hits` / `.input_builds`)."""
+    inputs (the kernel or the plain version) first
+    (`sweep_inputs.run_sweep`; counted in
+    `fused_pendulum_sweep_episode.input_hits` / `.input_builds`)."""
     noise = None if host_eps is None else (host_eps, host_pdz, host_pdu)
     return run_sweep(runner, _prepare, _INPUTS, fused_pendulum_sweep_episode,
                      seeds, state0, theta0, args, kwargs, noise)
 
 
 def _launch_k5(inputs, st):
-    return run_episodes(fused_pendulum_sweep_episode, inputs, st)
+    return run_episodes(fused_pendulum_sweep_episode, inputs, st, PENDULUM)
 
 
 def fused_pendulum_sweep_groups(*args, **kwargs):
@@ -265,11 +124,7 @@ def fused_pendulum_sweep_groups(*args, **kwargs):
     A repeat call with the same argument objects (an adapter's, with the
     same true-parameter tensors, or views made alike of them) and new seeds
     reuses the kernel's inputs built by the first and builds only the seed
-    rows; a new or in-place written tensor, another value or another G,
-    n_chains or n_sc builds afresh (`_sweep_groups`). A tensor written
-    outside torch (NumPy into a `torch.from_numpy` tensor's memory,
-    DLPack, `data_ptr`, `.data`) leaves its version as it was: pass it as
-    a new object after such a write."""
+    rows (`sweep_inputs.run_sweep` says what matches)."""
     return _sweep_groups(_launch_k5, *args, **kwargs)
 
 

@@ -1,6 +1,8 @@
-"""What a sweep wrapper builds before its launch, kept for the next call
-with the same arguments (`ops/sweep_episode.py`,
-`ops/particle_sweep_episode.py`).
+"""The sweep call of the whole-episode kernels (`run_sweep`: K5's
+`ops/sweep_episode.py`, K10's `ops/particle_sweep_episode.py`, K14's
+`ops/cartpole_sweep_episode.py`), their limits (`check_sweep_dims`), and
+what a sweep wrapper builds before its launch, kept for the next call with
+the same arguments.
 
 A sweep's arguments are the same objects on every call but the seeds: an
 adapter (`simulation.megakernel_*_sweep_fn`) passes its stack's tensors and
@@ -45,10 +47,16 @@ from typing import Callable
 
 import torch
 
+from ..utils.profiling import span
+from .episode_kernel import kernel_statics, split_log
+
 # a handful: a wrapper's kernel and plain runs, or a few stacks, alternate
 # without rebuilding (at the demo shapes an entry holds under 2 MB)
 ENTRIES = 4
 _SCALARS = (type(None), bool, int, float, str)
+_LAYOUTS = ("colbcast", "lanepack", "symm")
+# the TPU kernels' chain-seed stride (`pallas_sweep_episode.py:1376-1392`)
+_CHAIN_SEED_STRIDE = 4099
 
 
 def _keyable(v, tensors):
@@ -168,3 +176,169 @@ class InputCache:
 
     def clear(self):
         self.entries.clear()
+
+
+# -- the sweep call -----------------------------------------------------------
+
+
+def _round8(n):
+    return -(-n // 8) * 8
+
+
+def check_sweep_dims(name, n_sc, hz, m, n_params, n_act, m_mpf, *, width=1,
+                     plan_limit=128, mpf_drive_layout=None, probe_skip=None):
+    """A sweep kernel's limits, the TPU adapters' as coded
+    (`pallas_sweep_episode.py:1345-1371`,
+    `pallas_particle_sweep_episode.py:1176-1200`), which the kernels'
+    shared memory and one lane row of MPF particles also set: `name`
+    begins each message; a plan holds `width` values per horizon step, at
+    most 128 a step and `plan_limit` in all; the TPU-only arguments given
+    (not None) are validated: `mpf_drive_layout` one of the TPU layouts,
+    `probe_skip` ()."""
+    h = "hz" if width == 1 else f"hz*{width}"
+    if n_sc > 16:
+        raise ValueError(f"{name}: n_sc <= 16 per program "
+                         "(batch larger sweeps on the group axis)")
+    if mpf_drive_layout is not None and mpf_drive_layout not in _LAYOUTS:
+        raise ValueError(f"{name}: mpf_drive_layout must "
+                         "be 'colbcast', 'lanepack' or 'symm'")
+    if probe_skip is not None and tuple(probe_skip) != ():
+        raise ValueError(f"{name}: probe_skip is a TPU "
+                         "attribution probe; only () is supported")
+    if hz * width > 128 or n_act > 128:
+        raise ValueError(f"{name}: {h}<=128, n_act<=128")
+    if n_params > 8:
+        raise ValueError(f"{name}: n_params <= 8")
+    if m * hz * width > plan_limit:
+        raise ValueError(f"{name}: m*{h} <= {plan_limit}")
+    if _round8(max(m_mpf, 8)) > 64:
+        raise ValueError(f"{name}: m_mpf <= 64")
+
+
+class SeedRows:
+    """A call's per-episode seed inputs, from per-chain offsets and a
+    scenario column made once. Called with seeds [G, 2] or [G, k, 2]
+    int64 (G and k as made): chain c < k takes its given seed; a chain
+    c >= k takes chain 0's plus 4099 c on the second word (the TPU
+    kernel's chain-seed stride); episode b = (g * C + c) * n_sc + s takes
+    its chain's seed and scenario s. With `packed` (the kernel's form)
+    {"ep_i": [B, 3] int32}, the rows of `episode_kernel.episode_ids` (a
+    copy of a kept scenario column, then one int64 add into its seed
+    columns, cast as `.to` casts); else {"seeds": [B, 2], "scenario":
+    [B]}."""
+
+    def __init__(self, G, k, n_chains, n_sc, device, packed):
+        C = n_chains
+        self.C, self.packed = C, packed
+        # chains c >= k: chain 0 plus 4099 c on the second word
+        self.pick = None
+        if 1 < k < C:
+            self.pick = torch.tensor([c if c < k else 0 for c in range(C)],
+                                     device=device)
+        offs = torch.zeros((C, 1, 1, 2), dtype=torch.int64)
+        for c in range(k, C):
+            offs[c, 0, 0, 1] = _CHAIN_SEED_STRIDE * c
+        # the sum is laid out [C, n_sc, G, 2], so that [G, 2] seeds broadcast
+        # against it with no view of their own
+        self.offs = offs.to(device).expand(C, n_sc, 1, 2)
+        scenario = torch.arange(n_sc, device=device)
+        if packed:
+            self.ids = torch.zeros((G * C * n_sc, 3), dtype=torch.int32,
+                                   device=device)
+            self.ids[:, 2] = scenario.repeat(G * C)
+            # the seed columns of a [B, 3] copy of `ids` as [C, n_sc, G, 2]
+            self.seed_cols = ((C, n_sc, G, 2),
+                              (3 * n_sc, 3, 3 * C * n_sc, 1))
+        else:
+            self.scenario = scenario.repeat(G * C)
+
+    def __call__(self, seeds):
+        if seeds.ndim == 3:
+            s = seeds[:, :self.C] if self.pick is None else seeds[:, self.pick]
+            seeds = s.transpose(0, 1)[:, None]             # [C, 1, G, 2]
+        if self.packed:
+            ep_i = self.ids.clone()
+            torch.add(seeds, self.offs,
+                      out=ep_i.as_strided(*self.seed_cols))
+            return {"ep_i": ep_i}
+        rows = torch.add(seeds, self.offs).permute(2, 0, 1, 3)
+        return {"seeds": rows.reshape(-1, 2), "scenario": self.scenario}
+
+
+def prepared(kernel, launch, runner, inputs, st, seeds_shape, n_chains,
+             n_sc, noise=None):
+    """The `Prepared` of one argument set from a task's canonical static
+    inputs and statics: in the kernel's form (`kernel_statics`) where the
+    runner is the task's kernel launcher `launch` and the inputs lie on a
+    CUDA device; its seed rows (`SeedRows`); the output shapes from
+    `kernel`'s log fields, plan and MPF widths. `noise(eps, pdz, pdu)` lays
+    out the call's host noise."""
+    dev = inputs["theta0"].device
+    packed = runner is launch and dev.type == "cuda"
+    if packed:
+        inputs = kernel_statics(inputs, st, kernel)
+    inputs.update(eps=None, pdz=None, pdu=None)
+    G = seeds_shape[0]
+    k = seeds_shape[1] if len(seeds_shape) == 3 else 1
+    m, hz, w = st["m"], st["hz"], kernel.plan_width
+    return Prepared(
+        inputs=inputs, statics=st,
+        rows=SeedRows(G, k, n_chains, n_sc, dev, packed), noise=noise,
+        dims=dict(lead=(G, n_chains) if n_chains > 1 else (G,), n_sc=n_sc,
+                  steps=st["steps"], fields=kernel.log_fields,
+                  plan=(m, hz) if w == 1 else (m, hz, w),
+                  mpf=(st["m_mpf"], kernel.mpf_width)))
+
+
+def run_sweep(runner, prepare, cache, counted, seeds, state0, theta0, args,
+              kwargs, noise=None):
+    """A sweep wrapper's call (each task's `_sweep_groups`): `runner` runs
+    the canonical inputs (the kernel or the plain version), `prepare(runner,
+    seeds_shape, state0, theta0, *args, **kwargs)` makes the `Prepared`
+    inputs of an argument set, kept in `cache`; `noise` is the host noise
+    (eps, pdz, pdu) or None. The `sweep.inputs`, `sweep.launch` and
+    `sweep.outputs` spans. Returns {log field: [*lead, steps, n_sc]},
+    theta/locs/a_mat [*lead, n_sc, *plan], log_mix [*lead, n_sc, m] where
+    the runner gives it, and mpf_x [*lead, n_sc, *mpf] (`Prepared.dims`).
+
+    A call reuses the inputs that an earlier call built from the same
+    arguments: every tensor the same object, or a view of the same base
+    made alike (`v[None]`, `v[rows]`), at the same `_version`; every other
+    argument but the seeds and the host noise equal in value (the model's
+    statics too); the same runner, device, current stream, seeds' shape (G
+    and the given chains) and noise mode. It then builds only its seed
+    rows (`SeedRows`, no host-to-device copy) and, in host-noise mode, its
+    noise. A new tensor object, an in-place write to one, another value
+    (an `exp` number, n_chains, n_sc, ...) or another G builds afresh, as
+    does an argument that makes no key (a NumPy array, a list). A write
+    that torch does not count (NumPy into a `torch.from_numpy` tensor's
+    memory, DLPack, `data_ptr`, `.data`) is not seen: pass such a tensor
+    as a new object. Counted in `counted.input_hits` / `.input_builds`."""
+    with span("sweep.inputs"):
+        dev = torch.as_tensor(theta0).device
+        seeds = torch.as_tensor(seeds, dtype=torch.int64, device=dev)
+        prep, hit = cache.get(
+            head(runner, dev, seeds, noise is not None),
+            (state0, theta0, *args), kwargs,
+            lambda: prepare(runner, seeds.shape, state0, theta0, *args,
+                            **kwargs))
+        counted.input_hits += hit
+        counted.input_builds += not hit
+        inputs = dict(prep.inputs, **prep.rows(seeds))
+        if noise is not None:
+            inputs["eps"], inputs["pdz"], inputs["pdu"] = prep.noise(*noise)
+    with span("sweep.launch"):
+        log, theta, locs, amat, mpf_x, *log_mix = runner(inputs,
+                                                         prep.statics)
+    with span("sweep.outputs"):
+        d = prep.dims
+        lead = (*d["lead"], d["n_sc"])
+        out = {k: v.reshape(*lead, d["steps"]).transpose(-1, -2)
+               for k, v in split_log(log, d["fields"]).items()}
+        out.update(theta=theta.reshape(*lead, *d["plan"]),
+                   locs=locs.reshape(*lead, *d["plan"]),
+                   a_mat=amat.reshape(*lead, *d["plan"]))
+        if log_mix and log_mix[0] is not None:
+            out["log_mix"] = log_mix[0].reshape(*lead, d["plan"][0])
+        out["mpf_x"] = mpf_x.reshape(*lead, *d["mpf"])
+    return out

@@ -341,26 +341,39 @@ def megakernel_pendulum_sweep_fn(stack, exp_params, steps, n_sc,
             host_pdu=host_pdu, **mpf_cfg,
         )
 
-    def sweep(seed, true_lengths, true_masses, host_eps=None,
-              host_pdz=None, host_pdu=None):
+    return _sweep_adapter(groups, episode_clock, fused_pendulum_sweep_episode)
+
+
+def _sweep_adapter(groups, clock, wrapper):
+    """A sweep adapter's one-group `sweep`: `groups` with a leading group
+    axis of one added to every argument (None stays None) and taken off
+    every output; `sweep.groups`, `sweep.phase_clock` (the kernel's clock)
+    and `sweep.wrapper` (the wrapper whose counters count its calls)."""
+    def sweep(*args, **kwargs):
         lead = lambda v: None if v is None else torch.as_tensor(v)[None]
-        out = groups(lead(seed), lead(true_lengths), lead(true_masses),
-                     lead(host_eps), lead(host_pdz), lead(host_pdu))
+        out = groups(*map(lead, args),
+                     **{k: lead(v) for k, v in kwargs.items()})
         return {k: v[0] for k, v in out.items()}
 
     sweep.groups = groups
-    sweep.phase_clock = episode_clock
-    sweep.wrapper = fused_pendulum_sweep_episode
+    sweep.phase_clock = clock
+    sweep.wrapper = wrapper
     return sweep
+
+
+def _zero_a_seq(dstate, name):
+    """Raise unless the controller's a_seq is zero, as the sweep kernels
+    assume; `name` begins the message."""
+    if bool(torch.any(dstate.a_seq != 0)):
+        raise ValueError(f"{name} requires a zero controller a_seq "
+                         "(SVMPC demo semantics)")
 
 
 def _sweep_priors(stack, exp):
     """The controller's zero a_seq and uniform prior, which the sweep
     kernels assume, checked; returns (theta0, locs0, amat0)."""
     dstate = stack.controller.init_state(stack.init_policies)
-    if bool(torch.any(dstate.a_seq != 0)):
-        raise ValueError("sweep megakernel requires a zero controller "
-                         "a_seq (SVMPC demo semantics)")
+    _zero_a_seq(dstate, "sweep megakernel")
     if exp.get("weighted_prior", False):
         raise ValueError("sweep megakernel supports the unweighted "
                          "policy prior only (pendulum demo semantics)")
@@ -422,15 +435,7 @@ def megakernel_cartpole_sweep_fn(stack, exp_params, steps, n_sc, n_chains=1):
             1.0 / exp["alpha"], exp["prior_sigma"], exp["mpf_learning_rate"],
             exp["mpf_obs_std"], **statics)
 
-    def sweep(seed, true_lengths, true_mass_poles):
-        lead = lambda v: torch.as_tensor(v)[None]
-        out = groups(lead(seed), lead(true_lengths), lead(true_mass_poles))
-        return {k: v[0] for k, v in out.items()}
-
-    sweep.groups = groups
-    sweep.phase_clock = cartpole_clock
-    sweep.wrapper = fused_cartpole_sweep_groups
-    return sweep
+    return _sweep_adapter(groups, cartpole_clock, fused_cartpole_sweep_groups)
 
 
 # -- particle navigation --------------------------------------------------------
@@ -642,9 +647,7 @@ def megakernel_particle_sweep_fn(stack, exp_params, steps, n_sc, warm_up=0,
     mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 2,
                                   bw=stack.mpf_init_bw)
     dstate = stack.controller.init_state()
-    if bool(torch.any(dstate.a_seq != 0)):
-        raise ValueError("particle sweep megakernel requires a zero "
-                         "controller a_seq (SVMPC demo semantics)")
+    _zero_a_seq(dstate, "particle sweep megakernel")
     log_mix0 = torch.log_softmax(stack.policies_prior.logits, dim=0)
     model = stack.model
 
@@ -671,14 +674,4 @@ def megakernel_particle_sweep_fn(stack, exp_params, steps, n_sc, warm_up=0,
             n_chains=n_chains, **statics,
         )
 
-    def sweep(seed, true_masses, host_eps=None, host_pdz=None,
-              host_pdu=None):
-        lead = lambda v: None if v is None else torch.as_tensor(v)[None]
-        out = groups(lead(seed), lead(true_masses), lead(host_eps),
-                     lead(host_pdz), lead(host_pdu))
-        return {k: v[0] for k, v in out.items()}
-
-    sweep.groups = groups
-    sweep.phase_clock = episode_clock
-    sweep.wrapper = fused_particle_sweep_episode
-    return sweep
+    return _sweep_adapter(groups, episode_clock, fused_particle_sweep_episode)

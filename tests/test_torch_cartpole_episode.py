@@ -28,6 +28,7 @@ from dust_tpu_torch.inference.likelihoods import (
 from dust_tpu_torch.models import CartPoleModel
 from dust_tpu_torch.ops import cartpole_episode as ce
 from dust_tpu_torch.ops import cartpole_sweep_episode as cse
+from dust_tpu_torch.ops import sweep_inputs
 from dust_tpu_torch.ops.bandwidth import silvermans_rule
 from dust_tpu_torch.ops.episode import device_noise
 from dust_tpu_torch.parallel import MegakernelGroupSweep
@@ -331,9 +332,13 @@ def test_group_sweep_equals_per_group_calls_and_reuses_its_inputs():
 
 
 def test_sweep_dims_guards_raise():
-    with pytest.raises(ValueError, match="n_sc <= 16"):
-        cse.check_cartpole_sweep_dims(17, 30, 3, 8, 128, 50)
-    with pytest.raises(ValueError, match="m_mpf <= 64"):
-        cse.check_cartpole_sweep_dims(16, 30, 3, 8, 128, 65)
+    """The cart-pole's limits, the pendulum sweep's numbers, as the shared
+    check (`sweep_inputs.check_sweep_dims`) takes them."""
+    check = lambda *dims: sweep_inputs.check_sweep_dims(
+        "cartpole sweep kernel", *dims)
+    with pytest.raises(ValueError, match="cartpole sweep kernel: n_sc <= 16"):
+        check(17, 30, 3, 8, 128, 50)
+    with pytest.raises(ValueError, match="cartpole sweep kernel: m_mpf <= 64"):
+        check(16, 30, 3, 8, 128, 65)
     with pytest.raises(ValueError, match="m\\*hz <= 128"):
-        cse.check_cartpole_sweep_dims(16, 60, 3, 8, 128, 50)
+        check(16, 60, 3, 8, 128, 50)

@@ -43,6 +43,7 @@ def test_package_imports_without_jax_or_dust_tpu():
     for name in ("ops.rollout", "ops.mpf", "ops._build", "convert",
                  "simulation", "experiments", "inference.mpf",
                  "inference.svmpc", "ops.solve", "ops.episode",
+                 "ops.episode_kernel", "ops.sweep_inputs",
                  "ops.sweep_episode", "parallel", "parallel.sweep",
                  "models.obstacle_map", "models.particle",
                  "ops.particle_rollout", "ops.particle_mpf",
@@ -79,7 +80,8 @@ def test_every_c_entry_has_a_signature_and_a_source():
     for path in sorted(PKG_DIR.rglob("*.py")):
         calls |= set(re.findall(r"load_library\(\)\.(\w+)\(",
                                 path.read_text()))
-        # the whole-episode kernels' entries (`ops/episode.py:EpisodeKernel`)
+        # the whole-episode kernels' entries (`ops/episode_kernel.py:
+        # EpisodeKernel`)
         calls |= set(re.findall(r'entry="(\w+)"', path.read_text()))
     assert calls <= set(_build._SIGNATURES), calls - set(_build._SIGNATURES)
     assert {"dust_particle_rollout_costs", "dust_particle_mpf_optimize",

@@ -27,6 +27,7 @@ from dust_tpu_torch.experiments import (
     build_pendulum_stack,
 )
 from dust_tpu_torch.ops import sweep_episode as tsw
+from dust_tpu_torch.ops import sweep_inputs
 from dust_tpu_torch.ops.episode import fused_pendulum_episode
 from dust_tpu_torch.parallel import MegakernelGroupSweep
 from dust_tpu_torch.simulation import megakernel_pendulum_sweep_fn
@@ -164,8 +165,8 @@ def _chain_seeds(seeds, n_chains):
     """The per-chain seeds [G, n_chains, 2] the sweep's seed rows give
     (`SeedRows` with one scenario, so episode g * C + c is chain c)."""
     k = seeds.shape[1] if seeds.ndim == 3 else 1
-    rows = tsw.SeedRows(seeds.shape[0], k, n_chains, 1, torch.device("cpu"),
-                        packed=False)(seeds)
+    rows = sweep_inputs.SeedRows(seeds.shape[0], k, n_chains, 1,
+                                 torch.device("cpu"), packed=False)(seeds)
     return rows["seeds"].reshape(seeds.shape[0], n_chains, 2)
 
 

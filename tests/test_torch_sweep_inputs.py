@@ -1,15 +1,17 @@
 """The sweep wrappers' prepared inputs (`ops/sweep_inputs.py`), on the
-plain path at a tiny size, for both tasks: a repeat call with new seeds
-reuses the inputs of the first and is bit-equal to a fresh build, also
-through new views of the same tensors (the adapters' `sweep` and a mesh
-rank's rows); an in-place write to a tensor argument or its base,
+plain path at a tiny size, for the three tasks: a repeat call with new
+seeds reuses the inputs of the first and is bit-equal to a fresh build,
+also through new views of the same tensors (the adapters' `sweep` and a
+mesh rank's rows); an in-place write to a tensor argument or its base,
 another G, n_chains, n_sc or `exp` number builds afresh; an argument that
 makes no key (a NumPy array, an inference tensor) builds every call; the
-hit and build counters; a hit calls none of `episode_scal`,
-`episode_statics` and `SeedRows`; host noise is taken from every call;
-the seed rows equal the benchmark reference's `chain_seeds` and the
-kernel's `episode_ids`; which arguments match as one
-(`sweep_inputs._same`)."""
+hit and build counters; a hit calls none of the task's scal builder,
+`episode_statics` and `SeedRows`; host noise is taken from every call (the
+pendulum and the particle; the cart-pole's kernel draws its own); the seed
+rows equal the benchmark reference's `chain_seeds` and the kernel's
+`episode_ids`; which arguments match as one (`sweep_inputs._same`); each
+episode kernel's launch arguments against its C entry's signature
+(`episode_kernel.launch_args`)."""
 
 import copy
 
@@ -18,17 +20,26 @@ import pytest
 import torch
 
 from dust_tpu_torch.experiments import (
+    CARTPOLE_DEMO_CONFIG,
     PARTICLE_DEMO_CONFIG,
     PENDULUM_DEMO_CONFIG,
     build_particle_stack,
     build_pendulum_stack,
 )
+from dust_tpu_torch.ops import _build, cartpole_episode, particle_episode
+from dust_tpu_torch.ops import cartpole_sweep_episode as cse
 from dust_tpu_torch.ops import particle_sweep_episode as pse
 from dust_tpu_torch.ops import sweep_episode as pen
 from dust_tpu_torch.ops import sweep_inputs
-from dust_tpu_torch.ops.episode import episode_ids
+from dust_tpu_torch.ops.episode import PENDULUM
+from dust_tpu_torch.ops.episode_kernel import (
+    episode_ids,
+    kernel_statics,
+    launch_args,
+)
 from dust_tpu_torch.ops.particle_rollout import particle_kernel_statics
 from dust_tpu_torch.simulation import (
+    megakernel_cartpole_sweep_fn,
     megakernel_particle_sweep_fn,
     megakernel_pendulum_sweep_fn,
 )
@@ -37,7 +48,7 @@ from perfbench.reference._common import chain_seeds
 TINY = dict(horizon=6, n_particles=2, action_samples=8, params_samples=2,
             mpf_n_particles=8, mpf_steps=3)
 STEPS, N_SC = 3, 2
-TASKS = ["pendulum", "particle"]
+TASKS = ["pendulum", "particle", "cartpole"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -51,29 +62,33 @@ def _one_torch_thread():
 class Case:
     """One task's wrapper (`fused_*_sweep_groups`, the plain version on
     CPU tensors) with the arguments its adapter passes: `args` and
-    `kwargs` are the call's, `theta0` and `true` the positions of the
-    initial policies and the true-parameter tensor in `args`."""
+    `kwargs` are the call's, `theta0`, `trues` and `lr` the positions of
+    the initial policies, the true-parameter tensors and the learning rate
+    in `args`; `true_values(n)` makes true-parameter tensors for n
+    scenarios; `scal` names the task's scal builder in its module."""
 
     def __init__(self, task, n_sc=N_SC, n_chains=2):
         exp_over = dict(TINY)
-        if task == "pendulum":
-            cfg = copy.deepcopy(PENDULUM_DEMO_CONFIG)
+        self.scal = "episode_scal"
+        if task in ("pendulum", "cartpole"):
+            cfg = copy.deepcopy(PENDULUM_DEMO_CONFIG if task == "pendulum"
+                                else CARTPOLE_DEMO_CONFIG)
             cfg["exp_params"].update(exp_over)
             stack = build_pendulum_stack(
                 cfg, torch.Generator().manual_seed(1), device="cpu")
             exp = cfg["exp_params"]
             mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state,
                                           1)
-            self.module, self.fn = pen, pen.fused_pendulum_sweep_groups
-            self.counter = pen.fused_pendulum_sweep_episode
-            lens = torch.linspace(0.8, 1.2, n_sc)
-            mass = torch.linspace(0.9, 1.1, n_sc)
+            # lengths, then masses (the pendulum's) or pole masses
+            mass = (0.9, 1.1) if task == "pendulum" else (0.08, 0.12)
+            self.true_values = lambda n: [torch.linspace(0.8, 1.2, n),
+                                          torch.linspace(*mass, n)]
             self.args = [
                 stack.init_state, stack.init_policies[..., 0],
                 stack.policies_prior.locs[..., 0],
                 stack.controller.init_state(stack.init_policies)
                 .a_mat[..., 0],
-                stack.mpf_init, mstate.prior_bw, lens, mass,
+                stack.mpf_init, mstate.prior_bw, *self.true_values(n_sc),
                 exp["ctrl_sigma"], exp["learning_rate"], exp["alpha"],
                 1.0 / exp["alpha"], exp["prior_sigma"],
                 exp["mpf_learning_rate"], exp["mpf_obs_std"]]
@@ -86,9 +101,23 @@ class Case:
                 mpf_fixed_bw=exp.get("mpf_bandwidth"),
                 mpf_bw_scale=exp["mpf_bandwidth_scaling"],
                 n_chains=n_chains)
-            self.theta0, self.true, self.lr = 1, 6, 9
-            self.adapter = lambda: megakernel_pendulum_sweep_fn(
-                stack, exp, steps=STEPS, n_sc=n_sc, n_chains=n_chains)
+            self.theta0, self.trues, self.lr = 1, [6, 7], 9
+            if task == "pendulum":
+                self.module, self.fn = pen, pen.fused_pendulum_sweep_groups
+                self.counter = pen.fused_pendulum_sweep_episode
+                make = megakernel_pendulum_sweep_fn
+            else:
+                model = stack.model
+                self.module, self.fn = cse, cse.fused_cartpole_sweep_groups
+                self.counter = cse.fused_cartpole_sweep_groups
+                self.scal = "cartpole_scal"
+                self.kwargs.update(
+                    dt=float(model.dt), load_step=1, load_scale=2.0,
+                    **{k: float(model.params_dict[k])
+                       for k in cartpole_episode.MODEL_KEYS})
+                make = megakernel_cartpole_sweep_fn
+            self.adapter = lambda: make(stack, exp, steps=STEPS, n_sc=n_sc,
+                                        n_chains=n_chains)
         else:
             cfg = copy.deepcopy(PARTICLE_DEMO_CONFIG)
             cfg["exp_params"].update(exp_over)
@@ -100,13 +129,14 @@ class Case:
                                           2, bw=stack.mpf_init_bw)
             self.module, self.fn = pse, pse.fused_particle_sweep_groups
             self.counter = pse.fused_particle_sweep_episode
-            mass = torch.linspace(1.8, 2.2, n_sc)
+            self.true_values = lambda n: [torch.linspace(1.8, 2.2, n)]
             self.args = [
                 stack.init_state, stack.init_policies,
                 stack.policies_prior.locs,
                 torch.log_softmax(stack.policies_prior.logits, dim=0),
                 stack.controller.init_state().a_mat, stack.mpf_init,
-                mstate.prior_bw, mass, stack.load, exp["ctrl_sigma"],
+                mstate.prior_bw, *self.true_values(n_sc), stack.load,
+                exp["ctrl_sigma"],
                 exp["learning_rate"], exp["alpha"], 1.0 / exp["alpha"],
                 exp["prior_sigma"], exp["mpf_learning_rate"],
                 exp["mpf_obs_std"], stack.mpf_bw]
@@ -120,7 +150,7 @@ class Case:
                 mpf_log_space=exp["mpf_log_space"], use_fixed_mpf_bw=True,
                 mpf_bw_scale=exp["mpf_bandwidth_scaling"],
                 n_chains=n_chains, **particle_kernel_statics(model))
-            self.theta0, self.true, self.lr = 1, 7, 10
+            self.theta0, self.trues, self.lr = 1, [7], 10
             self.adapter = lambda: megakernel_particle_sweep_fn(
                 stack, exp, steps=STEPS, n_sc=n_sc, n_chains=n_chains)
 
@@ -172,7 +202,8 @@ def test_in_place_write_between_calls_is_honoured(case, which):
     before = case(_seeds(1))
     h0, b0 = case.counts()
     with torch.no_grad():
-        case.args[getattr(case, which)].mul_(1.1)
+        case.args[case.theta0 if which == "theta0" else case.trues[0]] \
+            .mul_(1.1)
     after = case(_seeds(1))
     assert case.counts() == (h0, b0 + 1)
     assert not torch.equal(after["cost"], before["cost"])
@@ -193,11 +224,8 @@ def test_changed_argument_builds_afresh(case, change):
         over = dict(n_chains=3)
     elif change == "n_sc":
         over = dict(n_sc=N_SC + 1)
-        if case.module is pen:
-            args[case.true] = torch.linspace(0.8, 1.2, N_SC + 1)
-            args[case.true + 1] = torch.linspace(0.9, 1.1, N_SC + 1)
-        else:
-            args[case.true] = torch.linspace(1.8, 2.2, N_SC + 1)
+        for i, v in zip(case.trues, case.true_values(N_SC + 1)):
+            args[i] = v
     else:
         args[case.lr] = args[case.lr] * 0.5
     got = case(seeds, args=args, **over)
@@ -209,11 +237,6 @@ def test_changed_argument_builds_afresh(case, change):
     _equal(got, case.fresh(seeds, args=args, **over))
 
 
-def _trues(case):
-    """The positions of the true-parameter tensors in `args`."""
-    return [case.true, case.true + 1] if case.module is pen else [case.true]
-
-
 @pytest.mark.parametrize("view", ["v[None]", "v[rows]"])
 def test_new_views_of_the_same_tensors_hit(case, view):
     """A call that passes a new view of each true-parameter tensor, made
@@ -222,7 +245,7 @@ def test_new_views_of_the_same_tensors_hit(case, view):
     view at another offset builds its own."""
     bases = {i: (case.args[i] if view == "v[None]"
                  else torch.stack([case.args[i] * (1 + j) for j in range(4)]))
-             for i in _trues(case)}
+             for i in case.trues}
 
     def args(lo=0):
         a = list(case.args)
@@ -237,7 +260,7 @@ def test_new_views_of_the_same_tensors_hit(case, view):
     _equal(got, case.fresh(_seeds(1), args=args()))
     h0, b0 = case.counts()
     with torch.no_grad():
-        bases[case.true].mul_(1.1)
+        bases[case.trues[0]].mul_(1.1)
     after = case(_seeds(1), args=args())
     assert case.counts() == (h0, b0 + 1)
     assert not torch.equal(after["cost"], got["cost"])
@@ -255,7 +278,7 @@ def test_adapter_repeat_calls_hit(case):
     objectives and the sweep demo call it: the first call builds, the
     rest reuse its inputs, each bit-equal to a fresh build."""
     sweep = case.adapter()
-    trues = [case.args[i] for i in _trues(case)]
+    trues = [case.args[i] for i in case.trues]
     seed = lambda i: torch.tensor([7, 1000 * i])
     h0, b0 = case.counts()
     outs = [sweep(seed(i), *trues) for i in range(3)]
@@ -267,12 +290,12 @@ def test_adapter_repeat_calls_hit(case):
 @pytest.mark.parametrize("kind", ["numpy", "inference tensor"])
 def test_argument_without_a_key_always_builds(case, kind):
     args = list(case.args)
-    true = args[case.true]
+    i = case.trues[0]
     if kind == "numpy":
-        args[case.true] = true.numpy()
+        args[i] = args[i].numpy()
     else:
         with torch.inference_mode():
-            args[case.true] = true.clone()
+            args[i] = args[i].clone()
     h0, b0 = case.counts()
     first = case(_seeds(0), args=args)
     second = case(_seeds(1), args=args)
@@ -284,19 +307,18 @@ def test_argument_without_a_key_always_builds(case, kind):
 
 def test_hit_rebuilds_nothing(case, monkeypatch):
     calls = []
-    for name in ("episode_scal", "episode_statics", "SeedRows"):
-        for module in (pen, pse):
-            real = getattr(module, name, None)
-            if real is None:
-                continue
+    builders = [(case.module, case.scal), (case.module, "episode_statics"),
+                (sweep_inputs, "SeedRows")]
+    for module, name in builders:
+        real = getattr(module, name)
 
-            def counting(*a, _real=real, _name=name, **kw):
-                calls.append(_name)
-                return _real(*a, **kw)
+        def counting(*a, _real=real, _name=name, **kw):
+            calls.append(_name)
+            return _real(*a, **kw)
 
-            monkeypatch.setattr(module, name, counting)
+        monkeypatch.setattr(module, name, counting)
     case(_seeds(0))
-    assert {"episode_scal", "episode_statics", "SeedRows"} <= set(calls)
+    assert {case.scal, "episode_statics", "SeedRows"} <= set(calls)
     calls.clear()
     h0, _ = case.counts()
     case(_seeds(1))
@@ -318,7 +340,17 @@ def _noise(case, seed, G=2, C=2):
                 host_pdu=f(rng.uniform(size=lead + (N_SC, 8, 128))))
 
 
-def test_host_noise_is_taken_from_every_call(case):
+@pytest.fixture(params=["pendulum", "particle"])
+def noise_case(request):
+    """The tasks whose kernel takes host noise (the cart-pole's draws its
+    own)."""
+    c = Case(request.param)
+    c.module._INPUTS.clear()
+    return c
+
+
+def test_host_noise_is_taken_from_every_call(noise_case):
+    case = noise_case
     case(_seeds(0), **_noise(case, 0))
     h0, b0 = case.counts()
     got = case(_seeds(0), **_noise(case, 1))
@@ -336,7 +368,8 @@ def test_seed_rows_equal_chain_seeds(k, C, packed):
     seeds = torch.randint(0, 2 ** 31 - 1, (G, k, 2), dtype=torch.int64)
     if k == 1:
         seeds = seeds[:, 0]
-    rows = pen.SeedRows(G, k, C, n_sc, torch.device("cpu"), packed)(seeds)
+    rows = sweep_inputs.SeedRows(G, k, C, n_sc, torch.device("cpu"),
+                                 packed)(seeds)
     # chain c >= k derives from chain 0 as the reference derives chains;
     # the given chains stay
     chain = chain_seeds(seeds if k == 1 else seeds[:, 0], C)
@@ -379,3 +412,46 @@ def test_argument_matching(a, b, want):
     tensor's version is checked apart)."""
     assert sweep_inputs._same(a, b) is want
     assert sweep_inputs._same(b, a) is want
+
+
+@pytest.mark.parametrize("task,kernel", [
+    ("pendulum", PENDULUM), ("particle", particle_episode.K9),
+    ("particle", particle_episode.K10), ("cartpole", cartpole_episode.KERNEL),
+], ids=["K4/K5", "K9", "K10", "K14"])
+@pytest.mark.parametrize("host_noise", [False, True],
+                         ids=["device RNG", "host noise"])
+def test_launch_args_match_the_entry(task, kernel, host_noise):
+    """The arguments `run_episodes` passes to an episode kernel's C entry
+    (`launch_args` on the kernel form of a sweep's inputs, here on CPU
+    tensors): as many as `_build._SIGNATURES` declares, each of a type its
+    slot takes (a pointer or None, an int, a float), and the outputs the
+    entry writes: the log-mix output only where the entry has one, null
+    on K9's path. An entry that draws its own noise refuses host noise."""
+    case = Case(task)
+    seeds = _seeds(0)
+    prep = case.module._prepare(None, seeds.shape, *case.args,
+                                **case.kwargs)
+    inputs = dict(prep.inputs, **prep.rows(seeds))
+    inputs.update(kernel_statics(inputs, prep.statics, kernel),
+                  ep_i=episode_ids(inputs["seeds"], inputs["scenario"]))
+    if host_noise and not kernel.host_noise:
+        inputs["eps"] = torch.zeros(1)
+        with pytest.raises(ValueError, match="draws its own noise"):
+            launch_args(kernel, inputs, prep.statics, 0)
+        return
+    if host_noise:
+        inputs["eps"], inputs["pdz"], inputs["pdu"] = prep.noise(
+            *_noise(case, 0).values())
+    outputs, tensors, args = launch_args(kernel, inputs, prep.statics, 0)
+    argtypes = _build._SIGNATURES[kernel.entry]
+    assert len(args) == len(argtypes)
+    for t, a in zip(argtypes, args):
+        t(a)                     # a float in an int's slot raises
+    B, m = inputs["theta0"].shape[:2]
+    assert len(outputs) == (5 if kernel.log_mix is None else 6)
+    if kernel.log_mix is not None:
+        assert (outputs[5] is None) is (not kernel.log_mix)
+        assert kernel.log_mix is False or outputs[5].shape == (B, m)
+    assert args[-1] == 0                                 # the stream
+    if kernel.host_noise:
+        assert args[-2] == int(host_noise)
