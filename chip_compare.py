@@ -24,6 +24,10 @@ loops of the episode kernels), the timed 200-step K5 and K14 sweeps
 sweep (its final log-weights with it; device noise and host noise), so
 that two trees can be held bit for bit, and reads the episode wrappers'
 launch, prepared-input and MPF-loop counters after its calls. It also
+hashes a 20-step K14 sweep from a start angle of 2e5 rad, where every
+rollout chunk-step takes the library's sincosf and division, with the
+wrapper's fast / fallback counts of it, and of all its K14 calls, where
+the tree has them. It also
 times one 256-episode K14 sweep (path 16, as K5's) and reads the
 registers and spill bytes of the episode kernels K4/K5, K9/K10 and K14
 from the build's ptxas report (empty where the library was already
@@ -298,6 +302,17 @@ res["k14_ms_per_sweep"] = statistics.median(
     cs._event_ms(lambda: cgroups.run(cseeds(1), clens, cmps), 3))
 k14_out = cgroups.run(cseeds(1), clens, cmps)
 res["k14_sha256"] = sha256(k14_out[k] for k in sorted(k14_out))
+# K14 from a start angle past its rollouts' fast range (2e5 rad), 20 steps
+# of path 16's layout: every rollout chunk-step takes the library's sincosf
+# and division; its outputs hashed, and the wrapper's fast / fallback
+# counts where the tree has them
+guard = getattr(cse.fused_cartpole_sweep_groups, "rollout_guard", None)
+before = None if guard is None else (guard.fast, guard.fallback)
+fgroups, fseeds, flens, fmps, _ = beside._cartpole_sweep(dev, 20, th0=2e5)
+k14_fb = fgroups.run(fseeds(1), flens, fmps)
+res["k14_fallback_sha256"] = sha256(k14_fb[k] for k in sorted(k14_fb))
+res["k14_fallback_counts"] = None if guard is None else [
+    guard.fast - before[0], guard.fallback - before[1]]
 # K5's outputs on fixed host-noise inputs, 16 scenarios x 2 chains x 20 steps
 steps = 20
 theta0, mpfx0, noise = cs._episode_setup(steps, cs.SEED + 13, dev,
@@ -409,4 +424,7 @@ res["counters"] = {
               sweep_episode.fused_pendulum_sweep_episode,
               pe.fused_particle_episode, pse.fused_particle_sweep_episode,
               cse.fused_cartpole_sweep_groups)}
+guard = getattr(cse.fused_cartpole_sweep_groups, "rollout_guard", None)
+res["k14_rollout_guard"] = (None if guard is None
+                            else [guard.fast, guard.fallback])
 print("RESULT", json.dumps(res), flush=True)

@@ -236,6 +236,18 @@ Phases (any failure raises and exits non-zero):
      the plain version's one call; one more call under its clocked build;
      the share of episodes upright (|th| < 0.2 rad, th wrapped) at step
      99, before the tip load, and at step 199 (reported, not required).
+ 42. the branch-free sin/cos and division of K14's rollouts
+     (`csrc/cartpole_math.cuh`), built on their own with the library's
+     flags (`csrc/checks/cartpole_math_check.cu`): fast_sincosf bit for
+     bit sincosf (both outputs) and its cosine cosf over every float with
+     |x| < 105615; fast_div bit for bit `/` over 1e9 pairs across its
+     whole range and 1e9 over K14's (numerator in [-1024, 1024],
+     denominator in [1/32, 8]); the edges: the ranges' ends, +-0,
+     subnormals, +-inf and NaN fail the range tests (the fallback), and
+     every value inside them is the library's; then K14's fallback: path
+     16's layout, 20 steps from a start angle of 2e5 rad (past the fast
+     range), every rollout chunk-step counted as a fallback, every value
+     finite (chip_compare.py holds its bits to the parent's).
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. The line before the last is the kernels' JSON summary;
@@ -5127,12 +5139,13 @@ def _demo_tuning():
     return out
 
 
-def _cartpole_sweep(dev, steps):
+def _cartpole_sweep(dev, steps, th0=None):
     """Path 16: the cart-pole benchmark cell's sweep on the demo stack
-    (`CARTPOLE_DEMO_CONFIG`), 8 groups x 16 scenarios x 2 chains of
-    `steps`-step episodes through MegakernelGroupSweep; the seeds of call
-    i, the true (length, mass_pole) grids of the cell's traffic, and
-    plain(seeds): the sweep's plain version on the same inputs."""
+    (`CARTPOLE_DEMO_CONFIG`, its start angle `th0` where given), 8 groups
+    x 16 scenarios x 2 chains of `steps`-step episodes through
+    MegakernelGroupSweep; the seeds of call i, the true (length,
+    mass_pole) grids of the cell's traffic, and plain(seeds): the sweep's
+    plain version on the same inputs."""
     import torch
 
     from dust_tpu_torch.experiments import (
@@ -5144,6 +5157,8 @@ def _cartpole_sweep(dev, steps):
     from dust_tpu_torch.simulation import megakernel_cartpole_sweep_fn
 
     cfg = copy.deepcopy(CARTPOLE_DEMO_CONFIG)
+    if th0 is not None:
+        cfg["exp_params"]["init_state"][2] = th0
     stack = build_pendulum_stack(
         cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
     make = lambda: megakernel_cartpole_sweep_fn(
@@ -5248,6 +5263,159 @@ def phase_k14(dev):
           f"{result['upright_share_step_99']:.4f}, at step 199 "
           f"{result['upright_share_step_199']:.4f}; launches {launches}")
     return result
+
+
+def _build_math_check():
+    """The check library of `csrc/checks/cartpole_math_check.cu`, built
+    with the kernels' flags beside the kernels' library, loaded."""
+    import ctypes
+
+    from dust_tpu_torch.ops import _build
+
+    src = _build.SRC_DIR / "checks" / "cartpole_math_check.cu"
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = _build.BUILD_DIR / "libcartpole_math_check.so"
+    subprocess.run([_build.find_nvcc(), *_build.NVCC_FLAGS, "-shared",
+                    str(src), "-o", str(out)], check=True,
+                   capture_output=True, text=True)
+    lib = ctypes.CDLL(str(out))
+    vp, i32, u64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_ulonglong
+    lib.dust_check_trig.argtypes = [vp, vp, vp]
+    lib.dust_check_div.argtypes = [i32, u64, vp, vp, vp]
+    lib.dust_check_eval.argtypes = [vp, i32, vp, vp, i32, vp, vp, vp]
+    return lib
+
+
+def _math_edges():
+    """Edge cases of the range tests: (x, trig_ok) and (a, b, div_ok)."""
+    f32 = np.float32
+    below = lambda v: float(np.nextafter(f32(v), f32(0)))
+    tiny = float(np.finfo(np.float32).smallest_subnormal)
+    inf, nan = float("inf"), float("nan")
+    lo, hi = 2.0 ** -60, 2.0 ** 60
+    xs = [(0.0, True), (-0.0, True), (tiny, True), (-tiny, True),
+          (1e-30, True), (np.pi, True), (below(105615.0), True),
+          (-below(105615.0), True), (105615.0, False), (-105615.0, False),
+          (2e5, False), (1e30, False), (inf, False), (-inf, False),
+          (nan, False)]
+    pairs = [(1.0, 3.0, True), (-7.5, 0.25, True), (lo, 1.0, True),
+             (below(lo), 1.0, False), (below(hi), 1.0, True),
+             (hi, 1.0, False), (1.0, lo, True), (1.0, below(lo), False),
+             (1.0, below(hi), True), (1.0, hi, False),
+             (below(hi), lo, True), (lo, below(hi), True),
+             (-lo, -below(hi), True), (0.0, 1.0, False),
+             (-0.0, 1.0, False), (1.0, 0.0, False), (1.0, -0.0, False),
+             (tiny, 1.0, False), (1.0, tiny, False), (inf, 1.0, False),
+             (1.0, inf, False), (-inf, 2.0, False), (nan, 1.0, False),
+             (1.0, nan, False)]
+    return xs, pairs
+
+
+def phase_cartpole_math(dev):
+    """Phase 42: K14's branch-free sin/cos and division against the
+    library (see the module docstring)."""
+    import torch
+
+    lib = _build_math_check()
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    out = {}
+
+    def run(call, n_counts, n_first, *args):
+        counts = torch.zeros(n_counts, dtype=torch.int64, device=dev)
+        first = torch.zeros(n_first, dtype=torch.int32, device=dev)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        rc = call(*args, counts.data_ptr(), first.data_ptr(), stream)
+        end.record()
+        torch.cuda.synchronize()
+        if rc != 0:
+            raise RuntimeError(f"phase 42: CUDA error {rc}")
+        return counts.tolist(), first.view(-1).tolist(), \
+            start.elapsed_time(end)
+
+    counts, first, ms = run(lib.dust_check_trig, 5, 16 * 6)
+    n_trig = 2 * int(np.float32(105615.0).view(np.uint32))
+    out["trig"] = {"values": n_trig, "sin_mismatches": counts[0],
+                   "cos_mismatches": counts[1],
+                   "cosf_mismatches": counts[2], "outside_range": counts[3],
+                   "ms": ms}
+    if counts[4]:
+        raise AssertionError(f"phase 42: fast_sincosf differs from the "
+                             f"library: {out['trig']}; first x, sin, fast "
+                             f"sin, cos, fast cos, cosf (bits): "
+                             f"{[hex(v & 0xffffffff) for v in first[:24]]}")
+    for mode, what in ((0, "div_range"), (1, "div_k14")):
+        n = 10 ** 9
+        counts, first, ms = run(
+            lambda *a, mode=mode, n=n: lib.dust_check_div(mode, n, *a), 2,
+            16 * 4)
+        out[what] = {"pairs": n, "mismatches": counts[0],
+                     "outside_range": counts[1], "ms": ms}
+        if counts[0] or (mode == 0 and counts[1]):
+            raise AssertionError(
+                f"phase 42: fast_div differs from `/` ({what}): "
+                f"{out[what]}; first a, b, a / b, fast (bits): "
+                f"{[hex(v & 0xffffffff) for v in first[:16]]}")
+
+    xs, pairs = _math_edges()
+    x = torch.tensor([v for v, _ in xs], dtype=torch.float32, device=dev)
+    a = torch.tensor([p[0] for p in pairs], dtype=torch.float32, device=dev)
+    b = torch.tensor([p[1] for p in pairs], dtype=torch.float32, device=dev)
+    ox = torch.zeros((len(xs), 6), dtype=torch.int32, device=dev)
+    od = torch.zeros((len(pairs), 3), dtype=torch.int32, device=dev)
+    rc = lib.dust_check_eval(x.data_ptr(), len(xs), a.data_ptr(),
+                             b.data_ptr(), len(pairs), ox.data_ptr(),
+                             od.data_ptr(), stream)
+    torch.cuda.synchronize()
+    if rc != 0:
+        raise RuntimeError(f"phase 42: CUDA error {rc}")
+    for (v, want), row in zip(xs, ox.tolist()):
+        if bool(row[0]) != want or (want and not (
+                row[1] == row[2] and row[3] == row[4] == row[5])):
+            raise AssertionError(f"phase 42: x = {v!r}: trig_ok {row[0]} "
+                                 f"(want {int(want)}), bits {row[1:]}")
+    for (p, q, want), row in zip(pairs, od.tolist()):
+        if bool(row[0]) != want or (want and row[1] != row[2]):
+            raise AssertionError(f"phase 42: {p!r} / {q!r}: div_ok "
+                                 f"{row[0]} (want {int(want)}), fast "
+                                 f"{row[1]:#x}, library {row[2]:#x}")
+    out["edges"] = {"x": len(xs), "pairs": len(pairs)}
+    out["fallback"], _ = _k14_fallback(dev)
+    print(f"phase 42 (K14's sin/cos and division): fast_sincosf equal to "
+          f"sincosf and cosf on all {n_trig} floats with |x| < 105615 "
+          f"({out['trig']['ms']:.1f} ms); fast_div equal to `/` on 1e9 "
+          f"pairs of its range ({out['div_range']['ms']:.1f} ms) and 1e9 "
+          f"of K14's ({out['div_k14']['outside_range']} outside the "
+          f"range); {len(xs)} + {len(pairs)} edge cases; the planted "
+          f"fallback: {out['fallback']}")
+    return out
+
+
+def _k14_fallback(dev, steps=20):
+    """K14 from a start angle of 2e5 rad, past the fast range: a sweep of
+    path 16's layout, `steps` steps; every rollout chunk-step falls back
+    (the angle stays past the range), so the wrapper's count reads all of
+    them as fallbacks. Returns the counts and the outputs (chip_compare.py
+    hashes them against the parent's)."""
+    import torch
+
+    from dust_tpu_torch.ops import cartpole_sweep_episode as cse
+
+    guard = cse.fused_cartpole_sweep_groups.rollout_guard
+    before = guard.fast, guard.fallback
+    groups, seeds, lens, mps, _ = _cartpole_sweep(dev, steps, th0=2e5)
+    out = groups.run(seeds(1), lens, mps)
+    fast, fallback = guard.fast - before[0], guard.fallback - before[1]
+    if fast != 0 or fallback == 0:
+        raise AssertionError(f"phase 42: the planted fallback counted "
+                             f"{fast} fast and {fallback} fallback "
+                             f"chunk-steps")
+    for k, v in out.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"phase 42: non-finite values in {k} from "
+                                 f"th = 2e5")
+    return {"fast": fast, "fallback": fallback}, out
 
 
 def phase_demos(dev):
@@ -5371,6 +5539,7 @@ def main():
     path15 = phase_wide_mpf_path(dev)
     path16 = phase_k14(dev)
     times["cartpole_sweep_episode"] = path16
+    cartpole_math = phase_cartpole_math(dev)
     for name, err in general["max_abs_err"].items():
         stream_errs[name] = max(stream_errs[name], err)
 
@@ -5454,6 +5623,7 @@ def main():
         "multi_device": multi, "tuning": tuning, "checkpoints": ckpt,
         "demos": demos, "stream_general": general, "path14_adam": path14,
         "path15_wide_fused_mpf": path15, "path16_k14_sweep": path16,
+        "cartpole_math": cartpole_math,
         "path14_vs_plain_path_max_abs_err": loop14_err, "kernels": kernels,
     }
     out_dir = ROOT / "chiprun_out"

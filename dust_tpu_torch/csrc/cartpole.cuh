@@ -10,13 +10,18 @@
 // and the divisions at full precision); a division by a value fixed over a
 // rollout (the total mass, the pole's mass times its length) takes its
 // reciprocal and one corrected product (stein.cuh:div_rn), equal to the
-// division.
+// division. The rollouts take their sin/cos and th_dd's division in the
+// branch-free forms of cartpole_math.cuh, which give the library's bits
+// inside a tested range; a chunk-step whose chains leave it is recomputed
+// with the library's sincosf and `/`, so the bits are the library's on
+// both sides.
 
 #pragma once
 
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "cartpole_math.cuh"
 #include "stein.cuh"
 
 namespace dust_cartpole {
@@ -52,20 +57,72 @@ __device__ __forceinline__ float sign0(float v) {
   return v > 0.0f ? 1.0f : (v < 0.0f ? -1.0f : 0.0f);
 }
 
-// The accelerations (x_dd, th_dd) at cart speed xd, s = sin th, c = cos th,
+// The terms of the accelerations at cart speed xd, s = sin th, c = cos th,
 // pole speed thd, force f, under the parameters (l, mp) with M = mc + mp,
-// pm = mp l and their reciprocals iM, ipm.
+// pm = mp l and their reciprocals iM, ipm: th_dd = num / den, and factor,
+// which x_dd takes (cart_accel).
+__device__ __forceinline__ void accel_terms(const Model& k, float xd, float s,
+                                            float c, float thd, float f,
+                                            float l, float mp, float M,
+                                            float iM, float pm, float ipm,
+                                            float& factor, float& num,
+                                            float& den) {
+  const float cf = k.mu_c * sign0(xd);
+  const float pf = div_rn(k.mu_p * thd, pm, ipm);
+  factor = div_rn((f + (pm * s) * (thd * thd)) - cf, M, iM);
+  num = ((k.g * s) - (c * factor)) - pf;
+  den = l * (kFourThirds - div_rn(mp * (c * c), M, iM));
+}
+
+__device__ __forceinline__ float cart_accel(float factor, float tdd, float c,
+                                            float pm, float M, float iM) {
+  return factor - div_rn((pm * tdd) * c, M, iM);
+}
+
+// The accelerations (x_dd, th_dd), as accel_terms takes its arguments.
 __device__ __forceinline__ void accel(const Model& k, float xd, float s,
                                       float c, float thd, float f, float l,
                                       float mp, float M, float iM, float pm,
                                       float ipm, float& xdd, float& tdd) {
-  const float cf = k.mu_c * sign0(xd);
-  const float pf = div_rn(k.mu_p * thd, pm, ipm);
-  const float factor = div_rn((f + (pm * s) * (thd * thd)) - cf, M, iM);
-  const float num = ((k.g * s) - (c * factor)) - pf;
-  const float den = l * (kFourThirds - div_rn(mp * (c * c), M, iM));
+  float factor, num, den;
+  accel_terms(k, xd, s, c, thd, f, l, mp, M, iM, pm, ipm, factor, num, den);
   tdd = num / den;
-  xdd = factor - div_rn((pm * tdd) * c, M, iM);
+  xdd = cart_accel(factor, tdd, c, pm, M, iM);
+}
+
+// One rollout chain's terms of a step from (x, xd, th, thd) under force f:
+// c = cos th, the state's cost sc, factor and th_dd. kFast: sin/cos and the
+// division in cartpole_math.cuh's forms, returning whether they hold there
+// (the library's bits); else the library's sincosf and `/`.
+template <bool kFast>
+__device__ __forceinline__ bool step_terms(const Model& k, float x, float xd,
+                                           float th, float thd, float f,
+                                           float l, float mp, float M,
+                                           float iM, float pm, float ipm,
+                                           float& c, float& sc,
+                                           float& factor, float& tdd) {
+  float s, num, den;
+  if (kFast)
+    fast_sincosf(th, s, c);
+  else
+    sincosf(th, &s, &c);
+  sc = state_cost(x, xd, c, thd);
+  accel_terms(k, xd, s, c, thd, f, l, mp, M, iM, pm, ipm, factor, num, den);
+  if (!kFast) {
+    tdd = num / den;
+    return true;
+  }
+  tdd = fast_div(num, den);
+  return trig_ok(th) & div_ok(num, den);
+}
+
+// Adds 1 for each thread that calls it to *n (when not null), one atomic
+// per warp's group of threads that call it together.
+__device__ __forceinline__ void count_threads(unsigned long long* n) {
+  if (n == nullptr) return;
+  const unsigned mask = __activemask();
+  if ((threadIdx.x & 31) == __ffs(mask) - 1)
+    atomicAdd(n, static_cast<unsigned long long>(__popc(mask)));
 }
 
 // Param-averaged swing-up cost of the (particle q, action sample i) pairs
@@ -75,11 +132,19 @@ __device__ __forceinline__ void accel(const Model& k, float xd, float s,
 // mass_pole); ld(q, i, t) returns the raw value behind step t's action,
 // act(q, t, raw) the action before its clamp; ld is called one step ahead
 // of the chains.
+//
+// Each step of the kC chains (a chunk-step) runs branch-free: step_terms'
+// fast forms for every chain, then one test of their ranges; where it
+// fails, the chunk-step is recomputed from the same state with the
+// library's sincosf and `/`, and counted in *fallbacks (when not null).
+// The final cosine of a chunk is tested and counted alike. A chain past
+// the last draw repeats it, and its cost is not added.
 template <int kC, class Load, class Act>
 __device__ inline void rollout_mcost(const float* s0, const float* lens,
                                      const float* mps, int n_params, int m,
                                      int hz, int n_act, const Model& k,
-                                     Load ld, Act act, float* mcost) {
+                                     Load ld, Act act, float* mcost,
+                                     unsigned long long* fallbacks) {
   const float inv_np = static_cast<float>(1.0 / n_params);
   const int n = m * n_act;
   for (int pair = threadIdx.x; pair < n; pair += blockDim.x) {
@@ -91,45 +156,66 @@ __device__ inline void rollout_mcost(const float* s0, const float* lens,
       float L[kC], MP[kC], M[kC], iM[kC], pm[kC], ipm[kC];
 #pragma unroll
       for (int p = 0; p < kC; ++p) {
-        if (p0 + p < n_params) {
-          L[p] = lens[p0 + p];
-          MP[p] = mps[p0 + p];
-          M[p] = k.mc + MP[p];
-          iM[p] = 1.0f / M[p];
-          pm[p] = MP[p] * L[p];
-          ipm[p] = 1.0f / pm[p];
-          x[p] = s0[0];
-          xd[p] = s0[1];
-          th[p] = s0[2];
-          thd[p] = s0[3];
-          cost[p] = 0.0f;
-        }
+        const int d = min(p0 + p, n_params - 1);
+        L[p] = lens[d];
+        MP[p] = mps[d];
+        M[p] = k.mc + MP[p];
+        iM[p] = 1.0f / M[p];
+        pm[p] = MP[p] * L[p];
+        ipm[p] = 1.0f / pm[p];
+        x[p] = s0[0];
+        xd[p] = s0[1];
+        th[p] = s0[2];
+        thd[p] = s0[3];
+        cost[p] = 0.0f;
       }
       float raw = ld(q, i, 0);
       for (int t = 0; t < hz; ++t) {
         const float f = clampf(act(q, t, raw), -1.0f, 1.0f) * k.f_mag;
         if (t + 1 < hz) raw = ld(q, i, t + 1);
+        float c[kC], sc[kC], fac[kC], tdd[kC];
+        bool fast = true;
+#pragma unroll
+        for (int p = 0; p < kC; ++p)
+          fast &= step_terms<true>(k, x[p], xd[p], th[p], thd[p], f, L[p],
+                                   MP[p], M[p], iM[p], pm[p], ipm[p], c[p],
+                                   sc[p], fac[p], tdd[p]);
+        if (!fast) {
+#pragma unroll
+          for (int p = 0; p < kC; ++p)
+            step_terms<false>(k, x[p], xd[p], th[p], thd[p], f, L[p], MP[p],
+                              M[p], iM[p], pm[p], ipm[p], c[p], sc[p],
+                              fac[p], tdd[p]);
+          count_threads(fallbacks);
+        }
 #pragma unroll
         for (int p = 0; p < kC; ++p) {
-          if (p0 + p < n_params) {
-            float s, c;
-            sincosf(th[p], &s, &c);
-            cost[p] = cost[p] + state_cost(x[p], xd[p], c, thd[p]);
-            float xdd, tdd;
-            accel(k, xd[p], s, c, thd[p], f, L[p], MP[p], M[p], iM[p], pm[p],
-                  ipm[p], xdd, tdd);
-            x[p] = x[p] + xd[p] * k.dt;
-            xd[p] = xd[p] + xdd * k.dt;
-            th[p] = th[p] + thd[p] * k.dt;
-            thd[p] = thd[p] + tdd * k.dt;
-          }
+          const float xdd = cart_accel(fac[p], tdd[p], c[p], pm[p], M[p],
+                                       iM[p]);
+          cost[p] = cost[p] + sc[p];
+          x[p] = x[p] + xd[p] * k.dt;
+          xd[p] = xd[p] + xdd * k.dt;
+          th[p] = th[p] + thd[p] * k.dt;
+          thd[p] = thd[p] + tdd[p] * k.dt;
         }
+      }
+      float c[kC];
+      bool fast = true;
+#pragma unroll
+      for (int p = 0; p < kC; ++p) {
+        float s;
+        fast_sincosf(th[p], s, c[p]);
+        fast &= trig_ok(th[p]);
+      }
+      if (!fast) {
+#pragma unroll
+        for (int p = 0; p < kC; ++p) c[p] = cosf(th[p]);
+        count_threads(fallbacks);
       }
 #pragma unroll
       for (int p = 0; p < kC; ++p) {
         if (p0 + p < n_params) {
-          const float cp =
-              cost[p] + state_cost(x[p], xd[p], cosf(th[p]), thd[p]);
+          const float cp = cost[p] + state_cost(x[p], xd[p], c[p], thd[p]);
           mc = p0 + p == 0 ? cp : mc + cp;
         }
       }

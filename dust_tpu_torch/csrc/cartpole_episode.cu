@@ -21,7 +21,11 @@
 // computes what a launch of it alone computes, bit for bit, and a
 // diverged one cannot reach another. The rollouts hold a pair's chains in
 // registers, four draws at a time (the cart-pole's state is 4 values and
-// each draw keeps 6 constants: eight at a time spilled past K5's budget);
+// each draw keeps 6 constants: eight at a time spilled past K5's budget),
+// each step of the four branch-free: sin/cos and th_dd's division in
+// cartpole_math.cuh's forms, the library's bits inside the range one test
+// per step checks, the library's sincosf and `/` past it (counted in
+// `fallbacks`), so ptxas interleaves the four chains;
 // the DISCO delta takes 8 lanes per entry; the MPF loop a quad of lanes
 // per particle, its row in registers at 49-52 particles (K5's loop). The
 // per-step noise lives in device memory, read through L1/L2.
@@ -58,6 +62,7 @@ struct EpisodeArgs {
   float* amat_out;     // [B, m, hz]
   float* mpfx_out;     // [B, m_mpf, 2]
   long long* clock;    // [B, kClockSlots] (the clocked build), or null
+  unsigned long long* fallbacks;  // [1] the rollouts' fallbacks, or null
   int steps, hz, m, n_params, n_act, m_mpf, mpf_steps, load_step;
   Model model;
   float load_scale, log_n_act;
@@ -214,7 +219,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         sv, lens, mps, n_params, m, hz, n_act, km,
         [&](int q, int i, int t) { return eps[(t * m + q) * n_act + i]; },
         [&](int q, int t, float e) { return theta[q * hz + t] + sigma_c * e; },
-        mcost);
+        mcost, a.fallbacks);
     __syncthreads();
     clk.mark(kClkRollouts);
     disco_weights(mcost, m, n_act, dk, omega, w_lik, eta, log_l, red);
@@ -354,20 +359,23 @@ int launch(int B, const EpisodeArgs& a, cudaStream_t stream) {
 // constants; log_n_act = log(n_act), folded by the caller in double
 // precision. clock, when not null, is [B, kClockSlots] int64: the launch
 // then takes the build of the kernel that times the phases of a step (the
-// other build has no clock code).
+// other build has no clock code). fallbacks, when not null, is one int64
+// that each thread's rollout chunk-step taking the library's sincosf and
+// `/` adds 1 to (cartpole.cuh:rollout_mcost); a chunk-step is one step of
+// a pair's kChainDraws chains, or their final cosine.
 extern "C" int dust_cartpole_episodes(
     const float *scal, const float *ep_f, const int *ep_i,
     const float *theta0, const float *locs0, const float *amat0,
     const float *mpfx0, float *eps, float *log, float *theta_out,
     float *locs_out, float *amat_out, float *mpfx_out, long long *clock,
-    int B, int steps, int hz, int m, int n_params, int n_act, int m_mpf,
+    unsigned long long *fallbacks, int B, int steps, int hz, int m, int n_params, int n_act, int m_mpf,
     int mpf_steps, int load_step, float dt, float g, float mass_cart,
     float mu_c, float mu_p, float f_mag, float load_scale, float log_n_act,
     int exp_util, int log_space, int fixed_bw, float mpf_fixed_bw,
     float mpf_bw_scale, void *stream) {
   EpisodeArgs a{scal, ep_f, ep_i, theta0, locs0, amat0, mpfx0, eps, log,
-                theta_out, locs_out, amat_out, mpfx_out, clock, steps, hz,
-                m, n_params, n_act, m_mpf, mpf_steps, load_step,
+                theta_out, locs_out, amat_out, mpfx_out, clock, fallbacks,
+                steps, hz, m, n_params, n_act, m_mpf, mpf_steps, load_step,
                 Model{g, mass_cart, mu_c, mu_p, f_mag, dt}, load_scale,
                 log_n_act, exp_util, log_space, fixed_bw, mpf_fixed_bw,
                 mpf_bw_scale};

@@ -61,10 +61,11 @@ _EPISODE_ARGS = (
 
 # K14 (csrc/cartpole_episode.cu)
 _CARTPOLE_EPISODE_ARGS = (
-    [_VOID_P] * 14                # scal ep_f ep_i theta0 locs0 amat0 mpfx0
+    [_VOID_P] * 15                # scal ep_f ep_i theta0 locs0 amat0 mpfx0
                                   # eps log theta locs amat mpfx
                                   # clock (null but inside
                                   # cartpole_episode.phase_clock)
+                                  # fallbacks (the rollouts' count, or null)
     + [_INT] * 9                  # B steps hz m n_params n_act m_mpf
                                   # mpf_steps load_step
     + [_FLOAT] * 8                # dt g mass_cart mu_c mu_p f_mag load_scale

@@ -51,6 +51,9 @@ phase_clock = PhaseClock(CLOCK_PHASES)
 # lanes that share one entry's sum over the action samples in the kernel's
 # DISCO delta (csrc/cartpole_episode.cu:kSumLanes)
 SUM_LANES = 8
+# draws whose rollout chains a thread of the kernel advances together
+# (csrc/cartpole_episode.cu:kChainDraws)
+CHAIN_DRAWS = 4
 # models/cartpole.py's constants of the step, in the kernel's order
 MODEL_KEYS = ("g", "mass_cart", "mu_c", "mu_p", "f_mag")
 # the swing-up cost (csrc/cartpole.cuh:state_cost)
@@ -331,11 +334,21 @@ def _scalars(st):
     )
 
 
-# K14 for `episode_kernel.run_episodes`; its entry draws its own noise
+def rollout_guards(st, B):
+    """The guarded chunk-steps of a launch of B episodes
+    (`csrc/cartpole.cuh:rollout_mcost`): per episode step, each (particle,
+    action sample) pair's chunks of CHAIN_DRAWS draws, each over the
+    horizon's steps and its final cosine."""
+    chunks = -(-st["n_params"] // CHAIN_DRAWS)
+    return B * st["steps"] * st["m"] * st["n_act"] * chunks * (st["hz"] + 1)
+
+
+# K14 for `episode_kernel.run_episodes`; its entry draws its own noise and
+# counts its rollouts' fallbacks
 KERNEL = EpisodeKernel(
     entry="dust_cartpole_episodes",
     # looked up at each call, so that a test can swap the module's
     plain=lambda inputs, st: episode_plain(inputs, st),
     log_fields=LOG_FIELDS, clock=phase_clock,
     pointers=("scal", "ep_f", "ep_i", "theta0", "locs0", "amat0", "mpfx0"),
-    host_noise=False, scalars=_scalars)
+    host_noise=False, scalars=_scalars, rollout_guards=rollout_guards)

@@ -24,7 +24,7 @@ from .cartpole_episode import (
     episode_plain,
     episode_statics,
 )
-from .episode_kernel import run_episodes
+from .episode_kernel import GuardCounts, run_episodes
 from .sweep_inputs import InputCache, check_sweep_dims, prepared, run_sweep
 
 
@@ -117,6 +117,8 @@ def plain_cartpole_sweep_groups(*args, **kwargs):
 fused_cartpole_sweep_groups.launches = 0
 fused_cartpole_sweep_groups.mpf_reg_launches = 0
 fused_cartpole_sweep_groups.mpf_smem_launches = 0
+# the rollouts' fast and fallback chunk-steps (`.fast` / `.fallback`)
+fused_cartpole_sweep_groups.rollout_guard = GuardCounts()
 fused_cartpole_sweep_groups.input_hits = 0
 fused_cartpole_sweep_groups.input_builds = 0
 # the prepared inputs of `_sweep_groups` (both runners)

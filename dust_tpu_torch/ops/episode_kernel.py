@@ -40,7 +40,10 @@ class EpisodeKernel:
       whether the launch writes it (K10) or passes a null pointer (K9);
     * `counts_mpf_loop`: whether each launch is counted by the MPF loop it
       takes (`mpf.episode_register_loop`; the pendulum's Stein loop, which
-      K4/K5 and K14 run)."""
+      K4/K5 and K14 run);
+    * `rollout_guards`: None, or where the entry counts its rollouts'
+      fallbacks (K14: a pointer after the clock), `rollout_guards(st, B)`,
+      the guarded chunk-steps of a launch of B episodes (`GuardCounts`)."""
 
     entry: str
     plain: Callable
@@ -54,6 +57,37 @@ class EpisodeKernel:
     mpf_width: int = 2
     log_mix: Optional[bool] = None
     counts_mpf_loop: bool = True
+    rollout_guards: Optional[Callable] = None
+
+
+class GuardCounts:
+    """The guarded chunk-steps of a kernel's rollouts over a wrapper's
+    launches (K14, `csrc/cartpole.cuh:rollout_mcost`): `fast`, those that
+    took the branch-free forms, and `fallback`, those recomputed with the
+    library's sincosf and division. A launch adds its chunk-steps here on
+    the host (`EpisodeKernel.rollout_guards`) and the kernel its fallbacks
+    to a device count, in its fallback branch alone, so a launch waits for
+    nothing; reading `fallback` or `fast` waits for the launches before
+    it."""
+
+    def __init__(self):
+        self.steps = 0
+        self._counts = {}
+
+    def buffer(self, device):
+        """The int64 [1] count that launches on `device` add to."""
+        if device not in self._counts:
+            self._counts[device] = torch.zeros(1, dtype=torch.int64,
+                                               device=device)
+        return self._counts[device]
+
+    @property
+    def fallback(self):
+        return sum(int(c.item()) for c in self._counts.values())
+
+    @property
+    def fast(self):
+        return self.steps - self.fallback
 
 
 def mpf_scalars(st):
@@ -86,7 +120,7 @@ def episode_ids(seeds, scenario):
     return torch.cat([seeds, scenario[:, None]], dim=1).to(torch.int32)
 
 
-def launch_args(kernel, inputs, st, stream):
+def launch_args(kernel, inputs, st, stream, fallbacks=None):
     """One launch of `kernel.entry` on inputs in the kernel's form
     (`kernel_statics`' entries, `ep_i` and the host noise or None), on
     their device: (outputs, tensors, args). outputs: log, theta, locs,
@@ -94,8 +128,9 @@ def launch_args(kernel, inputs, st, stream):
     where the launch does not write it); tensors: every tensor the launch
     reads or writes, to be kept referenced until it is queued; args: the
     entry's arguments in its order (the pointers, the noise, the outputs,
-    the clock, `inputs["args"]`, the host-noise flag where it takes host
-    noise, the stream)."""
+    the clock, where `kernel.rollout_guards` the fallback count
+    `fallbacks` (None: not counted), `inputs["args"]`, the host-noise flag
+    where it takes host noise, the stream)."""
     theta0 = inputs["theta0"]
     dev = theta0.device
     B = theta0.shape[0]
@@ -120,6 +155,8 @@ def launch_args(kernel, inputs, st, stream):
     noise = (eps, pdz, pdu) if kernel.host_noise else (eps,)
     tensors = [*(inputs[k] for k in kernel.pointers), *noise, *outputs,
                kernel.clock.rows(B, dev)]
+    if kernel.rollout_guards is not None:
+        tensors.append(fallbacks)
     flag = (int(host_noise),) if kernel.host_noise else ()
     args = (*(None if t is None else t.data_ptr() for t in tensors),
             *inputs["args"], *flag, stream)
@@ -136,8 +173,10 @@ def run_episodes(wrapper, inputs, st, kernel):
     (`episode_ids`) in place of seeds and scenario. Where
     `kernel.counts_mpf_loop`, a launch is also counted by the MPF loop it
     takes (`mpf.episode_register_loop`), in `wrapper.mpf_reg_launches` or
-    `wrapper.mpf_smem_launches`. Returns the plain version's outputs on
-    CPU tensors, `launch_args`' outputs on CUDA tensors."""
+    `wrapper.mpf_smem_launches`; where `kernel.rollout_guards`, its
+    rollouts' chunk-steps in `wrapper.rollout_guard` (`GuardCounts`).
+    Returns the plain version's outputs on CPU tensors, `launch_args`'
+    outputs on CUDA tensors."""
     dev = inputs["theta0"].device
     if dev.type == "cpu":
         return kernel.plain(inputs, st)
@@ -151,10 +190,15 @@ def run_episodes(wrapper, inputs, st, kernel):
                       ep_i=episode_ids(inputs["seeds"], inputs["scenario"]))
     # `tensors` stays referenced until the launch is queued: a temporary's
     # memory could be handed to the next allocation
+    guard = (None if kernel.rollout_guards is None
+             else wrapper.rollout_guard)
     outputs, tensors, args = launch_args(
-        kernel, inputs, st, torch.cuda.current_stream(dev).cuda_stream)
+        kernel, inputs, st, torch.cuda.current_stream(dev).cuda_stream,
+        None if guard is None else guard.buffer(dev))
     rc = getattr(load_library(), kernel.entry)(*args)
     wrapper.launches += 1
+    if guard is not None:
+        guard.steps += kernel.rollout_guards(st, inputs["theta0"].shape[0])
     if kernel.counts_mpf_loop:
         if episode_register_loop(st["m_mpf"]):
             wrapper.mpf_reg_launches += 1

@@ -1,7 +1,7 @@
 """The benchmark's readers of the program's spans, phase clock and
 counters (`perfbench/metrics/{sweep_prep_ms,idle_in_program_pct,
 step_rollout_us,step_svmpc_us,step_mpf_us,sweep_inputs_hit_pct,
-rollout_ns_per_traj_step,mpf_reg_loop_pct}.py`,
+rollout_ns_per_traj_step,mpf_reg_loop_pct,rollout_fast_pct}.py`,
 `perfbench/phases.py`): each reads None without a device trace, the
 program's spans, clock rows or counters (a program without them, the
 CPU), and the right value from a stub `Trace`, a stub runner whose
@@ -239,6 +239,71 @@ def test_mpf_reg_loop_counters_on_the_programs_wrappers():
     runner.sweep.sweep_fn.wrapper = \
         particle_sweep_episode.fused_particle_sweep_episode
     assert _read("mpf_reg_loop_pct", runner=runner, trace=None) is None
+
+
+@pytest.mark.parametrize("fast,fallback,want", [(100, 0, 100.0),
+                                                 (3, 1, 75.0), (0, 7, 0.0),
+                                                 (999, 1, 99.9)])
+def test_rollout_fast_reader_on_a_stub_runner(fast, fallback, want):
+    """`rollout_fast_pct`: 100 x the rollout chunk-steps that took the
+    fast path over all of them, from the wrapper's `rollout_guard`."""
+    guard = SimpleNamespace(fast=fast, fallback=fallback)
+    runner = _counting_runner(rollout_guard=guard)
+    got = _read("rollout_fast_pct", runner=runner, trace=None)
+    assert got == pytest.approx(want)
+
+
+@pytest.mark.parametrize("runner", [
+    SimpleNamespace(),
+    SimpleNamespace(sweep=SimpleNamespace(sweep_fn=SimpleNamespace())),
+    _counting_runner(launches=3),
+    _counting_runner(rollout_guard=SimpleNamespace(fast=4)),
+    _counting_runner(rollout_guard=SimpleNamespace(fast=0, fallback=0)),
+], ids=["no sweep", "adapter without a wrapper", "wrapper without the "
+        "counts", "one count only", "no launch"])
+def test_rollout_fast_reader_reads_none_without_counts(runner):
+    assert _read("rollout_fast_pct", runner=runner, trace=None) is None
+
+
+def test_rollout_fast_counts_on_the_programs_wrappers():
+    """K14's sweep wrapper carries the rollouts' two counts from import,
+    zero before any launch (the ones a fresh `GuardCounts` reads too); the
+    pendulum's and the particle's sweep wrappers (K5, K10, whose rollouts
+    take no such guard) carry none, so their cells read None."""
+    from dust_tpu_torch.ops import (
+        cartpole_sweep_episode,
+        particle_sweep_episode,
+        sweep_episode,
+    )
+    from dust_tpu_torch.ops.episode_kernel import GuardCounts
+
+    fresh = GuardCounts()
+    assert (fresh.fast, fresh.fallback, fresh.steps) == (0, 0, 0)
+    guard = cartpole_sweep_episode.fused_cartpole_sweep_groups.rollout_guard
+    assert isinstance(guard, GuardCounts)
+    assert isinstance(guard.fast, int) and isinstance(guard.fallback, int)
+    assert (guard.fast, guard.fallback) == (0, 0)
+    for wrapper in (sweep_episode.fused_pendulum_sweep_episode,
+                    particle_sweep_episode.fused_particle_sweep_episode):
+        runner = _counting_runner()
+        runner.sweep.sweep_fn.wrapper = wrapper
+        assert _read("rollout_fast_pct", runner=runner, trace=None) is None
+
+
+def test_rollout_guards_count_every_chunk_step():
+    """K14's guarded chunk-steps per launch: each (particle, action
+    sample) pair's chunks of CHAIN_DRAWS draws over the horizon's steps
+    and the final cosine, every episode step of every episode."""
+    from dust_tpu_torch.ops import cartpole_episode
+
+    st = dict(steps=200, m=3, n_act=128, n_params=8, hz=30)
+    chunks = -(-8 // cartpole_episode.CHAIN_DRAWS)
+    assert cartpole_episode.rollout_guards(st, 256) == \
+        256 * 200 * 3 * 128 * chunks * 31
+    assert cartpole_episode.rollout_guards(dict(st, n_params=9), 1) == \
+        200 * 3 * 128 * (chunks + 1) * 31
+    assert cartpole_episode.KERNEL.rollout_guards is \
+        cartpole_episode.rollout_guards
 
 
 @pytest.mark.parametrize("phases", [episode.CLOCK_PHASES,
