@@ -28,10 +28,11 @@ hashes a 20-step K14 sweep from a start angle of 2e5 rad, where every
 rollout chunk-step takes the library's sincosf and division, with the
 wrapper's fast / fallback counts of it, and of all its K14 calls, where
 the tree has them. It also
-times one 256-episode K14 sweep (path 16, as K5's) and reads the
-registers and spill bytes of the episode kernels K4/K5, K9/K10 and K14
-from the build's ptxas report (empty where the library was already
-built). Where the tree has them, it prints the
+times one 256-episode K14 sweep (path 16, as K5's) and, where the tree
+has it, one 256-episode K15 sweep (path 17), and hashes K15's outputs;
+and reads the registers and spill bytes of the episode kernels K4/K5,
+K9/K10, K14 and K15 from the build's ptxas report (empty where the
+library was already built). Where the tree has them, it prints the
 per-phase clocks of K1, K2, K3, K6 and K7 (their clocked builds,
 `chip_smoke._phase_clock`). It prints one line, `RESULT {json}`. To
 compare a parent and a change, unpack both (`git archive`) and run the
@@ -60,6 +61,7 @@ import json
 import os
 import statistics
 import sys
+import types
 from pathlib import Path
 
 sys.path.insert(0, os.getcwd())
@@ -108,7 +110,8 @@ def device_ops(fn, calls=20):
 
 def ptxas_usage(log, kernels=("pendulum_episode_kernel",
                                 "particle_episode_kernel",
-                                "cartpole_episode_kernel")):
+                                "cartpole_episode_kernel",
+                                "skid_steer_episode_kernel")):
     """{mangled entry: {registers, spill_stores, spill_loads}} of each
     compiled entry whose name holds one of `kernels`, from the build's
     `ptxas -v` lines."""
@@ -157,6 +160,15 @@ _spec = importlib.util.spec_from_file_location(
     "chip_smoke_beside", Path(__file__).resolve().with_name("chip_smoke.py"))
 beside = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(beside)
+# K15's wrapper, where the tree has it; in a tree before K15 the beside
+# script's launch counts (`_wrappers`) read a stand-in that never launches
+try:
+    from dust_tpu_torch.ops import skid_steer_sweep_episode as sse
+except ImportError:
+    sse = None
+    sys.modules["dust_tpu_torch.ops.skid_steer_sweep_episode"] = (
+        types.SimpleNamespace(fused_skid_steer_sweep_groups=(
+            types.SimpleNamespace(launches=0))))
 res["wide"] = beside.wide_times(dev, plain=False)
 res["path15_updates_per_s"] = {
     k: v["updates_per_s"] for k, v in beside.phase_wide_mpf_path(dev).items()}
@@ -313,6 +325,15 @@ k14_fb = fgroups.run(fseeds(1), flens, fmps)
 res["k14_fallback_sha256"] = sha256(k14_fb[k] for k in sorted(k14_fb))
 res["k14_fallback_counts"] = None if guard is None else [
     guard.fast - before[0], guard.fallback - before[1]]
+# K15: the skid-steer cell's 256-episode sweep (path 17), timed as K14's,
+# and its outputs hashed, where the tree has it
+if sse is not None:
+    sgroups, sseeds, sparams, _, _ = beside._skid_steer_sweep(
+        dev, cs.MAIN_STEPS)
+    res["k15_ms_per_sweep"] = statistics.median(
+        cs._event_ms(lambda: sgroups.run(sseeds(1), *sparams), 3))
+    k15_out = sgroups.run(sseeds(1), *sparams)
+    res["k15_sha256"] = sha256(k15_out[k] for k in sorted(k15_out))
 # K5's outputs on fixed host-noise inputs, 16 scenarios x 2 chains x 20 steps
 steps = 20
 theta0, mpfx0, noise = cs._episode_setup(steps, cs.SEED + 13, dev,
@@ -423,7 +444,8 @@ res["counters"] = {
     for w in (ep.fused_pendulum_episode,
               sweep_episode.fused_pendulum_sweep_episode,
               pe.fused_particle_episode, pse.fused_particle_sweep_episode,
-              cse.fused_cartpole_sweep_groups)}
+              cse.fused_cartpole_sweep_groups,
+              *(() if sse is None else (sse.fused_skid_steer_sweep_groups,)))}
 guard = getattr(cse.fused_cartpole_sweep_groups, "rollout_guard", None)
 res["k14_rollout_guard"] = (None if guard is None
                             else [guard.fast, guard.fallback])

@@ -248,6 +248,18 @@ Phases (any failure raises and exits non-zero):
      16's layout, 20 steps from a start angle of 2e5 rad (past the fast
      range), every rollout chunk-step counted as a fallback, every value
      finite (chip_compare.py holds its bits to the parent's).
+ 43. K15 (the skid-steer sweep, `experiments.SKID_STEER_DEMO_CONFIG`):
+     against its plain version on the card after 1 and 3 steps at path
+     17's layout, at K15_TOLS; path 17: the benchmark cell's shape, 8
+     groups x 8 scenarios x 4 chains x 200 steps, in one K15 launch
+     through MegakernelGroupSweep, every value finite, the same seeds the
+     same bits; its device ms per call (one launch between CUDA events,
+     median of 7) beside the bound from perfbench/skid_steer_counts.py and
+     the plain version's one call; one more call under its clocked build;
+     the share of episodes that reached the target and that crashed by
+     step 199 (reported, not required); then K15's fallback: path 17's
+     layout, 5 steps from a heading of 2e5 rad (past the fast sin/cos),
+     every rollout step counted as a fallback, every value finite.
 
 Every path is driven with all launch counts set to 0 just before it and
 read just after. The line before the last is the kernels' JSON summary;
@@ -302,6 +314,19 @@ K4_FIELDS = ("th", "om", "action", "cost", "bw_sv", "bw_mpf")
 K14_TOLS = dict(x=1e-5, x_dot=1e-4, th=1e-5, th_dot=1e-4, action=1e-4,
                 cost=1e-3, bw_sv=1e-4, bw_mpf=1e-5, theta=1e-3, a_mat=5e-3,
                 mpf_x=1e-5)
+# K15 against its plain version: the same arithmetic but the MPF loop's
+# ex2.approx, bit-equal after one step but the MPF; K14's tolerances by
+# the kind of value (positions as x, the plans as theta), but the wheel
+# speeds, the speeds they give and the heading they turn: the MPF's
+# rounding moves the draws and through the rollouts the plans, whose first
+# values are the wheel speeds (1.2e-4 after 3 steps; the heading 1.8e-5;
+# NVIDIA H100 80GB HBM3, 700 W), so these take the plans' 1e-3 and the
+# heading 1e-4; the MPF particles, three log-space values each, 1e-4
+# (1.3e-5 after 3 steps)
+K15_TOLS = dict(x=1e-5, y=1e-5, th=1e-4, v=1e-3, omega=1e-3, a_r=1e-3,
+                a_l=1e-3, cost=1e-3, bw_sv=1e-4, bw_mpf=1e-5, theta=1e-3,
+                a_mat=5e-3, mpf_x=1e-4)
+SKID_GROUPS, SKID_SC, SKID_CHAINS = 8, 8, 4
 # a cart-pole episode is upright at a step where its wrapped angle is
 # within this many radians of 0 (a sanity reading, not a gate)
 UPRIGHT_RAD = 0.2
@@ -664,6 +689,7 @@ def _wrappers():
         particle_rollout,
         particle_sweep_episode,
         rollout,
+        skid_steer_sweep_episode,
         solve,
         svgd,
         sweep_episode,
@@ -690,6 +716,8 @@ def _wrappers():
         "gmm_prior_score": gmm.gmm_prior_score_streamed,
         "gmm_prior_score_packed": gmm.gmm_prior_score_streamed_packed,
         "mpf_stream_step": mpf_stream.fused_mpf_stream_step,
+        "skid_steer_sweep_episode":
+            skid_steer_sweep_episode.fused_skid_steer_sweep_groups,
     }
 
 
@@ -5265,6 +5293,155 @@ def phase_k14(dev):
     return result
 
 
+def _skid_steer_sweep(dev, steps, th0=None):
+    """Path 17: the skid-steer benchmark cell's sweep on the demo stack
+    (`SKID_STEER_DEMO_CONFIG`, its start heading `th0` where given), 8
+    groups x 8 scenarios x 4 chains of `steps`-step episodes through
+    MegakernelGroupSweep; the seeds of call i, the true (x_icr,
+    wheel_radius, axial_distance) grids of the cell's traffic, and
+    plain(seeds): the sweep's plain version on the same inputs."""
+    import torch
+
+    from dust_tpu_torch.experiments import (
+        SKID_STEER_DEMO_CONFIG,
+        build_particle_stack,
+    )
+    from dust_tpu_torch.ops import skid_steer_sweep_episode as sse
+    from dust_tpu_torch.parallel import MegakernelGroupSweep
+    from dust_tpu_torch.simulation import megakernel_skid_steer_sweep_fn
+
+    cfg = copy.deepcopy(SKID_STEER_DEMO_CONFIG)
+    if th0 is not None:
+        cfg["env_params"]["init_state"][2] = th0
+    stack = build_particle_stack(
+        cfg, torch.Generator(device=dev).manual_seed(SEED), device=dev)
+    make = lambda: megakernel_skid_steer_sweep_fn(
+        stack, cfg["exp_params"], steps=steps, n_sc=SKID_SC,
+        n_chains=SKID_CHAINS)
+    sweep = make()
+    # the same adapter over the plain version: the adapter takes its
+    # wrapper from the module when it is made
+    launch = sse.fused_skid_steer_sweep_groups
+    sse.fused_skid_steer_sweep_groups = sse.plain_skid_steer_sweep_groups
+    try:
+        plain_sweep = make()
+    finally:
+        sse.fused_skid_steer_sweep_groups = launch
+    grid = lambda lo, hi: torch.linspace(lo, hi, SKID_SC, device=dev)
+    params = (grid(0.15, 0.25).expand(SKID_GROUPS, SKID_SC),
+              grid(0.05625, 0.06875).flip(0).expand(SKID_GROUPS, SKID_SC),
+              grid(0.4275, 0.5225).roll(3).expand(SKID_GROUPS, SKID_SC))
+
+    def seeds(i):
+        return torch.stack([
+            torch.full((SKID_GROUPS,), i, dtype=torch.int64, device=dev),
+            torch.arange(SKID_GROUPS, device=dev) * 1000], dim=1)
+
+    def plain(seed_rows):
+        return plain_sweep.groups(seed_rows, *params)
+
+    return MegakernelGroupSweep(sweep), seeds, params, plain, sweep
+
+
+def phase_k15(dev):
+    """K15 against its plain version, path 17, K15's time and clock, the
+    target and crash shares and the fallback (see the module docstring,
+    phase 43)."""
+    import torch
+
+    from dust_tpu_torch.experiments import SKID_STEER_DEMO_CONFIG
+    from dust_tpu_torch.ops import skid_steer_episode
+    from perfbench.skid_steer_counts import skid_steer_work
+
+    worst = 0.0
+    for steps in (1, 3):
+        groups, seeds, params, plain, _ = _skid_steer_sweep(dev, steps)
+        got = groups.run(seeds(1), *params)
+        want = plain(seeds(1))
+        torch.cuda.synchronize()
+        for k, tol in K15_TOLS.items():
+            worst = max(worst, _check_close(
+                f"K15 vs plain {SKID_GROUPS}x{SKID_SC}x{SKID_CHAINS} "
+                f"device RNG {steps} steps {k}", got[k], want[k], rtol=0.0,
+                atol=tol))
+
+    groups, seeds, params, plain, sweep = _skid_steer_sweep(dev, MAIN_STEPS)
+    groups.run(seeds(0), *params)  # warm-up
+    _reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = groups.run(seeds(1), *params)
+    torch.cuda.synchronize()
+    elapsed = time.perf_counter() - t0
+    launches = _counts()
+    _check_counts("path 17 (K15 sweep)", launches,
+                  {"skid_steer_sweep_episode": 1})
+    for k, v in out.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"path 17: non-finite values in {k}")
+    again = groups.run(seeds(1), *params)
+    differ = [k for k in out if not torch.equal(out[k], again[k])]
+    if differ:
+        raise AssertionError(f"path 17: the same seeds gave other bits in "
+                             f"{differ}")
+    done, crashed = out["done"][:, :, -1], out["crashed"][:, :, -1]
+    episodes = SKID_GROUPS * SKID_SC * SKID_CHAINS
+    ended = float(out["done"][:, :, :-1].sum())
+    ops, nbytes = skid_steer_work(
+        SKID_STEER_DEMO_CONFIG["exp_params"],
+        SKID_STEER_DEMO_CONFIG["env_params"], MAIN_STEPS,
+        episodes * MAIN_STEPS - ended, episodes)
+    bound = _bound(nbytes, ops)
+    runs = {"plain": [], "kernel": []}
+    kern = lambda: groups.run(seeds(1), *params)
+    for which in ("plain", "kernel", "kernel", "plain"):
+        if which == "kernel":
+            runs[which].append(statistics.median(_event_ms(kern, 7)))
+        elif not runs["plain"]:
+            runs[which].append(_event_ms(lambda: plain(seeds(1)), 1)[0])
+    clock = _phase_clock("K15 (path 17)", kern,
+                         skid_steer_episode.phase_clock)
+    guard = sweep.wrapper.rollout_guard
+    result = {
+        "episodes": episodes, "steps": MAIN_STEPS, "seconds": elapsed,
+        "solves_per_s": episodes * MAIN_STEPS / elapsed,
+        "launches": launches, "max_abs_err": worst,
+        "target_share": float(((done > 0.5) & (crashed < 0.5)).float()
+                              .mean()),
+        "crash_share": float((crashed > 0.5).float().mean()),
+        "ms": min(runs["kernel"]), "plain_ms": min(runs["plain"]),
+        "runs": runs, "bound_ms": bound[0], "bound_by": bound[1],
+        "bound_bytes": bound[2], "bound_ops": bound[3],
+        "timed_as": "one launch between CUDA events, median of 7",
+        "phase_clock": clock, "rollout_fast": guard.fast,
+        "rollout_fallback": guard.fallback}
+    print(f"path 17 (K15 sweep): {episodes} episodes x {MAIN_STEPS} steps in "
+          f"one launch, {elapsed:.4f} s, {result['solves_per_s']:.1f} "
+          f"solves/s; K15 {result['ms']:.3f} ms a call (plain "
+          f"{result['plain_ms']:.1f} ms), bound {bound[0]:.4f} ms "
+          f"({bound[1]}), {100 * bound[0] / result['ms']:.2f}% of it; "
+          f"reached the target {result['target_share']:.4f}, crashed "
+          f"{result['crash_share']:.4f}; rollout steps fast "
+          f"{guard.fast}, fallback {guard.fallback}; launches {launches}")
+
+    # the fallback: every rollout step past the fast sin/cos's range
+    groups, seeds, params, _, sweep = _skid_steer_sweep(dev, 5, th0=2e5)
+    guard = sweep.wrapper.rollout_guard
+    f0, s0 = guard.fallback, guard.steps
+    far = groups.run(seeds(2), *params)
+    n_fallback, n_steps = guard.fallback - f0, guard.steps - s0
+    for k, v in far.items():
+        if not torch.isfinite(v).all():
+            raise AssertionError(f"K15 fallback: non-finite values in {k}")
+    if n_fallback != n_steps or n_steps == 0:
+        raise AssertionError(f"K15 fallback: {n_fallback} fallbacks of "
+                             f"{n_steps} rollout steps")
+    result["fallback_run"] = {"steps": n_steps, "fallbacks": n_fallback}
+    print(f"K15 fallback (heading 2e5 rad, 5 steps): {n_fallback} of "
+          f"{n_steps} rollout steps took the library's sincosf")
+    return result
+
+
 def _build_math_check():
     """The check library of `csrc/checks/cartpole_math_check.cu`, built
     with the kernels' flags beside the kernels' library, loaded."""
@@ -5540,6 +5717,8 @@ def main():
     path16 = phase_k14(dev)
     times["cartpole_sweep_episode"] = path16
     cartpole_math = phase_cartpole_math(dev)
+    path17 = phase_k15(dev)
+    times["skid_steer_sweep_episode"] = path17
     for name, err in general["max_abs_err"].items():
         stream_errs[name] = max(stream_errs[name], err)
 
@@ -5593,7 +5772,10 @@ def main():
              path11["m=8192 fuse_streams"]),
             ("cartpole_sweep_episode",
              "dust_tpu_torch/csrc/cartpole_episode.cu", "none (port only)",
-             path16["max_abs_err"], path16)):
+             path16["max_abs_err"], path16),
+            ("skid_steer_sweep_episode",
+             "dust_tpu_torch/csrc/skid_steer_episode.cu", "none (port only)",
+             path17["max_abs_err"], path17)):
         t = times[name]
         kernels.append({
             "name": name, "route": "cuda", "source": source,
@@ -5623,7 +5805,7 @@ def main():
         "multi_device": multi, "tuning": tuning, "checkpoints": ckpt,
         "demos": demos, "stream_general": general, "path14_adam": path14,
         "path15_wide_fused_mpf": path15, "path16_k14_sweep": path16,
-        "cartpole_math": cartpole_math,
+        "cartpole_math": cartpole_math, "path17_k15_sweep": path17,
         "path14_vs_plain_path_max_abs_err": loop14_err, "kernels": kernels,
     }
     out_dir = ROOT / "chiprun_out"

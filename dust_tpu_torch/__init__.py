@@ -59,6 +59,7 @@ from .models import (
     ObstacleMap,
     Particle,
     PendulumModel,
+    SkidSteerNavigation,
     SkidSteerRobot,
 )
 from .controllers import AMPPI, AMPPIState, DiscoState, MultiDisco
@@ -87,6 +88,7 @@ from .experiments import (
     PARTICLE_TUNED_CONFIG,
     PENDULUM_DEMO_CONFIG,
     PENDULUM_TUNED_CONFIG,
+    SKID_STEER_DEMO_CONFIG,
     build_particle_stack,
     build_pendulum_stack,
 )
@@ -97,6 +99,7 @@ from .simulation import (
     megakernel_particle_sweep_fn,
     megakernel_pendulum_episode_fn,
     megakernel_pendulum_sweep_fn,
+    megakernel_skid_steer_sweep_fn,
     particle_episode_fn,
     run_particle_episode,
     to_dataframe,
@@ -121,7 +124,7 @@ __all__ = [
     "Box", "GMM", "MVN", "Normal", "Uniform",
     "MerweScaledUTF",
     "BaseModel", "CartPoleModel", "ObstacleMap", "Particle", "PendulumModel",
-    "SkidSteerRobot",
+    "SkidSteerNavigation", "SkidSteerRobot",
     "AMPPI", "AMPPIState", "DiscoState", "MultiDisco",
     "MPF", "MPFState", "SVGD", "SVMPC", "SVMPCState",
     "ClosedFormPendulumMPF",
@@ -131,11 +134,13 @@ __all__ = [
     "GaussianLikelihood", "LikelihoodState",
     "CARTPOLE_DEMO_CONFIG", "PARTICLE_DEMO_CONFIG", "PARTICLE_TUNED_CONFIG",
     "PENDULUM_DEMO_CONFIG",
-    "PENDULUM_TUNED_CONFIG", "build_particle_stack",
+    "PENDULUM_TUNED_CONFIG", "SKID_STEER_DEMO_CONFIG",
+    "build_particle_stack",
     "build_pendulum_stack",
     "PendulumSimulation", "megakernel_pendulum_episode_fn",
     "megakernel_pendulum_sweep_fn", "megakernel_particle_episode_fn",
     "megakernel_particle_sweep_fn", "megakernel_cartpole_sweep_fn",
+    "megakernel_skid_steer_sweep_fn",
     "particle_episode_fn",
     "run_particle_episode", "to_dataframe",
     "MegakernelGroupSweep", "ParticleScenarioSweep", "ScenarioSweep",

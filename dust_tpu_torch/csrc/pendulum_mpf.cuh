@@ -30,6 +30,16 @@
 // in registers; `stein_loop` walks particles and centers in shared memory
 // (every other size). Both give the same bits for one lane count. Every
 // thread of the block must call them (they synchronise the block).
+//
+// The skid-steer's episode kernel (K15, skid_steer_episode.cu) runs the
+// same loops over particles of D = 3 values: `stein_loop_nd` and
+// `stein_loop_reg_nd` through `episode_stein_loop_nd`, at the end of this
+// header, the arithmetic above with a squared distance of D terms added
+// in order (ops/mpf.py:stein_loop_plain takes any D). They sit beside the
+// two-value loops rather than replacing them: one template over D for
+// both changed K5's and K14's register allocation (ptxas: K14 123 -> 128
+// registers, K5 16 -> 20 B of spill stores), though not their bits, and
+// ran their sweeps 0.6-1.4% slower (PERF.md §6).
 
 #pragma once
 
@@ -480,6 +490,326 @@ __device__ inline void episode_stein_loop(float* x0, float* x1, float* w,
     stein_loop<kRowLanes>(x0, x1, w, w + m, w + 2 * m, w + 3 * m, w + 4 * m,
                           w + 5 * m, w + 6 * m, w + 7 * m, m, n_steps, k, lik,
                           clk);
+  }
+}
+
+// -- the loops over D values a particle (K15: D = 3) -------------------------
+
+// D shared arrays of m floats, one per value of a particle, laid one after
+// another from p[0].
+template <int D>
+struct Cols {
+  float* p[D];
+};
+
+// The squared distance between x and c, its D terms added in order.
+template <int D>
+__device__ __forceinline__ float dist2(const float (&x)[D],
+                                       const float (&c)[D]) {
+  float d = x[0] - c[0];
+  float s = d * d;
+#pragma unroll
+  for (int e = 1; e < D; ++e) {
+    d = x[e] - c[e];
+    s = s + d * d;
+  }
+  return s;
+}
+
+// `stein_loop` over D values a particle: sx, sc, st, sn, su as there, D
+// arrays each; lik(x, gl) the likelihood gradient gl[D] of one particle
+// x[D] (skid_steer.cuh's SkidLik).
+template <int kLanes, int D, class LikGrad, class Clock>
+__device__ inline void stein_loop_nd(Cols<D> sx, Cols<D> sc, Cols<D> st,
+                                     Cols<D> sn, Cols<D> su, int m,
+                                     int n_steps, const MpfConsts& k,
+                                     const LikGrad& lik, Clock& clk) {
+  using dust_solve::lane_group_sum;
+  const int g = threadIdx.x / kLanes;
+  const int l = threadIdx.x % kLanes;
+  const int groups = blockDim.x / kLanes;
+  const unsigned mask = dust_solve::lane_group_mask(kLanes);
+  Cols<D> xs = sx;  // this iteration's particles
+  Cols<D> ns = sn;  // the next iteration's
+
+  for (int it = 0; it < n_steps; ++it) {
+    const Cols<D> ts = it & 1 ? su : st;  // this iteration's drive terms
+    for (int i = g; i < m; i += groups) {
+      float x[D], gl[D];
+#pragma unroll
+      for (int e = 0; e < D; ++e) x[e] = xs.p[e][i];
+      lik(x, gl);
+      // ---- GMM prior score over the fixed centers ----
+      float psum = 0.0f, pc[D];
+#pragma unroll
+      for (int e = 0; e < D; ++e) pc[e] = 0.0f;
+      float mx = -INFINITY;
+#pragma unroll 4
+      for (int j = l; j < m; j += kLanes) {
+        float c[D];
+#pragma unroll
+        for (int e = 0; e < D; ++e) c[e] = sc.p[e][j];
+        mx = fmaxf(mx, dist2<D>(x, c) * k.cp);
+      }
+      mx = dust_solve::lane_group_fmax<kLanes>(mx, mask);
+#pragma unroll 4
+      for (int j = l; j < m; j += kLanes) {
+        float c[D];
+#pragma unroll
+        for (int e = 0; e < D; ++e) c[e] = sc.p[e][j];
+        const float p = ex2(dist2<D>(x, c) * k.cp - mx);
+        psum = psum + p;
+#pragma unroll
+        for (int e = 0; e < D; ++e) pc[e] = pc[e] + p * c[e];
+      }
+      psum = lane_group_sum<kLanes>(psum, mask);
+#pragma unroll
+      for (int e = 0; e < D; ++e) pc[e] = lane_group_sum<kLanes>(pc[e], mask);
+      if (l == 0) {
+#pragma unroll
+        for (int e = 0; e < D; ++e) {
+          const float gp = (pc[e] / psum - x[e]) * k.inv_pbw2;
+          ts.p[e][i] = (gl[e] + gp) - x[e] * k.inv_bw2;
+        }
+      }
+    }
+    __syncthreads();
+    clk.mark(kClkPrior);
+
+    for (int i = g; i < m; i += groups) {
+      // ---- RBF Stein direction, repulsion folded into the drive ----
+      float x[D], drive[D];
+#pragma unroll
+      for (int e = 0; e < D; ++e) {
+        x[e] = xs.p[e][i];
+        drive[e] = 0.0f;
+      }
+      float rows = 0.0f;
+#pragma unroll 4
+      for (int j = l; j < m; j += kLanes) {
+        float xj[D];
+#pragma unroll
+        for (int e = 0; e < D; ++e) xj[e] = xs.p[e][j];
+        const float kk = ex2(dist2<D>(x, xj) * k.ck);
+        rows = rows + kk;
+#pragma unroll
+        for (int e = 0; e < D; ++e) drive[e] = drive[e] + kk * ts.p[e][j];
+      }
+      rows = lane_group_sum<kLanes>(rows, mask);
+#pragma unroll
+      for (int e = 0; e < D; ++e)
+        drive[e] = lane_group_sum<kLanes>(drive[e], mask);
+      if (l == 0) {
+#pragma unroll
+        for (int e = 0; e < D; ++e)
+          ns.p[e][i] =
+              x[e] + k.lr * ((drive[e] + rows * x[e] * k.inv_bw2) / k.fm);
+      }
+    }
+    // no block barrier, as in stein_loop
+    __syncwarp();
+    clk.mark(kClkDrive);
+    const Cols<D> t = xs;
+    xs = ns;
+    ns = t;
+  }
+  __syncthreads();
+  if (xs.p[0] != sx.p[0]) {  // an odd count of iterations ended in sn
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+#pragma unroll
+      for (int e = 0; e < D; ++e) sx.p[e][i] = xs.p[e][i];
+    }
+    __syncthreads();
+  }
+}
+
+// float4 per row of `stein_loop_reg_nd`'s xt: a particle's D values, then
+// its drive term's D
+template <int D>
+constexpr int kRowF4 = (2 * D + 3) / 4;
+
+// The loop for m <= kLanes * kCols particles of D values, as
+// `stein_loop_reg` with SplitIo: x the particles (D m floats from x.p[0],
+// the loop's start, centers and result: the centers written over them,
+// center j's D values together, for its duration); xt: 2 * m * kRowF4<D>
+// float4 of shared memory (16-byte aligned), each row's particle and
+// drive term of two iterations in turn. The same bits as
+// stein_loop_nd<kLanes, D>.
+template <int kLanes, int kCols, int kSure, int D, class LikGrad,
+          class Clock>
+__device__ inline void stein_loop_reg_nd(Cols<D> x_io, float4* xt, int m,
+                                         int n_steps, const MpfConsts& k,
+                                         const LikGrad& lik, Clock& clk) {
+  static_assert(kSure <= kCols, "kSure: columns every lane has");
+  using dust_solve::div_rn;
+  using dust_solve::lane_group_sum;
+  constexpr int kF4 = kRowF4<D>;
+  const int i = threadIdx.x / kLanes;  // this group's row
+  const int l = threadIdx.x % kLanes;
+  const unsigned mask = dust_solve::lane_group_mask(kLanes);
+  const bool row = i < m;
+  const float inv_fm = 1.0f / k.fm;
+  // unrolled column c is j = l + kLanes c where j < m, else m - 1; the
+  // first kSure columns are every lane's (m >= kLanes * kSure)
+  const auto col = [&](int c) {
+    return c < kSure ? l + kLanes * c : min(l + kLanes * c, m - 1);
+  };
+  const auto real = [&](int c) { return c < kSure || l + kLanes * c < m; };
+  float* const cs = x_io.p[0];  // the centers, [m, D]
+  // row r of xt: its particle's D values, then its drive term's
+  const auto xrow = [&](float4* base, int r) {
+    return reinterpret_cast<float*>(base + kF4 * r);
+  };
+  float dc[kCols];
+  float x[D];
+#pragma unroll
+  for (int e = 0; e < D; ++e) x[e] = row ? x_io.p[e][i] : 0.0f;
+  // the centers over the particles' own storage, once every row is read
+  __syncthreads();
+  if (row && l == 0) {
+    float* f = xrow(xt, i);
+#pragma unroll
+    for (int e = 0; e < D; ++e) {
+      cs[D * i + e] = x[e];
+      f[e] = x[e];
+    }
+  }
+  __syncthreads();
+  clk.mark(kClkLoad);
+
+  for (int it = 0; it < n_steps; ++it) {
+    float4* const xa = xt + (it & 1) * m * kF4;        // this iteration's
+    float4* const xn = xt + ((it + 1) & 1) * m * kF4;  // the next one's
+    if (row) {
+      float gl[D];
+      lik(x, gl);
+      // ---- GMM prior score over the fixed centers ----
+      float mx = -INFINITY;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        float cj[D];
+#pragma unroll
+        for (int e = 0; e < D; ++e) cj[e] = cs[D * col(c) + e];
+        dc[c] = real(c) ? dist2<D>(x, cj) * k.cp : -INFINITY;
+        mx = fmaxf(mx, dc[c]);
+      }
+      mx = dust_solve::lane_group_fmax<kLanes>(mx, mask);
+      float psum = 0.0f, pc[D];
+#pragma unroll
+      for (int e = 0; e < D; ++e) pc[e] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        const float p = ex2(dc[c] - mx);
+        psum = psum + p;
+#pragma unroll
+        for (int e = 0; e < D; ++e) pc[e] = pc[e] + p * cs[D * col(c) + e];
+      }
+      psum = lane_group_sum<kLanes>(psum, mask);
+#pragma unroll
+      for (int e = 0; e < D; ++e) pc[e] = lane_group_sum<kLanes>(pc[e], mask);
+      const float ips = 1.0f / psum;
+      if (l == 0) {
+        float* f = xrow(xa, i);
+#pragma unroll
+        for (int e = 0; e < D; ++e) {
+          const float gp = (div_rn(pc[e], psum, ips) - x[e]) * k.inv_pbw2;
+          f[D + e] = (gl[e] + gp) - x[e] * k.inv_bw2;
+        }
+      }
+    }
+    __syncthreads();
+    clk.mark(kClkPrior);
+
+    if (row) {
+      // ---- RBF Stein direction, repulsion folded into the drive ----
+      float rows = 0.0f, drive[D];
+#pragma unroll
+      for (int e = 0; e < D; ++e) drive[e] = 0.0f;
+#pragma unroll
+      for (int c = 0; c < kCols; ++c) {
+        // x_j, then its drive term, kF4 float4 loads
+        float f[4 * kF4];
+        const float4* q = xa + kF4 * col(c);
+#pragma unroll
+        for (int r = 0; r < kF4; ++r) {
+          const float4 v = q[r];
+          f[4 * r] = v.x;
+          f[4 * r + 1] = v.y;
+          f[4 * r + 2] = v.z;
+          f[4 * r + 3] = v.w;
+        }
+        float xj[D];
+#pragma unroll
+        for (int e = 0; e < D; ++e) xj[e] = f[e];
+        const float kk =
+            ex2(real(c) ? dist2<D>(x, xj) * k.ck : -INFINITY);
+        rows = rows + kk;
+#pragma unroll
+        for (int e = 0; e < D; ++e) drive[e] = drive[e] + kk * f[D + e];
+      }
+      rows = lane_group_sum<kLanes>(rows, mask);
+#pragma unroll
+      for (int e = 0; e < D; ++e)
+        drive[e] = lane_group_sum<kLanes>(drive[e], mask);
+#pragma unroll
+      for (int e = 0; e < D; ++e)
+        x[e] = x[e] + k.lr * div_rn(drive[e] + rows * x[e] * k.inv_bw2,
+                                    k.fm, inv_fm);
+      // read by the other rows after the next iteration's barrier, which
+      // this buffer's previous readers (the last iteration's walk) passed
+      if (l == 0) {
+        float* f = xrow(xn, i);
+#pragma unroll
+        for (int e = 0; e < D; ++e) f[e] = x[e];
+      }
+    }
+    clk.mark(kClkDrive);
+  }
+  if (row && l == 0) {
+#pragma unroll
+    for (int e = 0; e < D; ++e) x_io.p[e][i] = x[e];
+  }
+  clk.mark(kClkStore);
+}
+
+// Floats of `episode_stein_loop_nd`'s shared scratch per particle: the
+// register loop's float4 rows of two iterations, or the shared walk's
+// centers, drive terms (two) and new particles, whichever is larger.
+template <int D>
+constexpr int kEpisodeScratch =
+    8 * kRowF4<D> > 4 * D ? 8 * kRowF4<D> : 4 * D;
+
+// `episode_stein_loop` over D values a particle (K15): the register loop
+// at the same particle counts (49-52; ops/mpf.py:episode_register_loop),
+// the shared walk otherwise. x: D m floats from x.p[0], 8-byte aligned;
+// w: kEpisodeScratch<D> m floats of shared scratch, 16-byte aligned. Ends
+// with a block barrier.
+template <int D, class LikGrad>
+__device__ inline void episode_stein_loop_nd(Cols<D> x, float* w, int m,
+                                             int n_steps,
+                                             const MpfConsts& k,
+                                             const LikGrad& lik) {
+  NoClock clk;
+  if (m > kRowLanes * (kEpisodeRegCols - 1) &&
+      m <= kRowLanes * kEpisodeRegCols) {
+    stein_loop_reg_nd<kRowLanes, kEpisodeRegCols, kEpisodeRegCols - 1>(
+        x, reinterpret_cast<float4*>(w), m, n_steps, k, lik, clk);
+    __syncthreads();
+  } else {
+    Cols<D> sc, st, sn, su;
+#pragma unroll
+    for (int e = 0; e < D; ++e) {
+      sc.p[e] = w + e * m;
+      st.p[e] = w + (D + e) * m;
+      sn.p[e] = w + (2 * D + e) * m;
+      su.p[e] = w + (3 * D + e) * m;
+    }
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+#pragma unroll
+      for (int e = 0; e < D; ++e) sc.p[e][i] = x.p[e][i];
+    }
+    __syncthreads();
+    stein_loop_nd<kRowLanes, D>(x, sc, st, sn, su, m, n_steps, k, lik, clk);
   }
 }
 

@@ -9,7 +9,9 @@ and `PARTICLE_TUNED_CONFIG`, equal to `demo/*_config_tuned.yaml`, so the
 stacks build where no YAML parser is installed; `load_config` reads a YAML
 file where PyYAML is. `CARTPOLE_DEMO_CONFIG` is the cart-pole swing-up
 under DuSt (the port's own: upstream ships the model with no demo), which
-`assemble_stack` wires by its `task` key.
+`assemble_stack` wires by its `task` key; `SKID_STEER_DEMO_CONFIG` the
+skid-steer robot's navigation under DuSt (the port's own too), which
+`assemble_particle_stack` wires by its `task` key.
 """
 
 from __future__ import annotations
@@ -31,7 +33,12 @@ from .inference import (
     MPF,
     SVMPC,
 )
-from .models import CartPoleModel, Particle, PendulumModel
+from .models import (
+    CartPoleModel,
+    Particle,
+    PendulumModel,
+    SkidSteerNavigation,
+)
 from .ops.particle_rollout import make_fused_particle_state_costs
 from .ops.rollout import make_fused_pendulum_state_costs
 from .utils.utf import MerweScaledUTF
@@ -127,7 +134,10 @@ CARTPOLE_DEMO_CONFIG = {
                        "high": [1.5, 0.3]},
 }
 
-TASKS = ("pendulum", "cartpole")
+TASKS = ("pendulum", "cartpole", "skid_steer")
+# the tasks of `assemble_stack` (`assemble_particle_stack` builds the
+# skid-steer's, `_NAV_MODELS`)
+_PENDULUM_TASKS = ("pendulum", "cartpole")
 
 
 def load_config(path):
@@ -183,6 +193,9 @@ def _task(config_data):
 
 
 def _check_case(config_data, case):
+    if _task(config_data) not in _PENDULUM_TASKS:
+        raise ValueError(f"the {_task(config_data)} task builds with "
+                         "build_particle_stack")
     if case not in CASES:
         raise ValueError(f"unknown case {case!r}; expected one of {CASES}")
     if _task(config_data) == "cartpole" and case != "dust":
@@ -460,7 +473,106 @@ PARTICLE_TUNED_CONFIG["exp_params"].update(
 PARTICLE_TUNED_CONFIG["env_params"]["cost_params"]["w_qvel_T"] = 800.0
 
 
-def _dynamics_prior(exp, device):
+# The skid-steer robot (upstream dust/models/skid_steer_robot.py's
+# defaults: x_icr 0.2 m, wheel radius 0.0625 m, axial distance 0.475 m,
+# wheel speeds in [-0.5, 0.5] rev/s) crossing an obstacle course under the
+# particle demo's DuSt widths, key for key. The port's own (upstream ships
+# no skid-steer demo): the course is upstream's grid_3x3 preset read at a
+# fifth of its size (`map_scale`: a 4.4 m map of 0.02 m cells, 0.42 m
+# squares 1 m apart, three of them on the diagonal), from (-1.8, -1.8)
+# heading pi/4 to (1.8, 1.8) at rest; dt 0.3 s; the sigmas the particle
+# demo's times the ratio of the action bounds (0.5 / 10), the learning
+# rate times its square (a Stein step's score goes as 1 / sigma^2), and
+# the policy prior's locations and initial policies, drawn as the
+# particle's, times the ratio too (`init_policy_scale`); the tuned
+# particle config's w_qvel_T 800, which makes a robot stop at the target;
+# a Uniform prior over the three parameters (`dynamics_prior`), in log
+# space under a fixed MPF bandwidth of 0.05, which is also the first; the
+# true x_icr times `extra_load` from a quarter of the episode on (a load
+# behind the axle). The cost is the particle's over (x, y) and (v, omega)
+# (`models.SkidSteerNavigation`), a collision ends the episode, reaching
+# within `success_dist` of the target in those four coordinates ends it
+# as a success.
+SKID_STEER_DEMO_CONFIG = {
+    "task": "skid_steer",
+    "sim_params": {"warm_up": 0, "steps": 200, "episodes": 1},
+    "model_params": {
+        "x_icr": 0.2,
+        "wheel_radius": 0.0625,
+        "axial_distance": 0.475,
+        "min_wheel_speed": -0.5,
+        "max_wheel_speed": 0.5,
+    },
+    "exp_params": {
+        **{k: v for k, v in copy.deepcopy(
+            PARTICLE_DEMO_CONFIG["exp_params"]).items()
+           if k not in ("dyn_prior", "dyn_prior_arg1", "dyn_prior_arg2")},
+        "learning_rate": 0.25,
+        "ctrl_sigma": 0.25,
+        "prior_sigma": 0.25,
+        "init_policy_scale": 0.05,
+        "mpf_bandwidth": 0.05,
+        "mpf_init_bandwidth": 0.05,
+        "extra_load": 2.0,
+    },
+    "env_params": {
+        "dt": 0.3,
+        "init_state": [-1.8, -1.8, 0.7853981633974483, 0.0, 0.0],
+        "target_state": [1.8, 1.8, 0.0, 0.0],
+        "success_dist": 0.2,
+        "can_crash": True,
+        "with_obstacle": True,
+        "cost_params": {
+            **copy.deepcopy(
+                PARTICLE_DEMO_CONFIG["env_params"]["cost_params"]),
+            "w_qvel_T": 800.0,
+        },
+        "obst_preset": "grid_3x3",
+        **{k: copy.deepcopy(PARTICLE_DEMO_CONFIG["env_params"][k])
+           for k in ("obst_width", "map_size", "map_cell_size",
+                     "map_type")},
+        "map_scale": 0.2,
+    },
+    "dynamics_prior": {"kind": "uniform", "low": [0.05, 0.05, 0.38],
+                       "high": [0.6, 0.075, 0.57]},
+}
+# the skid-steer's uncertain parameters, in the MPF particles' order
+SKID_STEER_PARAMS = ("x_icr", "wheel_radius", "axial_distance")
+
+
+def _particle_model(config_data, env, prior, device):
+    return Particle(uncertain_params=["mass"], mass=float(prior.mean),
+                    device=device, **env)
+
+
+def _skid_steer_model(config_data, env, prior, device):
+    return SkidSteerNavigation(
+        delta_t=env.pop("dt"), uncertain_params=SKID_STEER_PARAMS,
+        device=device, **config_data["model_params"], **env)
+
+
+# the navigation tasks of `assemble_particle_stack`: the model each builds
+# from (config_data, env_params, dynamics prior, device)
+_NAV_MODELS = {"particle": _particle_model, "skid_steer": _skid_steer_model}
+
+
+def _nav_model(config_data):
+    task = config_data.get("task", "particle")
+    if task not in _NAV_MODELS:
+        raise ValueError(f"the {task!r} task builds with build_pendulum_stack"
+                         if task in TASKS else
+                         f"unknown task {task!r}; expected one of "
+                         f"{tuple(_NAV_MODELS)}")
+    return _NAV_MODELS[task]
+
+
+def _dynamics_prior(exp, device, arrays=None):
+    """The MPF's prior: a Uniform box over several parameters where the
+    arrays hold its bounds (`dynamics_prior.low` / `.high`), else
+    `exp_params`' dyn_prior over one."""
+    if arrays is not None and "dynamics_prior.low" in arrays:
+        return Uniform(arrays["dynamics_prior.low"],
+                       arrays["dynamics_prior.high"], event_ndims=1)
     name = exp["dyn_prior"]
     a1 = torch.tensor(float(exp["dyn_prior_arg1"]), device=device)
     a2 = torch.tensor(float(exp["dyn_prior_arg2"]), device=device)
@@ -474,9 +586,13 @@ def _dynamics_prior(exp, device):
 def draw_particle_stack_arrays(config_data, generator, device="cuda"):
     """Draw the particle stack's initial arrays from `generator`, in the
     JAX builder's order: the policy prior's locs, the initial particles,
-    then (with `use_mpf`) the initial MPF (log-)mass particles."""
+    then (with `use_mpf`) the initial MPF (log-)parameter particles [n, d].
+    With `init_policy_scale` the locs and the initial particles are those
+    draws times it; a configuration's `dynamics_prior` box goes into the
+    arrays as its bounds (`dynamics_prior.low` / `.high`)."""
     exp = config_data["exp_params"]
     device = resolve_device(device)
+    _nav_model(config_data)
     m, horizon, ctrl_dim = exp["n_particles"], exp["horizon"], exp["ctrl_dim"]
     prior_locs = torch.randn((m, horizon, ctrl_dim), generator=generator,
                              device=device)
@@ -493,10 +609,18 @@ def draw_particle_stack_arrays(config_data, generator, device="cuda"):
             config_data["env_params"]["init_state"], dtype=torch.float32,
             device=device),
     }
+    if "init_policy_scale" in exp:
+        for k in ("init_policies", "policies_prior.locs"):
+            arrays[k] = arrays[k] * float(exp["init_policy_scale"])
+    box = config_data.get("dynamics_prior")
+    if box is not None:
+        for k in ("low", "high"):
+            arrays[f"dynamics_prior.{k}"] = torch.tensor(box[k],
+                                                         device=device)
     if exp["use_mpf"]:
         n = exp["mpf_n_particles"]
-        mpf_init = _dynamics_prior(exp, device).sample(
-            generator, (n, 1)).reshape(n, 1)
+        mpf_init = _dynamics_prior(exp, device, arrays).sample(
+            generator, (n,)).reshape(n, -1)
         mpf_init = torch.clamp(mpf_init, min=1e-6)
         if exp["mpf_log_space"]:
             mpf_init = torch.log(mpf_init)
@@ -508,14 +632,24 @@ def assemble_particle_stack(config_data, arrays, reference_compat=False,
                             device="cuda"):
     """Wire model, controller, SVMPC and MPF of the particle task around
     given initial arrays (tensors on `device`, keyed as
-    `draw_particle_stack_arrays` returns them)."""
+    `draw_particle_stack_arrays` returns them). The configuration's `task`
+    picks the model (`_NAV_MODELS`): "particle" (the default; a `Particle`
+    over its mass) or "skid_steer" (`SkidSteerNavigation` with the
+    configuration's `model_params` over `SKID_STEER_PARAMS`); the arrays'
+    `dynamics_prior` box, where they hold one, is the MPF's prior. The
+    cost, the load's effect (`extra_load`) and the goal's coordinates are
+    the model's own."""
     exp = config_data["exp_params"]
     env = dict(config_data["env_params"])
     device = resolve_device(device)
     alpha, ctrl_dim = exp["alpha"], exp["ctrl_dim"]
-    dynamics_prior = _dynamics_prior(exp, device)
-    model = Particle(uncertain_params=["mass"],
-                     mass=float(dynamics_prior.mean), device=device, **env)
+    dynamics_prior = _dynamics_prior(exp, device, arrays)
+    success_dist = float(env.pop("success_dist", 1.0))
+    model = _nav_model(config_data)(config_data, env, dynamics_prior, device)
+    if ((exp.get("fused_rollout", False) or exp.get("fused_solve", False))
+            and not isinstance(model, Particle)):
+        raise ValueError("fused_rollout and fused_solve are the particle's "
+                         "kernels")
 
     fused_state_costs = None
     if exp.get("fused_rollout", False):
@@ -577,9 +711,12 @@ def assemble_particle_stack(config_data, arrays, reference_compat=False,
         svmpc=svmpc,
         mpf=mpf,
         mpf_init=arrays.get("mpf_init"),
-        # the MPF prior bandwidth at init: `(2 * arg2) ** 1 / 2`, which
-        # operator precedence makes arg2 itself; kept verbatim
-        mpf_init_bw=(2 * exp["dyn_prior_arg2"]) ** 1 / 2,
+        # the MPF prior bandwidth at init: `mpf_init_bandwidth` where the
+        # configuration gives it, else the particle's `(2 * arg2) ** 1 / 2`,
+        # which operator precedence makes arg2 itself; kept verbatim
+        mpf_init_bw=(exp["mpf_init_bandwidth"]
+                     if "mpf_init_bandwidth" in exp
+                     else (2 * exp["dyn_prior_arg2"]) ** 1 / 2),
         mpf_bw=exp.get("mpf_bandwidth"),
         mpf_steps=exp.get("mpf_steps"),
         policies_prior=GMM(
@@ -590,8 +727,12 @@ def assemble_particle_stack(config_data, arrays, reference_compat=False,
         init_policies=arrays["init_policies"],
         dynamics_prior=dynamics_prior,
         init_state=arrays["init_state"],
-        load=exp.get("extra_load", 0.0),
+        # the load from a quarter of the episode on, as the model reads it
+        # (`loaded_params`)
+        load=exp.get("extra_load", model.no_load),
         use_svmpc=exp.get("use_svmpc", True),
+        # the goal test's distance (the particle sweeps' default 1.0)
+        success_dist=success_dist,
         device=device,
     )
 
@@ -600,7 +741,9 @@ def build_particle_stack(config_data, generator, reference_compat=False,
                          device="cuda"):
     """The particle-navigation stack: a `Particle` model on the
     configured obstacle map, MultiDisco with sampled masses, SVMPC and the
-    mass MPF. `fused_rollout: true` selects the rollout-cost kernel (K6),
+    mass MPF; with `task: "skid_steer"` the skid-steer robot on the course
+    (`SKID_STEER_DEMO_CONFIG`), its three parameters sampled and inferred.
+    `fused_rollout: true` selects the rollout-cost kernel (K6),
     `fused_solve: true` the whole-solve kernel (K8,
     `FusedParticleSVMPC`). `generator` (a `torch.Generator` on `device`)
     draws the initial particles and priors; the stack keeps it as

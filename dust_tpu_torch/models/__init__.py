@@ -3,7 +3,7 @@ from .cartpole import CartPoleModel
 from .obstacle_map import ObstacleMap
 from .particle import Particle
 from .pendulum import PendulumModel
-from .skid_steer import SkidSteerRobot
+from .skid_steer import SkidSteerNavigation, SkidSteerRobot
 
 __all__ = ["BaseModel", "CartPoleModel", "ObstacleMap", "Particle",
-           "PendulumModel", "SkidSteerRobot"]
+           "PendulumModel", "SkidSteerNavigation", "SkidSteerRobot"]

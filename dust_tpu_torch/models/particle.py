@@ -130,6 +130,22 @@ class Particle(BaseModel):
                           self.max_speed)
         return torch.cat([next_states[..., :-2], vel], dim=-1)
 
+    # -- the navigation episode (simulation.particle_episode_fn) -------------
+
+    # the load of a configuration without `extra_load`
+    no_load = 0.0
+
+    def goal_coords(self, states):
+        """The coordinates the goal test measures: the whole state."""
+        return states
+
+    def loaded_params(self, true_params, load):
+        """The simulator's parameters before the load and after it: the
+        true mass, then the mass plus `load`."""
+        mass = torch.as_tensor(true_params, dtype=torch.float32,
+                               device=self.device)
+        return {"mass": mass}, {"mass": mass + load}
+
     # -- built-in cost functions -------------------------------------------
 
     def default_inst_cost(self, states, actions=0.0, **_):

@@ -75,6 +75,21 @@ _CARTPOLE_EPISODE_ARGS = (
     + [_VOID_P]                   # stream
 )
 
+# K15 (csrc/skid_steer_episode.cu)
+_SKID_STEER_EPISODE_ARGS = (
+    [_VOID_P] * 17                # model scal ep_f ep_i logmix0 theta0 locs0
+                                  # amat0 mpfx0 eps log theta locs amat mpfx
+                                  # clock (null but inside
+                                  # skid_steer_episode.phase_clock)
+                                  # fallbacks (the rollouts' count, or null)
+    + [_INT] * 10                 # B steps warm_up hz m n_params n_act m_mpf
+                                  # mpf_steps load_step
+    + [_FLOAT] * 5                # lo hi load_scale success_dist2 log_n_act
+    + [_INT] * 4                  # exp_util weighted_prior log_space fixed_bw
+    + [_FLOAT] * 2                # mpf_fixed_bw mpf_bw_scale
+    + [_VOID_P]                   # stream
+)
+
 _PENDULUM_ROLLOUT_ARGS = [
     _VOID_P, _VOID_P,                              # state0 actions
     _VOID_P, _LONG, _FLOAT,                        # lengths: ptr stride value
@@ -132,6 +147,7 @@ _SIGNATURES = {
     "dust_pendulum_solve_clock": _PENDULUM_SOLVE_ARGS + [_VOID_P, _VOID_P],  # clock stream
     "dust_pendulum_episodes": _EPISODE_ARGS,
     "dust_cartpole_episodes": _CARTPOLE_EPISODE_ARGS,
+    "dust_skid_steer_episodes": _SKID_STEER_EPISODE_ARGS,
     "dust_particle_rollout_costs": _PARTICLE_ROLLOUT_ARGS + [_VOID_P],  # stream
     # the clocked build (inside particle_rollout.phase_clock)
     "dust_particle_rollout_costs_clock": _PARTICLE_ROLLOUT_ARGS + [_VOID_P, _VOID_P],  # clock stream

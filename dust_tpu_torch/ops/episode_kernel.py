@@ -1,10 +1,11 @@
 """The launch path of the whole-episode kernels: K4/K5
-(`csrc/pendulum_episode.cu`), K9/K10 (`csrc/particle_episode.cu`) and K14
-(`csrc/cartpole_episode.cu`).
+(`csrc/pendulum_episode.cu`), K9/K10 (`csrc/particle_episode.cu`), K14
+(`csrc/cartpole_episode.cu`) and K15 (`csrc/skid_steer_episode.cu`).
 
 Each kernel is an `EpisodeKernel`, a descriptor of its C entry, kept
 beside its task's plain version (`ops/episode.py:PENDULUM`,
-`ops/particle_episode.py:K9` / `K10`, `ops/cartpole_episode.py:KERNEL`).
+`ops/particle_episode.py:K9` / `K10`, `ops/cartpole_episode.py:KERNEL`,
+`ops/skid_steer_episode.py:KERNEL`).
 `run_episodes` runs B episodes of any of them from canonical inputs: the
 plain version on CPU tensors, one launch of the kernel on CUDA tensors. A
 sweep keeps the kernel's static operands (`kernel_statics`) across its
@@ -40,10 +41,11 @@ class EpisodeKernel:
       whether the launch writes it (K10) or passes a null pointer (K9);
     * `counts_mpf_loop`: whether each launch is counted by the MPF loop it
       takes (`mpf.episode_register_loop`; the pendulum's Stein loop, which
-      K4/K5 and K14 run);
+      K4/K5, K14 and K15 run);
     * `rollout_guards`: None, or where the entry counts its rollouts'
-      fallbacks (K14: a pointer after the clock), `rollout_guards(st, B)`,
-      the guarded chunk-steps of a launch of B episodes (`GuardCounts`)."""
+      fallbacks (K14, K15: a pointer after the clock),
+      `rollout_guards(st, B)`, the guarded steps of a launch of B
+      episodes (`GuardCounts`)."""
 
     entry: str
     plain: Callable
@@ -61,14 +63,15 @@ class EpisodeKernel:
 
 
 class GuardCounts:
-    """The guarded chunk-steps of a kernel's rollouts over a wrapper's
-    launches (K14, `csrc/cartpole.cuh:rollout_mcost`): `fast`, those that
+    """The guarded steps of a kernel's rollouts over a wrapper's launches
+    (K14's chunk-steps, `csrc/cartpole.cuh:rollout_mcost`; K15's
+    trajectory steps, `csrc/skid_steer.cuh:step`): `fast`, those that
     took the branch-free forms, and `fallback`, those recomputed with the
-    library's sincosf and division. A launch adds its chunk-steps here on
-    the host (`EpisodeKernel.rollout_guards`) and the kernel its fallbacks
-    to a device count, in its fallback branch alone, so a launch waits for
-    nothing; reading `fallback` or `fast` waits for the launches before
-    it."""
+    library's sincosf (and K14's division). A launch adds its steps here
+    on the host (`EpisodeKernel.rollout_guards`) and the kernel its
+    fallbacks to a device count, in its fallback branch alone, so a launch
+    waits for nothing; reading `fallback` or `fast` waits for the launches
+    before it."""
 
     def __init__(self):
         self.steps = 0

@@ -41,7 +41,7 @@ EPISODE_ROW_LANES = 4
 # K2 keeps each lane's centers in registers up to this many particles
 # (csrc/pendulum_mpf.cu:kRegMax)
 REGISTER_MAX = 64
-# the episode kernels' (K4/K5, K14) register loop: a row per quad, each
+# the episode kernels' (K4/K5, K14, K15) register loop: a row per quad, each
 # lane holding EPISODE_REGISTER_COLS columns or one fewer, so it serves
 # EPISODE_REGISTER_MIN <= m_mpf <= EPISODE_REGISTER_MAX (49-52); the
 # shared-memory walk every other size (csrc/pendulum_mpf.cuh:kEpisodeRegCols)
@@ -57,9 +57,11 @@ phase_clock = PhaseClock(CLOCK_PHASES)
 
 
 def episode_register_loop(m_mpf):
-    """Whether an episode kernel's MPF update over m_mpf particles takes
-    the register loop (`stein_loop_reg`) rather than the shared-memory walk
-    (`stein_loop`): csrc/pendulum_mpf.cuh:episode_stein_loop's rule."""
+    """Whether an episode kernel's MPF update over m_mpf particles takes the
+    register loop (`stein_loop_reg`, K15's `stein_loop_reg_nd`) rather than
+    the shared-memory walk (`stein_loop`, `stein_loop_nd`):
+    csrc/pendulum_mpf.cuh:episode_stein_loop's rule, and
+    episode_stein_loop_nd's at three values a particle."""
     return EPISODE_REGISTER_MIN <= m_mpf <= EPISODE_REGISTER_MAX
 
 
@@ -76,47 +78,52 @@ def _scalars(x, past_obs, loc, action, bw, prior_bw, lr, obs_sigma):
     ])
 
 
+def _sq_dist(a, b):
+    """The squared distances of columns a[e] [..., m, 1] to rows b[e]
+    [..., 1, n], their D terms added in order, as the kernels add them."""
+    d2 = (a[0] - b[0]) ** 2
+    for e in range(1, len(a)):
+        d2 = d2 + (a[e] - b[e]) ** 2
+    return d2
+
+
 def stein_loop_plain(x, prior_locs, bw, pbw, lr, lik, *, lanes, n_steps):
-    """The MPF Stein loop over two-parameter particles as the kernels run
-    it (`csrc/pendulum_mpf.cuh:stein_loop`, shared by K2, K4/K5 and
-    K14): x, prior_locs [..., m, 2]; bw, pbw, lr [..., 1, 1]; lik(x0, x1)
-    -> (gl0, gl1), the likelihood gradient of the particles' columns
-    [..., m, 1] (the loop's LikGrad). Returns the particles after n_steps
-    updates. The sums over the particles and centers take the kernel's
-    order (`lane_sum` over `lanes` lanes: ROW_LANES for K2,
-    EPISODE_ROW_LANES for the episode kernels); its pairs' exps are one
-    ex2.approx each, which agree with `torch.exp` here to ~1e-6
+    """The MPF Stein loop over particles of D values as the kernels run it
+    (`csrc/pendulum_mpf.cuh:stein_loop`, shared by K2, K4/K5 and K14 at
+    D = 2; `stein_loop_nd`, K15's, at D = 3): x, prior_locs [..., m, D];
+    bw, pbw, lr
+    [..., 1, 1]; lik(x0, ..., x_{D-1}) -> (gl0, ..., gl_{D-1}), the
+    likelihood gradient of the particles' columns [..., m, 1] (the loop's
+    LikGrad). Returns the particles after n_steps updates. The sums over
+    the particles and centers take the kernel's order (`lane_sum` over
+    `lanes` lanes: ROW_LANES for K2, EPISODE_ROW_LANES for the episode
+    kernels), a squared distance its D terms in order; its pairs' exps
+    are one ex2.approx each, which agree with `torch.exp` here to ~1e-6
     relative."""
+    D = x.shape[-1]
     m = x.shape[-2]
     inv_pbw2 = 1.0 / (pbw * pbw)
     inv_bw2 = 1.0 / (bw * bw)
-    c0t = prior_locs[..., :, 0].unsqueeze(-2)     # center columns as rows
-    c1t = prior_locs[..., :, 1].unsqueeze(-2)
-    x0 = x[..., :, 0:1]
-    x1 = x[..., :, 1:2]
+    # center columns as rows
+    ct = [prior_locs[..., :, e].unsqueeze(-2) for e in range(D)]
+    xs = [x[..., :, e:e + 1] for e in range(D)]
     for _ in range(n_steps):
-        gl_l, gl_m = lik(x0, x1)
+        gl = lik(*xs)
         # ---- GMM prior score over the fixed centers ----
-        d2c = (x0 - c0t) ** 2 + (x1 - c1t) ** 2    # [..., m, m]
-        logits = -0.5 * d2c * inv_pbw2
+        logits = -0.5 * _sq_dist(xs, ct) * inv_pbw2       # [..., m, m]
         p = torch.exp(logits - logits.max(dim=-1, keepdim=True).values)
-        psum, pc0, pc1 = lane_sum(torch.stack([p, p * c0t, p * c1t]),
-                                  lanes)
-        gp0 = (pc0 / psum - x0) * inv_pbw2
-        gp1 = (pc1 / psum - x1) * inv_pbw2
+        psum, *pc = lane_sum(torch.stack([p, *(p * c for c in ct)]), lanes)
+        gp = [(pc[e] / psum - xs[e]) * inv_pbw2 for e in range(D)]
         # ---- RBF Stein direction, repulsion folded into the drive ----
-        t0t = ((gl_l + gp0) - x0 * inv_bw2).transpose(-1, -2)
-        t1t = ((gl_m + gp1) - x1 * inv_bw2).transpose(-1, -2)
-        d2 = ((x0 - x0.transpose(-1, -2)) ** 2
-              + (x1 - x1.transpose(-1, -2)) ** 2)
-        k = torch.exp(-0.5 * d2 * inv_bw2)
-        rows, drive0, drive1 = lane_sum(torch.stack([k, k * t0t, k * t1t]),
-                                        lanes)
-        phi0 = (drive0 + rows * x0 * inv_bw2) / m
-        phi1 = (drive1 + rows * x1 * inv_bw2) / m
-        x0 = x0 + lr * phi0
-        x1 = x1 + lr * phi1
-    return torch.cat([x0, x1], dim=-1)
+        tt = [((gl[e] + gp[e]) - xs[e] * inv_bw2).transpose(-1, -2)
+              for e in range(D)]
+        k = torch.exp(-0.5 * _sq_dist(xs, [v.transpose(-1, -2) for v in xs])
+                      * inv_bw2)
+        rows, *drive = lane_sum(torch.stack([k, *(k * t for t in tt)]),
+                                lanes)
+        xs = [xs[e] + lr * ((drive[e] + rows * xs[e] * inv_bw2) / m)
+              for e in range(D)]
+    return torch.cat(xs, dim=-1)
 
 
 def pendulum_mpf_optimize_plain(x, prior_locs, scal, *, lanes, n_steps=20,

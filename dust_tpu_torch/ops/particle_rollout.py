@@ -193,27 +193,36 @@ def particle_kernel_statics(model):
                float(model.w_obs), *vals(model.w_term))
     target = vals(model.target)
 
-    rects, grid = None, None
-    if model.with_obstacle and model.obst_map is not None:
-        bounds = model.obst_map.rect_bounds
-        if bounds is None:
-            raise ValueError(
-                "fused particle rollout needs a binary occupancy raster "
-                "(rectangle decomposition unavailable) - use the rollout loop"
-            )
-        rects = tuple(
-            (float(a), float(b), float(c), float(d))
-            for a, b, c, d in zip(*bounds)
-        )
-        om = model.obst_map
-        grid = (
-            1.0 / om.cell_size,
-            float(om.c_offset[0]), float(om.c_offset[1]),
-            float(om.map.shape[0] - 1), float(om.map.shape[1] - 1),
-        )
+    rects, grid = map_statics(model)
     crash = model.can_crash and model.with_obstacle
     return dict(weights=weights, target=target, rects=rects, grid=grid,
                 crash=crash)
+
+
+def map_statics(model):
+    """(rects, grid) of a model's obstacle map as the particle kernels'
+    model array takes them (`model_tensor`), or (None, None) without a
+    map: the occupied cells as disjoint half-open cell-index rectangles,
+    and (1 / cell size, x and y offsets, largest x and y index)."""
+    if not (model.with_obstacle and model.obst_map is not None):
+        return None, None
+    bounds = model.obst_map.rect_bounds
+    if bounds is None:
+        raise ValueError(
+            "fused particle rollout needs a binary occupancy raster "
+            "(rectangle decomposition unavailable) - use the rollout loop"
+        )
+    rects = tuple(
+        (float(a), float(b), float(c), float(d))
+        for a, b, c, d in zip(*bounds)
+    )
+    om = model.obst_map
+    grid = (
+        1.0 / om.cell_size,
+        float(om.c_offset[0]), float(om.c_offset[1]),
+        float(om.map.shape[0] - 1), float(om.map.shape[1] - 1),
+    )
+    return rects, grid
 
 
 def occupancy_words(rects, grid):

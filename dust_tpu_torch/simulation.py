@@ -438,6 +438,62 @@ def megakernel_cartpole_sweep_fn(stack, exp_params, steps, n_sc, n_chains=1):
     return _sweep_adapter(groups, cartpole_clock, fused_cartpole_sweep_groups)
 
 
+def megakernel_skid_steer_sweep_fn(stack, exp_params, steps, n_sc,
+                                   warm_up=0, n_chains=1):
+    """Scenario-sweep kernel adapter (K15, `ops/skid_steer_sweep_episode.py`)
+    of a skid-steer stack (`experiments.assemble_particle_stack` with
+    `task: "skid_steer"`): n_sc <= 16 independent navigation DuSt episodes
+    (per-scenario true x_icr, wheel radius and axial distance, crash and
+    goal termination, weighted priors and MPF posteriors) times `n_chains`
+    chains in one launch, x_icr times the stack's `load`
+    (`extra_load`) from steps // 4 on. Returns sweep(seed [2] int,
+    true_x_icr [n_sc], true_wheel_radius [n_sc], true_axial_distance
+    [n_sc]) -> per-scenario logs x / y / theta / v / omega / a_r / a_l /
+    cost / done / crashed / bw_sv / bw_mpf [steps, n_sc] (a leading chain
+    axis when n_chains > 1), final theta / locs / a_mat [n_sc, m, hz, 2]
+    and mpf_x [n_sc, m_mpf, 3]; `sweep.groups(seeds [G, 2], true_x_icr,
+    true_wheel_radius, true_axial_distance)` runs G groups in one launch
+    (the `parallel.MegakernelGroupSweep` path); `sweep.phase_clock` is the
+    kernel's clock (`ops.skid_steer_episode.phase_clock`); `sweep.wrapper`
+    is `ops.skid_steer_sweep_episode.fused_skid_steer_sweep_groups`, whose
+    `launches`, `input_hits` and `input_builds` count the calls.
+
+    Rejected, as the kernel does not model it: a nonzero controller
+    a_seq."""
+    from .ops.skid_steer_episode import phase_clock as skid_clock
+    from .ops.skid_steer_episode import skid_steer_kernel_statics
+    from .ops.skid_steer_sweep_episode import fused_skid_steer_sweep_groups
+
+    exp = exp_params
+    statics = skid_steer_kernel_statics(stack.model)
+    mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state, 2,
+                                  bw=stack.mpf_init_bw)
+    dstate = stack.controller.init_state()
+    _zero_a_seq(dstate, "skid-steer sweep megakernel")
+    log_mix0 = torch.log_softmax(stack.policies_prior.logits, dim=0)
+    kwargs = dict(
+        n_sc=n_sc, n_chains=n_chains, steps=steps, warm_up=warm_up,
+        hz=exp["horizon"], m=exp["n_particles"],
+        n_params=exp["params_samples"], n_act=exp["action_samples"],
+        m_mpf=exp["mpf_n_particles"], mpf_steps=exp["mpf_steps"],
+        load_step=steps // 4, load_scale=float(stack.load),
+        success_dist=stack.success_dist, exp_util=_exp_util(exp),
+        weighted_prior=exp.get("weighted_prior", False),
+        mpf_log_space=exp["mpf_log_space"], mpf_fixed_bw=stack.mpf_bw,
+        mpf_bw_scale=exp["mpf_bandwidth_scaling"], **statics)
+
+    def groups(seeds, true_x_icr, true_wheel_radius, true_axial_distance):
+        return fused_skid_steer_sweep_groups(
+            seeds, stack.init_state, stack.init_policies,
+            stack.policies_prior.locs, log_mix0, dstate.a_mat,
+            stack.mpf_init, mstate.prior_bw, true_x_icr, true_wheel_radius,
+            true_axial_distance, exp["ctrl_sigma"], exp["learning_rate"],
+            exp["alpha"], 1.0 / exp["alpha"], exp["prior_sigma"],
+            exp["mpf_learning_rate"], exp["mpf_obs_std"], **kwargs)
+
+    return _sweep_adapter(groups, skid_clock, fused_skid_steer_sweep_groups)
+
+
 # -- particle navigation --------------------------------------------------------
 
 
@@ -450,7 +506,12 @@ def particle_episode_fn(model, controller, svmpc=None, mpf=None,
     the simulator, the simulator mass gains `load` at steps // 4, a
     collision terminates the episode as a crash, reaching within
     `success_dist` of the target (full 4-dim distance) terminates it as a
-    success. All `steps` run; the state freezes once done.
+    success. All `steps` run; the state freezes once done. The model owns
+    the load and the goal: `model.loaded_params(sim_mass, load)` gives the
+    simulator's parameters before steps // 4 and from then on, and the
+    distance to the target is taken over `model.goal_coords` (the skid-steer
+    stack, `SKID_STEER_DEMO_CONFIG`, runs the same loop: its `sim_mass` is
+    the dict of its true parameters, its goal (x, y, v, omega)).
 
     Returns episode(generator, state0, dstate, svstate, mstate, sim_mass)
     -> (final_state, done, crashed, cum_cost, logs), logs = (states,
@@ -470,8 +531,7 @@ def particle_episode_fn(model, controller, svmpc=None, mpf=None,
     has_map = model.with_obstacle and model.obst_map is not None
 
     def episode(generator, state0, dstate, svstate, mstate, sim_mass):
-        base_mass = torch.as_tensor(sim_mass, dtype=torch.float32,
-                                    device=dev)
+        unloaded, loaded = model.loaded_params(sim_mass, load)
         state = torch.as_tensor(state0, dtype=torch.float32, device=dev)
         done = crashed = False
         cum = torch.zeros((), device=dev)
@@ -495,11 +555,11 @@ def particle_episode_fn(model, controller, svmpc=None, mpf=None,
                 dstate, next_actions = ctrl.step(dstate, strategy="argmax")
                 action = next_actions.reshape(-1)
 
-            mass = base_mass + load if t >= change_at else base_mass
             if not done:
                 with span("simulator.step"):
-                    state = model.step(state[None], action[None],
-                                       {"mass": mass})[0]
+                    state = model.step(
+                        state[None], action[None],
+                        loaded if t >= change_at else unloaded)[0]
                 if mpf is not None and t >= warm_up:
                     with span("mpf.optimize"):
                         mstate, _, _ = mpf.optimize(
@@ -511,7 +571,9 @@ def particle_episode_fn(model, controller, svmpc=None, mpf=None,
                 cum = cum + cost
             crash_now = (model.obst_map.get_collisions(state[:2]) > 0) \
                 if has_map else torch.zeros((), dtype=torch.bool, device=dev)
-            success_now = torch.linalg.norm(target - state) <= success_dist
+            success_now = (torch.linalg.norm(target
+                                             - model.goal_coords(state))
+                           <= success_dist)
             # the one host read of the step
             crash_now, success_now = (bool(v) for v in torch.stack(
                 [crash_now, success_now]).cpu())

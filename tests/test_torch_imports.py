@@ -48,6 +48,8 @@ def test_package_imports_without_jax_or_dust_tpu():
                  "models.obstacle_map", "models.particle",
                  "ops.particle_rollout", "ops.particle_mpf",
                  "ops.particle_episode", "ops.particle_sweep_episode",
+                 "ops.cartpole_episode", "ops.cartpole_sweep_episode",
+                 "ops.skid_steer_episode", "ops.skid_steer_sweep_episode",
                  "ops.svgd", "ops.gmm", "ops.mpf_stream",
                  "ops.stream_split", "utils", "utils.utf",
                  "controllers.amppi", "controllers.base", "models.cartpole",
@@ -74,7 +76,7 @@ def test_every_c_entry_has_a_signature_and_a_source():
         assert len(defined) == 1, (name, defined)
     for name in ("particle_rollout.cu", "particle_mpf.cu", "particle_solve.cu",
                  "particle_episode.cu", "svgd_phi.cu", "gmm_score.cu",
-                 "mpf_stream.cu"):
+                 "mpf_stream.cu", "skid_steer_episode.cu"):
         assert name in sources
     calls = set()
     for path in sorted(PKG_DIR.rglob("*.py")):
@@ -87,7 +89,8 @@ def test_every_c_entry_has_a_signature_and_a_source():
     assert {"dust_particle_rollout_costs", "dust_particle_mpf_optimize",
             "dust_particle_solve", "dust_particle_episodes", "dust_svgd_phi",
             "dust_gmm_score", "dust_mpf_stream_step",
-            "dust_pendulum_episodes", "dust_cartpole_episodes"} <= calls
+            "dust_pendulum_episodes", "dust_cartpole_episodes",
+            "dust_skid_steer_episodes"} <= calls
 
 
 def test_signatures_match_the_c_entries():

@@ -23,12 +23,19 @@ from dust_tpu_torch.experiments import (
     CARTPOLE_DEMO_CONFIG,
     PARTICLE_DEMO_CONFIG,
     PENDULUM_DEMO_CONFIG,
+    SKID_STEER_DEMO_CONFIG,
     build_particle_stack,
     build_pendulum_stack,
 )
-from dust_tpu_torch.ops import _build, cartpole_episode, particle_episode
+from dust_tpu_torch.ops import (
+    _build,
+    cartpole_episode,
+    particle_episode,
+    skid_steer_episode,
+)
 from dust_tpu_torch.ops import cartpole_sweep_episode as cse
 from dust_tpu_torch.ops import particle_sweep_episode as pse
+from dust_tpu_torch.ops import skid_steer_sweep_episode as sse
 from dust_tpu_torch.ops import sweep_episode as pen
 from dust_tpu_torch.ops import sweep_inputs
 from dust_tpu_torch.ops.episode import PENDULUM
@@ -42,13 +49,14 @@ from dust_tpu_torch.simulation import (
     megakernel_cartpole_sweep_fn,
     megakernel_particle_sweep_fn,
     megakernel_pendulum_sweep_fn,
+    megakernel_skid_steer_sweep_fn,
 )
 from perfbench.reference._common import chain_seeds
 
 TINY = dict(horizon=6, n_particles=2, action_samples=8, params_samples=2,
             mpf_n_particles=8, mpf_steps=3)
 STEPS, N_SC = 3, 2
-TASKS = ["pendulum", "particle", "cartpole"]
+TASKS = ["pendulum", "particle", "cartpole", "skid_steer"]
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -118,6 +126,45 @@ class Case:
                 make = megakernel_cartpole_sweep_fn
             self.adapter = lambda: make(stack, exp, steps=STEPS, n_sc=n_sc,
                                         n_chains=n_chains)
+        elif task == "skid_steer":
+            cfg = copy.deepcopy(SKID_STEER_DEMO_CONFIG)
+            cfg["exp_params"].update(exp_over)
+            stack = build_particle_stack(
+                cfg, torch.Generator().manual_seed(3), device="cpu")
+            exp = cfg["exp_params"]
+            mstate = stack.mpf.init_state(stack.mpf_init, stack.init_state,
+                                          2, bw=stack.mpf_init_bw)
+            self.module, self.fn = sse, sse.fused_skid_steer_sweep_groups
+            self.counter = sse.fused_skid_steer_sweep_groups
+            self.scal = "skid_steer_scal"
+            # x_icr, wheel radii, axial distances
+            self.true_values = lambda n: [
+                torch.linspace(0.15, 0.25, n),
+                torch.linspace(0.05625, 0.06875, n),
+                torch.linspace(0.4275, 0.5225, n)]
+            self.args = [
+                stack.init_state, stack.init_policies,
+                stack.policies_prior.locs,
+                torch.log_softmax(stack.policies_prior.logits, dim=0),
+                stack.controller.init_state().a_mat, stack.mpf_init,
+                mstate.prior_bw, *self.true_values(n_sc),
+                exp["ctrl_sigma"], exp["learning_rate"], exp["alpha"],
+                1.0 / exp["alpha"], exp["prior_sigma"],
+                exp["mpf_learning_rate"], exp["mpf_obs_std"]]
+            self.kwargs = dict(
+                n_sc=n_sc, steps=STEPS, hz=exp["horizon"],
+                m=exp["n_particles"], n_params=exp["params_samples"],
+                n_act=exp["action_samples"], m_mpf=exp["mpf_n_particles"],
+                mpf_steps=exp["mpf_steps"], load_step=1, load_scale=2.0,
+                success_dist=stack.success_dist,
+                mpf_log_space=exp["mpf_log_space"],
+                mpf_fixed_bw=stack.mpf_bw,
+                mpf_bw_scale=exp["mpf_bandwidth_scaling"],
+                n_chains=n_chains,
+                **skid_steer_episode.skid_steer_kernel_statics(stack.model))
+            self.theta0, self.trues, self.lr = 1, [7, 8, 9], 11
+            self.adapter = lambda: megakernel_skid_steer_sweep_fn(
+                stack, exp, steps=STEPS, n_sc=n_sc, n_chains=n_chains)
         else:
             cfg = copy.deepcopy(PARTICLE_DEMO_CONFIG)
             cfg["exp_params"].update(exp_over)
@@ -417,7 +464,8 @@ def test_argument_matching(a, b, want):
 @pytest.mark.parametrize("task,kernel", [
     ("pendulum", PENDULUM), ("particle", particle_episode.K9),
     ("particle", particle_episode.K10), ("cartpole", cartpole_episode.KERNEL),
-], ids=["K4/K5", "K9", "K10", "K14"])
+    ("skid_steer", skid_steer_episode.KERNEL),
+], ids=["K4/K5", "K9", "K10", "K14", "K15"])
 @pytest.mark.parametrize("host_noise", [False, True],
                          ids=["device RNG", "host noise"])
 def test_launch_args_match_the_entry(task, kernel, host_noise):
