@@ -21,7 +21,9 @@ episode, a 20-step K5 sweep on fixed seeded inputs (host noise) at the
 demo's 50 MPF particles and at 48, 49, 52, 53, 64, 100 and 256 (both MPF
 loops of the episode kernels), the timed 200-step K5 and K14 sweeps
 (device noise), a 200-step K9 episode (device noise) and a 20-step K10
-sweep (its final log-weights with it; device noise and host noise), so
+sweep (its final log-weights with it; device noise and host noise) at
+the demo's 50 MPF particles and at 48, 49, 52, 53 and 64 (both MPF loops
+of K9/K10), with the timed K10 sweep's per-phase clock, so
 that two trees can be held bit for bit, and reads the episode wrappers'
 launch, prepared-input and MPF-loop counters after its calls. It also
 hashes a 20-step K14 sweep from a start angle of 2e5 rad, where every
@@ -31,7 +33,8 @@ the tree has them. It also
 times one 256-episode K14 sweep (path 16, as K5's) and, where the tree
 has it, one 256-episode K15 sweep (path 17), and hashes K15's outputs;
 and reads the registers and spill bytes of the episode kernels K4/K5,
-K9/K10, K14 and K15 from the build's ptxas report (empty where the
+K9/K10, K14 and K15 and of K7's register loop from the build's ptxas
+report (empty where the
 library was already built). Where the tree has them, it prints the
 per-phase clocks of K1, K2, K3, K6 and K7 (their clocked builds,
 `chip_smoke._phase_clock`). It prints one line, `RESULT {json}`. To
@@ -111,7 +114,8 @@ def device_ops(fn, calls=20):
 def ptxas_usage(log, kernels=("pendulum_episode_kernel",
                                 "particle_episode_kernel",
                                 "cartpole_episode_kernel",
-                                "skid_steer_episode_kernel")):
+                                "skid_steer_episode_kernel",
+                                "particle_mpf_reg_kernel")):
     """{mangled entry: {registers, spill_stores, spill_loads}} of each
     compiled entry whose name holds one of `kernels`, from the build's
     `ptxas -v` lines."""
@@ -435,6 +439,24 @@ for key, nz in (("k10_sha256", None), ("k10_host_noise_sha256", k10_noise)):
         torch.tensor([[3, 7]], device=dev), k10_masses, steps, cs.PSWEEP_SC,
         cs.PSWEEP_CHAINS, noise=nz)
     res[key] = sha256(k10_out[k] for k in sorted(k10_out))
+# the same sweep at other MPF widths, in both noise modes: 49 and 52 (the
+# ends of K9/K10's register loop), 48, 53 and 64 (its shared-memory walk)
+for m_mpf in (48, 49, 52, 53, 64):
+    wcfg = copy.deepcopy(cfg)
+    wcfg["exp_params"]["mpf_n_particles"] = m_mpf
+    wx = torch.log(torch.tensor(
+        1.6 + 0.8 * np.random.default_rng(m_mpf).random((m_mpf, 1)),
+        dtype=torch.float32, device=dev))
+    for key, nz in ((f"k10_sha256_mpf{m_mpf}", None),
+                    (f"k10_host_noise_sha256_mpf{m_mpf}", k10_noise)):
+        w_out = cs._psweep_call(
+            pse.fused_particle_sweep_groups, wcfg, stack,
+            torch.tensor([[3, 7]], device=dev), k10_masses, steps,
+            cs.PSWEEP_SC, cs.PSWEEP_CHAINS, mpfx0=wx, noise=nz)
+        res[key] = sha256(w_out[k] for k in sorted(w_out))
+# the timed 256-episode K10 sweep's per-phase clock (its clocked build)
+res["k10_clock"] = cs._phase_clock(
+    f"{tree} K10", lambda: groups.run(seeds(1), masses), pe.phase_clock)
 # the episode wrappers' counters after this script's calls (None where the
 # tree's wrapper has no such counter)
 res["counters"] = {

@@ -32,11 +32,19 @@
 // order (stein.cuh:sum_draws); the per-step noise (120 KB at the
 // demo shapes) lives in device memory, read one step ahead of the chain.
 // The DISCO delta takes 8 lanes per entry (neighbouring noise values), the
-// MPF loop a quad of lanes per particle (particle_mpf.cuh), and the
-// Silverman bandwidths their order statistics from a bitonic sort in
+// MPF loop a quad of lanes per particle (particle_mpf.cuh:
+// episode_mass_stein_loop): at 49-52 particles (the demo's 50) each quad
+// holds its row and each lane its squared distances in registers, the
+// centers and the (particle, drive term) pairs in shared memory, one block
+// barrier per iteration and the quotients through rcp.rn (K7's register
+// loop, the same bits as the shared walk it replaced there), every other
+// size the walk over shared memory with three barriers. The Silverman
+// bandwidths take their order statistics from a bitonic sort in
 // shared memory (stein.cuh:silverman_sorted) in place of the O(n^2) rank
 // count. A grid of B blocks runs B independent episodes, two blocks per SM
-// (<= 128 registers).
+// (<= 128 registers). Shared memory holds the arrays of fixed size first,
+// then the MPF block (its float2 scratch 8-byte aligned), then the arrays
+// that scale with the policy particles.
 // The clocked build (kClock) stamps the phases of each step (chip_smoke.py
 // reads it through ops/particle_episode.py:phase_clock).
 
@@ -114,21 +122,25 @@ __host__ __device__ inline int pow2_at_least(int n) {
   return p;
 }
 
+// the floats before the MPF block, rounded up to an even count so that
+// its float2 scratch is 8-byte aligned
+constexpr int kFixed = (kModelFloats + 3 * kMaxM * kMaxM + 6 * kMaxM +
+                        3 * kMaxParams + 2 * kWarps + 8 + kScalars + 1) /
+                       2 * 2;
+
 __host__ __device__ inline size_t episode_smem_floats(int m, int ev,
                                                       int n_act, int m_mpf,
                                                       int n_params) {
-  return kModelFloats + 5 * static_cast<size_t>(m) * ev +
-         3 * static_cast<size_t>(m) * n_act + 3 * kMaxM * kMaxM +
-         6 * kMaxM + 3 * kMaxParams + 2 * kWarps + 8 +
-         4 * static_cast<size_t>(m_mpf) + kScalars +
-         static_cast<size_t>(n_params) * m * n_act +
+  return kFixed + 6 * static_cast<size_t>(m_mpf) +
+         5 * static_cast<size_t>(m) * ev +
+         (3 + static_cast<size_t>(n_params)) * m * n_act +
          pow2_at_least(m * ev > m_mpf ? m * ev : m_mpf);
 }
 
 template <bool kClock>
 __global__ void __launch_bounds__(kThreads, 2)
     particle_episode_kernel(EpisodeArgs a) {
-  extern __shared__ float sh[];
+  extern __shared__ __align__(16) float sh[];
   __shared__ long long clk_acc[kClkPhases];
   const int b = blockIdx.x;
   const int tid = threadIdx.x;
@@ -140,17 +152,11 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int ma = m * n_act;
   const int n_eps = 2 * hz * ma;
 
+  // the arrays of fixed size first, at constant offsets; then the MPF
+  // block, its float2 scratch 8-byte aligned; then the policy arrays
   float* km = sh;
-  float* theta = km + kModelFloats;
-  float* locs = theta + mh;
-  float* amat = locs + mh;
-  float* score = amat + mh;
-  float* theta_new = score + mh;
-  float* mcost = theta_new + mh;
-  float* omega = mcost + ma;
-  float* w_lik = omega + ma;
   SteinSmem ss;
-  ss.lp = w_lik + ma;
+  ss.lp = km + kModelFloats;
   ss.r = ss.lp + kMaxM * kMaxM;
   ss.kmat = ss.r + kMaxM * kMaxM;
   ss.rowsum = ss.kmat + kMaxM * kMaxM;
@@ -163,13 +169,20 @@ __global__ void __launch_bounds__(kThreads, 2)
   float* pdz = im + kMaxParams;
   float* pdu = pdz + kMaxParams;
   float* red = pdu + kMaxParams;      // 2 * kWarps + 8
-  float* sx = red + 2 * kWarps + 8;   // MPF (log-)mass particles
-  float* scc = sx + m_mpf;            // MPF prior centers
-  float* st = scc + m_mpf;            // MPF drive terms
-  float* sn = st + m_mpf;             // MPF new particles
-  float* sv = sn + m_mpf;             // [kScalars]
+  float* sv = red + 2 * kWarps + 8;   // [kScalars]
   ss.i_star = reinterpret_cast<int*>(sv + kScalars - 1);
-  float* dcost = sv + kScalars;       // [n_params, m * n_act] draw costs
+  float* mpf_w = sh + kFixed;         // [4, m_mpf] MPF scratch
+  float* sx = mpf_w + 4 * m_mpf;      // MPF (log-)mass particles
+  float* scc = sx + m_mpf;            // MPF prior centers
+  float* theta = scc + m_mpf;
+  float* locs = theta + mh;
+  float* amat = locs + mh;
+  float* score = amat + mh;
+  float* theta_new = score + mh;
+  float* mcost = theta_new + mh;
+  float* omega = mcost + ma;
+  float* w_lik = omega + ma;
+  float* dcost = w_lik + ma;          // [n_params, m * n_act] draw costs
   float* srt = dcost + n_params * ma; // the Silverman sort
   const int n_sort = pow2_at_least(mh);
   const int n_sort_mpf = pow2_at_least(m_mpf);
@@ -376,8 +389,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       const dp::MassMpf k{bw_mpf, prior_bw, mpf_lr, mpf_sigma,
                           sv[kLikVx], sv[kLikVy], sv[kAx], sv[kAy],
                           sv[kNvx], sv[kNvy], mscale};
-      dp::mass_stein_loop(sx, scc, st, sn, m_mpf, a.mpf_steps, k, max_acc,
-                          max_speed, a.log_space);
+      dp::episode_mass_stein_loop(sx, scc, mpf_w, m_mpf, a.mpf_steps, k,
+                                  max_acc, max_speed, a.log_space);
     }
     clk.mark(kClkMpf);
     if (tid == 0) {

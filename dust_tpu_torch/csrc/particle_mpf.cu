@@ -19,15 +19,18 @@
 // of lanes per particle row (kRowLanes, K9/K10's order, so the outputs
 // keep the parent's bits), each lane walking every 4th column, the quad's
 // sums meeting in a butterfly. Up to kRegMax = 64 particles (the demo's
-// m = 50) mass_stein_loop_reg: each quad holds its row and each lane its
-// centers and squared distances in registers (K2's design), so an
+// m = 50) mass_stein_loop_reg, the loop K9/K10 take at 49-52 particles
+// with their centers in shared memory: each quad holds its row and each
+// lane its centers and squared distances in registers (K2's design), so an
 // iteration is a walk over registers, one over the shared (particle,
 // drive term) pairs (a float2 per column), and one block barrier, where
 // the parent's loop walked shared memory three times and took three
-// barriers; its reciprocals are rcp.rn and its quotients go through them
-// (stein.cuh:div_rn), with the IEEE division's bits, and its prior-score
-// max takes fmaxf, as K2's. Above that the general path is the parent's:
-// K9/K10's mass_stein_loop on particles and centers in shared memory (a
+// barriers; its columns are unrolled branch-free (a column past the
+// lane's last adds exactly zero), its reciprocals are rcp.rn and its
+// quotients go through them (stein.cuh:div_rn), with the IEEE division's
+// bits, and its prior-score max takes fmaxf, as K2's. Above that the
+// general path: mass_stein_loop (K9/K10's at their other widths) on
+// particles and centers in shared memory (a
 // one-barrier version of it measured 0.8% faster at m = 1024, a size no
 // path runs). The eleven scalars arrive as kernel arguments, each a
 // device pointer or a value (MassScalars), so a call launches this kernel
@@ -35,9 +38,11 @@
 // chip_compare.py): 0.0206 ms against the parent's 0.0356-0.0358; K2's 8
 // lanes per row were 6% slower than the quad and 2 lanes 15% slower (in
 // one dimension the per-row work that a group's lanes repeat outweighs
-// the shorter walk). The arithmetic follows the plain PyTorch version
-// operation by operation, the order of the sums too (built with
-// --fmad=false, expf at full precision).
+// the shorter walk); with its columns branch-free (the loop shared with
+// K9/K10) 0.0200-0.0203 ms against 0.0208-0.0209 in one call, 80 / 79
+// registers where 98 / 90 (13 columns, clocked / timed). The arithmetic
+// follows the plain PyTorch version operation by operation, the order of
+// the sums too (built with --fmad=false, expf at full precision).
 
 #include <cuda_runtime.h>
 
@@ -91,9 +96,9 @@ particle_mpf_reg_kernel(const float* __restrict__ x_in,
   const MassMpf k = read_scalars(s);
   // [2, m] (particle, drive term) pairs
   float2* xt = reinterpret_cast<float2*>(sh);
-  dust_particle::mass_stein_loop_reg<kRowLanes, kCols>(
-      x_in, centers, x_out, xt, m, n_steps, k, max_acc, max_speed,
-      log_space, clk);
+  dust_particle::mass_stein_loop_reg<kRowLanes, kCols, 0>(
+      dust_particle::MassDeviceIo{x_in, centers, x_out}, xt, m, n_steps, k,
+      max_acc, max_speed, log_space, clk);
   clk.write(clock);
 }
 

@@ -1,9 +1,14 @@
 // The MPF Stein loops over the particle task's one-dimensional (log-)mass
-// posterior as block-level device code: `mass_stein_loop`, shared by the
-// whole-episode kernel (K9/K10, particle_episode.cu) and the MPF kernel's
-// general path (K7, particle_mpf.cu), and `mass_stein_loop_reg`, K7's loop
-// up to kLanes * kCols particles. K2's loops (pendulum_mpf.cuh) reduced to
-// one dimension. The two give the same bits for one lane count.
+// posterior as block-level device code, shared by the MPF kernel (K7,
+// particle_mpf.cu) and the whole-episode kernel (K9/K10,
+// particle_episode.cu): `mass_stein_loop_reg`, one row per quad held in
+// registers and one block barrier per iteration (K7 up to 64 particles,
+// its centers in registers; K9/K10 at 49-52, the demo's 50, their centers
+// in shared memory, through `episode_mass_stein_loop`), and
+// `mass_stein_loop`, the walk over particles and centers in shared memory
+// (every other size). K2's and K5's loops (pendulum_mpf.cuh:
+// stein_loop_reg with PairIo / SplitIo, stein_loop) reduced to one
+// dimension. The two give the same bits for one lane count.
 //
 // n_steps SVGD iterations on m particles, a group of lanes per particle
 // row (the block's groups take the rows in turn). Each iteration, for
@@ -206,35 +211,75 @@ __device__ __forceinline__ float mass_update(float x0, float rows,
                                         c.fm, c.inv_fm);
 }
 
-// K7's loop for m <= kLanes * kCols particles, one row per group
+// The particles of `mass_stein_loop_reg` in device memory (K7): x_in,
+// centers, x_out [m]; the centers held in registers.
+struct MassDeviceIo {
+  static constexpr bool kRegCenters = true;
+  const float* __restrict__ x_in;
+  const float* __restrict__ centers;
+  float* __restrict__ x_out;
+  __device__ __forceinline__ float row(int i) const { return x_in[i]; }
+  __device__ __forceinline__ float center(int j) const { return centers[j]; }
+  __device__ __forceinline__ void store(int i, float v) const {
+    x_out[i] = v;
+  }
+};
+
+// The particles of `mass_stein_loop_reg` in the episode kernels' shared
+// arrays (K9/K10): x [m] the loop's start and its result, centers [m] the
+// particles at the start, read from shared memory at each use. The caller
+// puts a block barrier between the loop and the next read of x.
+struct MassSharedIo {
+  static constexpr bool kRegCenters = false;
+  float* x;
+  const float* centers;
+  __device__ __forceinline__ float row(int i) const { return x[i]; }
+  __device__ __forceinline__ float center(int j) const { return centers[j]; }
+  __device__ __forceinline__ void store(int i, float v) const { x[i] = v; }
+};
+
+// The loop for m <= kLanes * kCols particles, one row per group
 // (blockDim.x >= kLanes * m): row i = g is held in a register by its
-// group's lanes, and lane l keeps the centers j = l, l + kLanes, ... (at
-// most kCols) in registers, with its squared distances to them from the
-// max pass to the exp pass. x_in, centers, x_out [m] in device memory;
-// xt: 2 * m float2 of shared memory, the (particle, drive term) pairs of
-// two iterations in turn, so the drive walk reads one float2 per column.
-// One block barrier per iteration, between the prior score (which reads
-// only registers) and the drive walk: iteration it writes the pairs of
-// buffer it & 1, which the walk of iteration it - 2 read before the
-// barrier of iteration it - 1.
-template <int kLanes, int kCols, class Clock>
-__device__ inline void mass_stein_loop_reg(
-    const float* __restrict__ x_in, const float* __restrict__ centers,
-    float* __restrict__ x_out, float2* xt, int m, int n_steps,
-    const MassMpf& k, float ma, float ms, int log_space, Clock& clk) {
+// group's lanes, and lane l walks the columns j = l, l + kLanes, ... (at
+// most kCols), keeping its squared distances to the centers from the max
+// pass to the exp pass. The centers: with MassDeviceIo in the lane's
+// registers, with MassSharedIo in shared memory. The columns are unrolled
+// branch-free, so that the loads and exps of a pass overlap: the first
+// kSure are every lane's (m >= kLanes * kSure), at fixed offsets; a column
+// past the lane's last reads column m - 1 and adds exactly zero (its
+// exponent is -inf: ex2 gives +0). io: where the particles start (io.row)
+// and where the result goes (io.store, after the last barrier). xt: 2 * m
+// float2 of shared memory (8-byte aligned), the (particle, drive term)
+// pairs of two iterations in turn, so the drive walk reads one float2 per
+// column. One block barrier per iteration, between the prior score (which
+// reads no shared state the loop writes) and the drive walk: iteration it
+// writes the pairs of buffer it & 1, which the walk of iteration it - 2
+// read before the barrier of iteration it - 1.
+template <int kLanes, int kCols, int kSure, class Io, class Clock>
+__device__ inline void mass_stein_loop_reg(const Io& io, float2* xt, int m,
+                                           int n_steps, const MassMpf& k,
+                                           float ma, float ms, int log_space,
+                                           Clock& clk) {
+  static_assert(kSure <= kCols, "kSure: columns every lane has");
   using dust_solve::lane_group_sum;
+  constexpr bool kRegCenters = Io::kRegCenters;
   const int i = threadIdx.x / kLanes;  // this group's row
   const int l = threadIdx.x % kLanes;
   const unsigned mask = dust_solve::lane_group_mask(kLanes);
   const bool row = i < m;
   const MassConsts c = mass_consts(k, m);
-  // this lane's columns j = l + kLanes q, q < nc
-  const int nc = row ? (m - l + kLanes - 1) / kLanes : 0;
-  float cc[kCols], dc[kCols];
-  float x0 = row ? x_in[i] : 0.0f;
+  // unrolled column q is j = l + kLanes q where j < m, else m - 1
+  const auto col = [&](int q) {
+    return q < kSure ? l + kLanes * q : min(l + kLanes * q, m - 1);
+  };
+  const auto real = [&](int q) { return q < kSure || l + kLanes * q < m; };
+  float cc[kRegCenters ? kCols : 1];
+  float dc[kCols];
+  float x0 = row ? io.row(i) : 0.0f;
+  if constexpr (kRegCenters) {
 #pragma unroll
-  for (int q = 0; q < kCols; ++q)
-    cc[q] = q < nc ? centers[l + kLanes * q] : 0.0f;
+    for (int q = 0; q < kCols; ++q) cc[q] = row ? io.center(col(q)) : 0.0f;
+  }
   clk.mark(kMpfClkLoad);
 
   for (int it = 0; it < n_steps; ++it) {
@@ -246,21 +291,29 @@ __device__ inline void mass_stein_loop_reg(
       float mx = -INFINITY;
 #pragma unroll
       for (int q = 0; q < kCols; ++q) {
-        if (q < nc) {
-          const float d = x0 - cc[q];
-          dc[q] = (d * d) * c.cp;
-          mx = fmaxf(mx, dc[q]);
+        float cq;
+        if constexpr (kRegCenters) {
+          cq = cc[q];
+        } else {
+          cq = io.center(col(q));
         }
+        const float d = x0 - cq;
+        dc[q] = real(q) ? (d * d) * c.cp : -INFINITY;
+        mx = fmaxf(mx, dc[q]);
       }
       mx = dust_solve::lane_group_fmax<kLanes>(mx, mask);
       float psum = 0.0f, pc = 0.0f;
 #pragma unroll
       for (int q = 0; q < kCols; ++q) {
-        if (q < nc) {
-          const float p = ex2(dc[q] - mx);
-          psum = psum + p;
-          pc = pc + p * cc[q];
+        float cq;
+        if constexpr (kRegCenters) {
+          cq = cc[q];
+        } else {
+          cq = io.center(col(q));
         }
+        const float p = ex2(dc[q] - mx);
+        psum = psum + p;
+        pc = pc + p * cq;
       }
       psum = lane_group_sum<kLanes>(psum, mask);
       pc = lane_group_sum<kLanes>(pc, mask);
@@ -274,13 +327,11 @@ __device__ inline void mass_stein_loop_reg(
       float rows = 0.0f, drive = 0.0f;
 #pragma unroll
       for (int q = 0; q < kCols; ++q) {
-        if (q < nc) {
-          const float2 v = xa[l + kLanes * q];
-          const float d = x0 - v.x;
-          const float kk = ex2((d * d) * c.ck);
-          rows = rows + kk;
-          drive = drive + kk * v.y;
-        }
+        const float2 v = xa[col(q)];  // x_j, then its drive term
+        const float d = x0 - v.x;
+        const float kk = ex2(real(q) ? (d * d) * c.ck : -INFINITY);
+        rows = rows + kk;
+        drive = drive + kk * v.y;
       }
       rows = lane_group_sum<kLanes>(rows, mask);
       drive = lane_group_sum<kLanes>(drive, mask);
@@ -288,8 +339,55 @@ __device__ inline void mass_stein_loop_reg(
     }
     clk.mark(kMpfClkDrive);
   }
-  if (row && l == 0) x_out[i] = x0;
+  if (row && l == 0) io.store(i, x0);
   clk.mark(kMpfClkStore);
+}
+
+// The clock of the MPF loop inside the episode kernels: times nothing.
+struct NoClock {
+  __device__ __forceinline__ void mark(int) {}
+};
+
+// The episode kernels' register loop (K9/K10): each lane holds
+// kEpisodeRegCols columns or one fewer, so it serves kRowLanes *
+// (kEpisodeRegCols - 1) < m <= kRowLanes * kEpisodeRegCols (49-52: the
+// demo's 50; ops/mpf.py:episode_register_loop); the shared walk every
+// other m. One instantiation, as K4/K5's and K14's
+// (pendulum_mpf.cuh:kEpisodeRegCols).
+constexpr int kEpisodeRegCols = 13;
+
+// The register loop of K9/K10 (episode_mass_stein_loop's first branch),
+// kept out of line: inlined, its unrolled columns changed how the
+// compiler allocated the rest of the kernel (the clocked build spilled 16
+// B, and its rollouts ran 9 us a step slower at one block an SM); called,
+// the kernel's other phases compile as they did beside the shared walk.
+static __device__ __noinline__ void episode_mass_stein_loop_reg(
+    float* sx, const float* sc, float* w, int m, int n_steps,
+    const MassMpf k, float ma, float ms, int log_space) {
+  NoClock clk;
+  mass_stein_loop_reg<kRowLanes, kEpisodeRegCols, kEpisodeRegCols - 1>(
+      MassSharedIo{sx, sc}, reinterpret_cast<float2*>(w), m, n_steps, k, ma,
+      ms, log_space, clk);
+}
+
+// The MPF loop of K9/K10 on their particles sx [m] in shared memory, with
+// the centers sc [m] (the particles at the start, copied by the caller),
+// the result back in sx: the register loop where m fits its columns
+// (blockDim.x >= kRowLanes * m), the shared walk otherwise. w: 4 m floats
+// of shared scratch, 8-byte aligned (the register loop's float2 pairs;
+// the shared walk's drive terms and new particles). Ends with a block
+// barrier.
+__device__ inline void episode_mass_stein_loop(float* sx, const float* sc,
+                                               float* w, int m, int n_steps,
+                                               const MassMpf& k, float ma,
+                                               float ms, int log_space) {
+  if (m > kRowLanes * (kEpisodeRegCols - 1) &&
+      m <= kRowLanes * kEpisodeRegCols) {
+    episode_mass_stein_loop_reg(sx, sc, w, m, n_steps, k, ma, ms, log_space);
+    __syncthreads();
+  } else {
+    mass_stein_loop(sx, sc, w, w + m, m, n_steps, k, ma, ms, log_space);
+  }
 }
 
 }  // namespace dust_particle

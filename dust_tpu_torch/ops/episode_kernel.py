@@ -40,8 +40,9 @@ class EpisodeKernel:
     * `log_mix`: None where the entry has no final log-mix output, else
       whether the launch writes it (K10) or passes a null pointer (K9);
     * `counts_mpf_loop`: whether each launch is counted by the MPF loop it
-      takes (`mpf.episode_register_loop`; the pendulum's Stein loop, which
-      K4/K5, K14 and K15 run);
+      takes (`mpf.episode_register_loop`: the rule of the pendulum's Stein
+      loop, which K4/K5, K14 and K15 run, and of the particle's mass loop,
+      which K9/K10 run);
     * `rollout_guards`: None, or where the entry counts its rollouts'
       fallbacks (K14, K15: a pointer after the clock),
       `rollout_guards(st, B)`, the guarded steps of a launch of B

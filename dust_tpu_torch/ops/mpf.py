@@ -41,10 +41,11 @@ EPISODE_ROW_LANES = 4
 # K2 keeps each lane's centers in registers up to this many particles
 # (csrc/pendulum_mpf.cu:kRegMax)
 REGISTER_MAX = 64
-# the episode kernels' (K4/K5, K14, K15) register loop: a row per quad, each
-# lane holding EPISODE_REGISTER_COLS columns or one fewer, so it serves
-# EPISODE_REGISTER_MIN <= m_mpf <= EPISODE_REGISTER_MAX (49-52); the
-# shared-memory walk every other size (csrc/pendulum_mpf.cuh:kEpisodeRegCols)
+# the episode kernels' (K4/K5, K9/K10, K14, K15) register loop: a row per
+# quad, each lane holding EPISODE_REGISTER_COLS columns or one fewer, so it
+# serves EPISODE_REGISTER_MIN <= m_mpf <= EPISODE_REGISTER_MAX (49-52); the
+# shared-memory walk every other size (csrc/pendulum_mpf.cuh and
+# csrc/particle_mpf.cuh: kEpisodeRegCols)
 EPISODE_REGISTER_COLS = 13
 EPISODE_REGISTER_MAX = EPISODE_ROW_LANES * EPISODE_REGISTER_COLS
 EPISODE_REGISTER_MIN = EPISODE_ROW_LANES * (EPISODE_REGISTER_COLS - 1) + 1
@@ -58,10 +59,12 @@ phase_clock = PhaseClock(CLOCK_PHASES)
 
 def episode_register_loop(m_mpf):
     """Whether an episode kernel's MPF update over m_mpf particles takes the
-    register loop (`stein_loop_reg`, K15's `stein_loop_reg_nd`) rather than
-    the shared-memory walk (`stein_loop`, `stein_loop_nd`):
-    csrc/pendulum_mpf.cuh:episode_stein_loop's rule, and
-    episode_stein_loop_nd's at three values a particle."""
+    register loop (`stein_loop_reg`, K15's `stein_loop_reg_nd`, K9/K10's
+    `mass_stein_loop_reg`) rather than the shared-memory walk
+    (`stein_loop`, `stein_loop_nd`, `mass_stein_loop`):
+    csrc/pendulum_mpf.cuh:episode_stein_loop's rule, episode_stein_loop_nd's
+    at three values a particle, and
+    csrc/particle_mpf.cuh:episode_mass_stein_loop's at one."""
     return EPISODE_REGISTER_MIN <= m_mpf <= EPISODE_REGISTER_MAX
 
 

@@ -290,7 +290,7 @@ K9 = EpisodeKernel(
     pointers=("model", "scal", "base_mass", "ep_i", "log_mix0", "theta0",
               "locs0", "amat0", "a_seq", "mpfx0"),
     host_noise=True, scalars=_scalars, operands=_model, plan_width=2,
-    mpf_width=1, log_mix=False, counts_mpf_loop=False)
+    mpf_width=1, log_mix=False)
 # K10: the same entry, writing each episode's final prior log-weights
 K10 = replace(K9, log_mix=True)
 
@@ -393,11 +393,14 @@ def fused_particle_episode(*args, **kwargs):
     crashed, cum, bw_sv, bw_mpf [steps], final theta/locs/a_mat
     [m, hz, 2], mpf_x [m_mpf, 1]. CPU tensors take the plain version;
     CUDA tensors launch the kernel (counted in
-    `fused_particle_episode.launches`)."""
+    `fused_particle_episode.launches`, and by the MPF loop it takes in
+    `.mpf_reg_launches` / `.mpf_smem_launches`)."""
     return _episode(_launch_k9, *args, **kwargs)
 
 
 fused_particle_episode.launches = 0
+fused_particle_episode.mpf_reg_launches = 0
+fused_particle_episode.mpf_smem_launches = 0
 
 
 def plain_particle_episode(*args, **kwargs):

@@ -116,7 +116,9 @@ def fused_particle_sweep_groups(*args, **kwargs):
     [G, n_sc] (or [n_sc], shared); host noise, when given, with a leading G
     axis (then the chain axis when n_chains > 1) before the layout of
     `fused_particle_sweep_episode`. Returns that function's dict with a
-    leading G axis. Counted in `fused_particle_sweep_episode.launches`.
+    leading G axis. Counted in `fused_particle_sweep_episode.launches`,
+    and by the MPF loop it takes in `.mpf_reg_launches` /
+    `.mpf_smem_launches`.
 
     A repeat call with the same argument objects (an adapter's, with the
     same true-mass tensor, or views made alike of them) and new seeds
@@ -177,6 +179,8 @@ def fused_particle_sweep_episode(
 
 
 fused_particle_sweep_episode.launches = 0
+fused_particle_sweep_episode.mpf_reg_launches = 0
+fused_particle_sweep_episode.mpf_smem_launches = 0
 fused_particle_sweep_episode.input_hits = 0
 fused_particle_sweep_episode.input_builds = 0
 # the prepared inputs of `_sweep_groups` (both runners)

@@ -219,26 +219,30 @@ def test_mpf_reg_loop_reader_reads_none_without_counters(runner):
     assert _read("mpf_reg_loop_pct", runner=runner, trace=None) is None
 
 
-def test_mpf_reg_loop_counters_on_the_programs_wrappers():
+def test_mpf_reg_loop_counters_on_the_programs_wrappers(monkeypatch):
     """The episode wrappers that `run_episodes` counts carry both
-    counters from import (K4, K5's sweep, K14's sweep); the particle
-    sweep's wrapper (K10, which runs no pendulum MPF loop) carries
-    neither, so its cell reads None."""
+    counters from import (K4, K5's sweep, K9, K10's sweep, K14's sweep);
+    the particle sweep's wrapper, once it has made register-loop launches
+    and no other, reads 100."""
     from dust_tpu_torch.ops import (
         cartpole_sweep_episode,
         particle_sweep_episode,
         sweep_episode,
     )
 
-    for wrapper in (episode.fused_pendulum_episode,
-                    sweep_episode.fused_pendulum_sweep_episode,
-                    cartpole_sweep_episode.fused_cartpole_sweep_groups):
-        assert isinstance(wrapper.mpf_reg_launches, int)
-        assert isinstance(wrapper.mpf_smem_launches, int)
+    wrapper = particle_sweep_episode.fused_particle_sweep_episode
+    for w in (episode.fused_pendulum_episode,
+              sweep_episode.fused_pendulum_sweep_episode,
+              particle_episode.fused_particle_episode, wrapper,
+              cartpole_sweep_episode.fused_cartpole_sweep_groups):
+        assert isinstance(w.mpf_reg_launches, int)
+        assert isinstance(w.mpf_smem_launches, int)
+    monkeypatch.setattr(wrapper, "mpf_reg_launches", 7)
+    monkeypatch.setattr(wrapper, "mpf_smem_launches", 0)
     runner = _counting_runner()
-    runner.sweep.sweep_fn.wrapper = \
-        particle_sweep_episode.fused_particle_sweep_episode
-    assert _read("mpf_reg_loop_pct", runner=runner, trace=None) is None
+    runner.sweep.sweep_fn.wrapper = wrapper
+    got = _read("mpf_reg_loop_pct", runner=runner, trace=None)
+    assert got == pytest.approx(100.0)
 
 
 @pytest.mark.parametrize("fast,fallback,want", [(100, 0, 100.0),
